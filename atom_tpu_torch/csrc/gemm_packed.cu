@@ -1,0 +1,361 @@
+// 4-bit-weight dual-path GEMM (K1) and the fused qkv -> hot-ring kernel (K2).
+//
+// K1 replaces atom_tpu/ops/pallas_gemm_packed.py:284 packed_w4_gemm (bodies
+// _gemm_packed_kernel :63, _gemm_packed_scratch_kernel :100, the K-blocked
+// :127/:178): out f32 [M,N] = sum_g (A_g . W_g)_i32 * sa[:,g] * sw[g,:]
+//                              + (A_k . W_k)_i32 * sa[:,ng] * sw[ng,:].
+// K2 replaces :1261 packed_w4_gemm_qkv_ring_fused (_gemm_qkv_ring_fused_kernel
+// :1073, _quant_prologue :438, _qkv_ring_epilogue :937, _kv_quantize_tile :909).
+//
+// What bounds them on the H100: at decode M = 32 the product is 32 x K x N int8
+// MACs against K*N/2 bytes of 4-bit weights, 64 MACs per weight byte, far below
+// the ~590 int8 ops per byte where the tensor cores become the limit: the
+// weight stream from HBM bounds every call.
+//
+// Design.  A block owns a 32-row x 32-column output tile and walks all of K.
+// Its 8 warps take the 128-wide groups round-robin (warp w: groups w, w+8, ...)
+// so 8 groups' weight loads are in flight per block.  Each warp computes a
+// group's exact int32 dot with mma.sync m16n8k32 (s8 x s8 -> s32): a thread
+// loads 4 byte-rows x 4 columns of nibble planes as four 32-bit words,
+// transposes them with byte permutes so one register holds one column's
+// 4 consecutive K codes, and masks each nibble plane into the high nibble of
+// its byte (the byte then reads as 16 x the signed code; the int32 sum is
+// shifted back down by 4, exactly).  The low nibbles of a byte row are K
+// codes r, the high nibbles K codes r + 64 (formats.py nibble planes), so the
+// mma's K index j < 16 maps to code s*16 + j and j >= 16 to 64 + s*16 + j-16;
+// the A fragment is read with the same permutation.  The int32 group tiles go
+// through shared memory and the float accumulation then runs group by group
+// in order, acc += float(acc_g) * sa * sw, keeper last: the TPU kernel's f32
+// order, so the result matches the plain version bit for bit.  The file is
+// built with --fmad=false and the float math uses _rn intrinsics, so no
+// multiply-add is contracted.
+//
+// Known limits (later work): every block re-reads A (32 x K bytes, from L2)
+// for its 32 columns, twice the bytes of its weight slice; there is no
+// shared-memory staging, cp.async or wgmma yet.
+//
+// K2 runs as three launches on one stream: the RMSNorm + dual-path
+// quantization prologue (one block per token row, since every output tile
+// needs the whole quantized row), the GEMM above into an f32 [M, N] scratch,
+// and the epilogue (one block per row and 128-column head: RoPE on q and k,
+// per-head asymmetric u4 quantization of post-RoPE K and of V, in-place ring
+// stores at column `row`).  The per-head reductions span 128 columns, wider
+// than a GEMM tile, hence the second pass.  NaN note: the TPU kernel's bf16
+// rounding is integer bit math that turns a NaN into Inf; here
+// __float2bfloat16_rn keeps NaN.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int GROUP = 128;
+constexpr int HALF = 64;
+constexpr int TM = 32;     // output rows per block
+constexpr int TN = 32;     // output columns per block
+constexpr int NWARP = 8;   // warps per block
+constexpr int TS = TN + 1; // shared tile row stride (no bank conflicts)
+constexpr int HEAD = 128;  // head_dim of the qkv epilogue
+
+__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ uint32_t ld_a(const int8_t* A, int lda, int M, int row, int col) {
+  return row < M ? ld_u32(A + (size_t)row * lda + col) : 0u;
+}
+
+// t[c] = byte c of w[0..3], in order: a 4 x 4 byte transpose.
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&t)[4]) {
+  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t b = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t c = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
+  t[0] = __byte_perm(a, c, 0x5410);
+  t[1] = __byte_perm(a, c, 0x7632);
+  t[2] = __byte_perm(b, d, 0x5410);
+  t[3] = __byte_perm(b, d, 0x7632);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[mt][c][j]: mma tile of rows m0 + 16*mt, columns n0 + 4*n8 + c
+// (n8 = the mma's own column index); j indexes the mma's 4 accumulators.
+
+// One warp: 16 x (int32 dot) of nibble group g, rows [m0, m0+32), cols [n0, n0+32).
+__device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M, int m0,
+                                                 const int8_t* wp, int N, int n0, int g,
+                                                 int lane, int (&acc)[2][4][4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const int8_t* wrow = wp + (size_t)(g * HALF + tig * 4) * N + n0 + 4 * gid;
+  uint32_t w[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[s][i] = ld_u32(wrow + (size_t)(s * 16 + i) * N);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t t[4];
+    transpose4(w[s], t);
+    const int k = g * GROUP + s * 16 + tig * 4;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = m0 + mt * 16 + gid;
+      a[mt][0] = ld_a(A, lda, M, r, k);
+      a[mt][1] = ld_a(A, lda, M, r + 8, k);
+      a[mt][2] = ld_a(A, lda, M, r, k + HALF);
+      a[mt][3] = ld_a(A, lda, M, r + 8, k + HALF);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t lo = (t[c] << 4) & 0xF0F0F0F0u;  // 16 x code r
+      const uint32_t hi = t[c] & 0xF0F0F0F0u;         // 16 x code r + 64
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][c], a[mt], lo, hi);
+    }
+  }
+}
+
+// One warp: int32 dot of the INT8 keeper block (K = 128 full bytes).
+__device__ __forceinline__ void dot_keeper(const int8_t* A, int lda, int M, int m0,
+                                           const int8_t* wk, int N, int n0, int kb,
+                                           int lane, int (&acc)[2][4][4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const int8_t* wrow = wk + (size_t)(tig * 4) * N + n0 + 4 * gid;
+  uint32_t w[4][2][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[s][0][i] = ld_u32(wrow + (size_t)(s * 32 + i) * N);
+      w[s][1][i] = ld_u32(wrow + (size_t)(s * 32 + 16 + i) * N);
+    }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t t0[4], t1[4];
+    transpose4(w[s][0], t0);
+    transpose4(w[s][1], t1);
+    const int k = kb + s * 32 + tig * 4;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = m0 + mt * 16 + gid;
+      a[mt][0] = ld_a(A, lda, M, r, k);
+      a[mt][1] = ld_a(A, lda, M, r + 8, k);
+      a[mt][2] = ld_a(A, lda, M, r, k + 16);
+      a[mt][3] = ld_a(A, lda, M, r + 8, k + 16);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][c], a[mt], t0[c], t1[c]);
+  }
+}
+
+__global__ void __launch_bounds__(NWARP * 32)
+gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
+                   const int8_t* __restrict__ wk, const float* __restrict__ sa,
+                   const float* __restrict__ sw, float* __restrict__ out, int M, int N, int ng) {
+  __shared__ int tile[NWARP][TM * TS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int total = ng + 1;  // body groups + keeper
+  const int lda = total * GROUP;
+  // this thread's 4 output elements: row er, columns ec .. ec + 3
+  const int er = threadIdx.x / (TN / 4), ec = (threadIdx.x % (TN / 4)) * 4;
+  const int row = m0 + er;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int base = 0; base < total; base += NWARP) {
+    const int g = base + warp;
+    if (g < total) {
+      int ia[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ia[mt][c][j] = 0;
+      if (g < ng)
+        dot_nibble_group(A, lda, M, m0, wp, N, n0, g, lane, ia);
+      else
+        dot_keeper(A, lda, M, m0, wk, N, n0, ng * GROUP, lane, ia);
+      const int shift = g < ng ? 4 : 0;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = mt * 16 + gid + (j >> 1) * 8;
+            const int col = 4 * (tig * 2 + (j & 1)) + c;
+            tile[warp][r * TS + col] = ia[mt][c][j] >> shift;
+          }
+    }
+    __syncthreads();
+    const int n_here = min(NWARP, total - base);
+    for (int q = 0; q < n_here; ++q) {
+      const int gg = base + q;
+      const float s_a = row < M ? sa[(size_t)row * total + gg] : 0.f;
+      const float* s_w = sw + (size_t)gg * N + n0 + ec;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t = __fmul_rn(__fmul_rn(__int2float_rn(tile[q][er * TS + ec + j]), s_a), s_w[j]);
+        acc[j] = __fadd_rn(acc[j], t);
+      }
+    }
+    __syncthreads();
+  }
+  if (row < M)
+    *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + ec) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// K2 prologue: one block per token row m; warp w quantizes groups w, w+8, ...
+// xn = bf16(y * rstd); v = bf16(xn * wg); per 128-group symmetric quantization
+// (INT4 body with clip, the last group an INT8 keeper without clip).
+__global__ void __launch_bounds__(256)
+quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ wg,
+                      const float* __restrict__ rstd, int8_t* __restrict__ a, float* __restrict__ sa,
+                      int K, int ng, int abits, float a_clip) {
+  const int m = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float r = rstd[m];
+  for (int g = warp; g <= ng; g += 8) {
+    const int k0 = g * GROUP + lane * 4;
+    float v[4];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = __bfloat162float(y[(size_t)m * K + k0 + i]);
+      const float xn = bf16_round(__fmul_rn(x, r));
+      v[i] = bf16_round(__fmul_rn(xn, __bfloat162float(wg[k0 + i])));
+      amax = fmaxf(amax, fabsf(v[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const bool keeper = g == ng;
+    const int qmax = keeper ? 127 : (1 << (abits - 1)) - 1;
+    amax = fmaxf(amax, 1e-5f);
+    if (!keeper && a_clip < 1.f) amax = __fmul_rn(amax, a_clip);
+    const float scale = __fdiv_rn(amax, (float)qmax);
+    char4 codes;
+    float q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = fminf(fmaxf(rintf(__fdiv_rn(v[i], scale)), (float)(-qmax - 1)), (float)qmax);
+    codes.x = (signed char)q[0];
+    codes.y = (signed char)q[1];
+    codes.z = (signed char)q[2];
+    codes.w = (signed char)q[3];
+    *reinterpret_cast<char4*>(a + (size_t)m * K + k0) = codes;
+    if (lane == 0) sa[(size_t)m * (ng + 1) + g] = scale;
+  }
+}
+
+__device__ __forceinline__ float block_max128(float v, float* sm) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = fmaxf(fmaxf(sm[0], sm[1]), fmaxf(sm[2], sm[3]));
+  __syncthreads();
+  return v;
+}
+
+// K2 epilogue: block (m, head column block hb) with one thread per channel d.
+// Column blocks [0, n_q/128) are q heads, then H k heads, then H v heads.
+__global__ void __launch_bounds__(HEAD)
+qkv_ring_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict__ cosv,
+                         const float* __restrict__ sinv, __nv_bfloat16* __restrict__ q,
+                         int8_t* __restrict__ ring_k, __nv_bfloat16* __restrict__ ring_prm,
+                         int8_t* __restrict__ ring_v, int n_q, int H, int W, int row) {
+  __shared__ float red[4];
+  __shared__ int codes[HEAD];
+  const int m = blockIdx.x, hb = blockIdx.y, d = threadIdx.x;
+  const int N = n_q + 2 * H * HEAD;
+  const int nqh = n_q / HEAD;
+  const float* x = qkv + (size_t)m * N + (size_t)hb * HEAD;
+  const bool is_q = hb < nqh;
+  const bool is_k = !is_q && hb < nqh + H;
+  float v = x[d];
+  if (is_q || is_k) {
+    const float rot = d < HEAD / 2 ? -x[d + HEAD / 2] : x[d - HEAD / 2];
+    v = __fadd_rn(__fmul_rn(v, cosv[m * HEAD + d]), __fmul_rn(rot, sinv[m * HEAD + d]));
+  }
+  if (is_q) {
+    q[(size_t)m * n_q + (size_t)hb * HEAD + d] = __float2bfloat16_rn(v);
+    return;
+  }
+  const float xmax = block_max128(v, red);
+  const float xmin = -block_max128(-v, red);
+  const float scale = bf16_round(__fdiv_rn(fmaxf(__fsub_rn(xmax, xmin), 1e-5f), 15.f));
+  const float zero = fminf(fmaxf(rintf(__fdiv_rn(-xmin, scale)), 0.f), 15.f);
+  const int code = (int)fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(v, scale)), zero), 0.f), 15.f);
+  const int h = is_k ? hb - nqh : hb - nqh - H;
+  if (d == 0) {
+    const int plane = is_k ? 0 : 2;
+    ring_prm[(((size_t)m * 4 + plane) * H + h) * W + row] = __float2bfloat16_rn(scale);
+    ring_prm[(((size_t)m * 4 + plane + 1) * H + h) * W + row] =
+        __float2bfloat16_rn(__fmul_rn(-zero, scale));
+  }
+  if (is_k) {
+    codes[d] = code;
+    __syncthreads();
+    if (d < HEAD / 2)
+      ring_k[(((size_t)m * H + h) * (HEAD / 2) + d) * W + row] =
+          (int8_t)(codes[d] | (codes[d + HEAD / 2] << 4));
+  } else {
+    ring_v[(((size_t)m * H + h) * W + row) * HEAD + d] = (int8_t)code;
+  }
+}
+
+}  // namespace
+
+extern "C" int atom_gemm_packed(const void* a, const void* wp, const void* wk, const void* sa,
+                                const void* sw, void* out, int M, int N, int ng, void* stream) {
+  const dim3 grid(N / TN, (M + TM - 1) / TM);
+  gemm_packed_kernel<<<grid, NWARP * 32, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
+      (float*)out, M, N, ng);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rstd, const void* wp,
+                                   const void* wk, const void* sw, const void* cosv,
+                                   const void* sinv, void* a_scratch, void* sa_scratch,
+                                   void* qkv_scratch, void* q, void* ring_k, void* ring_prm,
+                                   void* ring_v, int M, int K, int n_q, int H, int W, int row,
+                                   int abits, float a_clip, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ng = K / GROUP - 1;
+  const int N = n_q + 2 * H * HEAD;
+  quant_prologue_kernel<<<M, 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
+                                           (const float*)rstd, (int8_t*)a_scratch,
+                                           (float*)sa_scratch, K, ng, abits, a_clip);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / TN, (M + TM - 1) / TM);
+  gemm_packed_kernel<<<grid, NWARP * 32, 0, st>>>(
+      (const int8_t*)a_scratch, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa_scratch,
+      (const float*)sw, (float*)qkv_scratch, M, N, ng);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  qkv_ring_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
+      (const float*)qkv_scratch, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
+      (int8_t*)ring_k, (__nv_bfloat16*)ring_prm, (int8_t*)ring_v, n_q, H, W, row);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,205 @@
+"""Paged + hot-ring decode attention and the ring flush
+(``atom_tpu/ops/pallas_decode.py``), kernels K3 and K4.
+
+``paged_ring_decode_attention`` (K3) attends each sequence's query heads
+over its flushed pages and the valid suffix of the hot ring, on 4-bit codes
+with the affine dequantization folded into the scores and the probabilities.
+``flush_hot`` (K4) writes each active sequence's pending ring block
+``[lo, hi)`` into its one or two pages, in place.  Both launch
+``csrc/decode.cu`` on CUDA tensors and run their plain versions on CPU
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from atom_tpu_torch.ops import _build
+from atom_tpu_torch.ops.kv_hot import HotKV
+from atom_tpu_torch.ops.kv_layout import KVPages
+from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
+
+_NEG_INF = -1e30
+_GMAX = 8  # query heads per kv head the kernel takes
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("decode")
+    lib.atom_paged_ring_decode.argtypes = [_P] * 11 + [_I] * 7 + [_F, _P]
+    lib.atom_paged_ring_decode.restype = _I
+    lib.atom_flush_hot.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.atom_flush_hot.restype = _I
+    return lib
+
+
+def _planes(b: torch.Tensor, dim: int) -> torch.Tensor:
+    """u4 plane bytes -> codes f32, low nibbles first along ``dim``."""
+    u = b.to(torch.int32) & 0xFF
+    return torch.cat([u & 0x0F, u >> 4], dim=dim).to(torch.float32)
+
+
+def paged_ring_decode_attention_plain(q, pages: KVPages, page_table, seq_lens, hot: HotKV, n_hot, row: int):
+    """Plain version of K3: one masked softmax over ring lanes and page slots."""
+    b, hq, d = q.shape
+    h, s, w = pages.kv_heads, pages.page_size, hot.window
+    g = hq // h
+    max_pages = page_table.shape[1]
+    sm_scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32).reshape(b, h, g, d)
+    q_sum = qf.sum(-1)  # [B, H, G]
+
+    # pages past a sequence's last one are clamped to it (and masked)
+    last = torch.clamp_min((seq_lens + s - 1) // s - 1, 0)
+    idx = torch.minimum(torch.arange(max_pages, device=q.device)[None, :], last[:, None])
+    pt = torch.gather(page_table, 1, idx).long()  # [B, P]
+    kc = _planes(pages.k_pages[pt], dim=-2)  # [B, P, H, D, S]
+    prm = pages.params[pt].to(torch.float32).permute(0, 3, 2, 1, 4)  # [B, H, 4, P, S]
+    vc = _planes(pages.v_pages[pt], dim=-2)  # [B, P, H, S, D]
+    pos = torch.arange(max_pages * s, device=q.device).reshape(max_pages, s)
+    valid_p = pos[None] < seq_lens[:, None, None]  # [B, P, S]
+    dots = torch.einsum("bhgd,bphds->bhgps", qf, kc)
+    sc_p = (dots * prm[:, :, None, 0] + q_sum[..., None, None] * prm[:, :, None, 1]) * sm_scale
+    sc_p = torch.where(valid_p[:, None, None], sc_p, _NEG_INF).reshape(b, h, g, max_pages * s)
+
+    rk = _planes(hot.k_codes, dim=-2)  # [B, H, D, W]
+    rprm = hot.prm.to(torch.float32)  # [B, 4, H, W]
+    cols = torch.arange(w, device=q.device)
+    valid_r = ((row - cols + w) % w)[None, :] < n_hot[:, None]  # [B, W]
+    dots_r = torch.einsum("bhgd,bhdw->bhgw", qf, rk)
+    sc_r = (dots_r * rprm[:, 0, :, None] + q_sum[..., None] * rprm[:, 1, :, None]) * sm_scale
+    sc_r = torch.where(valid_r[:, None, None], sc_r, _NEG_INF)
+
+    scores = torch.cat([sc_r, sc_p], dim=-1)  # [B, H, G, W + P*S]
+    valid = torch.cat([valid_r, valid_p.reshape(b, -1)], dim=-1)[:, None, None]
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(-1)
+    p_r, p_p = p[..., :w], p[..., w:].reshape(b, h, g, max_pages, s)
+    pv = torch.einsum("bhgw,bhwd->bhgd", p_r * rprm[:, 2, :, None], hot.v_codes.to(torch.float32))
+    pv = pv + torch.einsum("bhgps,bphsd->bhgd", p_p * prm[:, :, None, 2], vc)
+    z = (p_r * rprm[:, 3, :, None]).sum(-1) + (p_p * prm[:, :, None, 3]).sum((-2, -1))
+    out = (pv + z[..., None]) / torch.clamp_min(l, 1e-20)[..., None]
+    return out.reshape(b, hq, d).to(torch.bfloat16)
+
+
+def paged_ring_decode_attention(
+    q: torch.Tensor,  # bf16 [B, HQ, D] — RoPE'd, kv-head-major
+    pages: KVPages,  # K pages hold post-RoPE codes
+    page_table: torch.Tensor,  # int32 [B, max_pages]
+    seq_lens: torch.Tensor,  # int32 [B] — flushed tokens per sequence
+    hot: HotKV,
+    n_hot: torch.Tensor,  # int32 [B] — ring-resident suffix lengths
+    row: int,  # ring column of the current token
+) -> torch.Tensor:
+    """Kernel K3 -> normalised attention output bf16 [B, HQ, D]."""
+    tensors = (q, *pages, page_table, seq_lens, *hot, n_hot)
+    if on_cpu(*tensors):
+        return paged_ring_decode_attention_plain(q, pages, page_table, seq_lens, hot, n_hot, row)
+    b, hq, d = q.shape
+    h, s, w = pages.kv_heads, pages.page_size, hot.window
+    if d != 128 or hq % h or hq // h > _GMAX or s % 2:
+        raise ValueError(
+            f"paged_ring_decode_attention: needs head_dim 128 and at most {_GMAX} query heads "
+            f"per kv head, got D={d}, HQ={hq}, H={h}"
+        )
+    if not 0 <= row < w:
+        raise ValueError(f"ring row {row} outside [0, {w})")
+    check_kernel_input(q, "q", torch.bfloat16)
+    check_kernel_input(pages.k_pages, "k_pages", torch.int8)
+    check_kernel_input(pages.params, "params", torch.bfloat16)
+    check_kernel_input(pages.v_pages, "v_pages", torch.int8)
+    check_kernel_input(page_table, "page_table", torch.int32)
+    check_kernel_input(seq_lens, "seq_lens", torch.int32, (b,))
+    check_kernel_input(hot.k_codes, "ring k", torch.int8, (b, h, d // 2, w))
+    check_kernel_input(hot.prm, "ring prm", torch.bfloat16, (b, 4, h, w))
+    check_kernel_input(hot.v_codes, "ring v", torch.int8, (b, h, w, d))
+    check_kernel_input(n_hot, "n_hot", torch.int32, (b,))
+    out = torch.empty_like(q)
+    _build.check(
+        _lib().atom_paged_ring_decode(
+            q.data_ptr(), pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
+            page_table.data_ptr(), seq_lens.data_ptr(), hot.k_codes.data_ptr(), hot.prm.data_ptr(),
+            hot.v_codes.data_ptr(), n_hot.data_ptr(), out.data_ptr(),
+            b, hq, h, s, w, page_table.shape[1], row, 1.0 / math.sqrt(d), _build.stream(),
+        ),
+        "paged_ring_decode_attention",
+    )
+    paged_ring_decode_attention.launches += 1
+    return out
+
+
+paged_ring_decode_attention.launches = 0
+
+
+def flush_hot_plain(pages: KVPages, k_flush, prm_flush, v_flush, page_a, page_b, slot0, o, lo, hi) -> KVPages:
+    """Plain version of K4: write the valid lanes of each ring block, in place."""
+    bsz, _, _, w = k_flush.shape
+    s = pages.page_size
+    t = torch.arange(w, device=k_flush.device)[None, :]
+    gslot = (slot0 + o)[:, None] + t  # [B, W] global slot of each block token
+    for pass_i, pg in enumerate((page_a, page_b)):
+        lane = gslot - (slot0[:, None] + pass_i * s)
+        valid = (lane >= 0) & (lane < s) & (gslot >= lo[:, None]) & (gslot < hi[:, None])
+        bi, ti = valid.nonzero(as_tuple=True)
+        p, ln = pg[bi].long(), lane[bi, ti]
+        pages.k_pages[p, :, :, ln] = k_flush[bi, :, :, ti]
+        pages.params[p, :, :, ln] = prm_flush[bi, :, :, ti]
+        r = ln % (s // 2)
+        old = pages.v_pages[p, :, r, :].to(torch.int32) & 0xFF  # [n, H, D]
+        new = v_flush[bi, :, ti, :].to(torch.int32) & 0x0F
+        high = (ln >= s // 2)[:, None, None]
+        merged = torch.where(high, (old & 0x0F) | (new << 4), (old & 0xF0) | new)
+        pages.v_pages[p, :, r, :] = merged.to(torch.uint8).view(torch.int8)
+    return pages
+
+
+def flush_hot(
+    pages: KVPages,
+    k_flush: torch.Tensor,  # int8 [B, H, D/2, W] channel-plane bytes, position order
+    prm_flush: torch.Tensor,  # bf16 [B, 4, H, W]
+    v_flush: torch.Tensor,  # int8 [B, H, W, D] unpacked u4
+    page_a: torch.Tensor,  # int32 [B] — page of block lanes [0, S) (0 = sink)
+    page_b: torch.Tensor,  # int32 [B] — page of block lanes [S, 2S) (0 = sink)
+    slot0: torch.Tensor,  # int32 [B] — global slot of page_a's lane 0
+    o: torch.Tensor,  # int32 [B] in [0, S): lane of the block's token 0
+    lo: torch.Tensor,  # int32 [B] — first slot to write (flushed before)
+    hi: torch.Tensor,  # int32 [B] — one past the last (the sequence length)
+) -> KVPages:
+    """Kernel K4: write each sequence's pending ring block into its page(s),
+    in place; returns ``pages``.  A sequence holds at most W ring tokens
+    (``lo >= hi - W``)."""
+    tensors = (*pages, k_flush, prm_flush, v_flush, page_a, page_b, slot0, o, lo, hi)
+    if on_cpu(*tensors):
+        return flush_hot_plain(pages, k_flush, prm_flush, v_flush, page_a, page_b, slot0, o, lo, hi)
+    bsz, h, dhalf, w = k_flush.shape
+    s, d = pages.page_size, pages.head_dim
+    if 2 * w > s:
+        raise ValueError(f"flush_hot: ring width {w} must be at most half the page size {s}")
+    check_kernel_input(k_flush, "k_flush", torch.int8, (bsz, h, d // 2, w))
+    check_kernel_input(prm_flush, "prm_flush", torch.bfloat16, (bsz, 4, h, w))
+    check_kernel_input(v_flush, "v_flush", torch.int8, (bsz, h, w, d))
+    for name, t in (("page_a", page_a), ("page_b", page_b), ("slot0", slot0), ("o", o), ("lo", lo), ("hi", hi)):
+        check_kernel_input(t, name, torch.int32, (bsz,))
+    check_kernel_input(pages.k_pages, "k_pages", torch.int8)
+    check_kernel_input(pages.params, "params", torch.bfloat16)
+    check_kernel_input(pages.v_pages, "v_pages", torch.int8)
+    _build.check(
+        _lib().atom_flush_hot(
+            k_flush.data_ptr(), prm_flush.data_ptr(), v_flush.data_ptr(), page_a.data_ptr(),
+            page_b.data_ptr(), slot0.data_ptr(), o.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
+            bsz, h, s, w, d, _build.stream(),
+        ),
+        "flush_hot",
+    )
+    flush_hot.launches += 1
+    return pages
+
+
+flush_hot.launches = 0

@@ -1,0 +1,228 @@
+"""4-bit-weight dual-path GEMMs (``atom_tpu/ops/pallas_gemm_packed.py``).
+
+Kernel K1, ``packed_w4_gemm``: ``out f32 [M, N] = sum_g (A_g . W_g)_i32 *
+sa[:, g] * sw[g, :] + (A_k . W_k)_i32 * sa[:, ng] * sw[ng, :]`` over
+nibble-plane INT4 body groups and the INT8 keeper, in that f32 order.
+
+Kernel K2, ``packed_w4_gemm_qkv_ring_fused``: RMSNorm (rstd passed in) ->
+dual-path activation quantization -> the K1 product -> RoPE on q and k ->
+per-head asymmetric u4 quantization of post-RoPE K and of V -> stores into
+the hot ring at column ``row``, in place.  Returns q.
+
+Both launch ``csrc/gemm_packed.cu`` on CUDA tensors and run their plain
+versions (``*_plain``) on CPU tensors.  The plain versions compute each
+group's integer dot as a float32 matmul, exact because every partial sum is
+an integer below 2**24 (|sum| <= 128 * 127 * 127); on the card that needs
+``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from atom_tpu_torch.numerics import rms_rstd, rp_bf16
+from atom_tpu_torch.ops import _build
+from atom_tpu_torch.ops.formats import KernelPackedWeight, QuantizedActivation, quantize_dual_path
+from atom_tpu_torch.ops.kv_layout import pack_channel_planes
+from atom_tpu_torch.ops.reference import quantize_kv_asym
+from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
+
+GROUP = 128
+HALF = GROUP // 2
+_TN = 32  # output columns per CUDA block
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("gemm_packed")
+    lib.atom_gemm_packed.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.atom_gemm_packed.restype = _I
+    lib.atom_qkv_ring_fused.argtypes = [_P] * 15 + [_I] * 7 + [_F, _P]
+    lib.atom_qkv_ring_fused.restype = _I
+    return lib
+
+
+def unpack_nibble_planes(wp: torch.Tensor) -> torch.Tensor:
+    """Nibble-plane bytes [ng * 64, N] -> signed int4 codes int32 [ng, 128, N]."""
+    ng = wp.shape[0] // HALF
+    u = wp.reshape(ng, HALF, -1).to(torch.int32) & 0xFF
+    lo = ((u & 0x0F) ^ 8) - 8
+    hi = ((u >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=1)
+
+
+def packed_w4_gemm_plain(a, wp, wk, sa, sw) -> torch.Tensor:
+    """Plain version of K1 (same f32 accumulation order as the kernel)."""
+    m, ktot = a.shape
+    ng = ktot // GROUP - 1
+    codes = unpack_nibble_planes(wp).to(torch.float32)  # [ng, 128, N]
+    ag = a[:, : ng * GROUP].reshape(m, ng, GROUP).transpose(0, 1).to(torch.float32)
+    acc_g = torch.bmm(ag, codes)  # [ng, M, N] integer-valued, exact
+    acc = torch.zeros((m, wp.shape[1]), dtype=torch.float32, device=a.device)
+    for g in range(ng):
+        acc = acc + acc_g[g] * sa[:, g : g + 1] * sw[g : g + 1, :]
+    acc_k = a[:, ng * GROUP :].to(torch.float32) @ wk.to(torch.float32)
+    return acc + acc_k * sa[:, ng : ng + 1] * sw[ng : ng + 1, :]
+
+
+def packed_w4_gemm(
+    a: torch.Tensor,  # int8 [M, kb + 128]  (body codes ++ keeper codes)
+    wp: torch.Tensor,  # int8 [kb // 2, N]   (nibble planes)
+    wk: torch.Tensor,  # int8 [128, N]       (keeper)
+    sa: torch.Tensor,  # f32 [M, ng + 1]
+    sw: torch.Tensor,  # f32 [ng + 1, N]
+) -> torch.Tensor:
+    """Kernel K1: the dual-path 4-bit GEMM -> f32 [M, N]."""
+    if on_cpu(a, wp, wk, sa, sw):
+        return packed_w4_gemm_plain(a, wp, wk, sa, sw)
+    m, ktot = a.shape
+    n = wp.shape[1]
+    ng = ktot // GROUP - 1
+    if ktot % GROUP or n % _TN:
+        raise ValueError(f"packed_w4_gemm: K={ktot} must be a multiple of 128, N={n} of {_TN}")
+    check_kernel_input(a, "a", torch.int8)
+    check_kernel_input(wp, "wp", torch.int8, (ng * HALF, n))
+    check_kernel_input(wk, "wk", torch.int8, (GROUP, n))
+    check_kernel_input(sa, "sa", torch.float32, (m, ng + 1))
+    check_kernel_input(sw, "sw", torch.float32, (ng + 1, n))
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _build.check(
+        _lib().atom_gemm_packed(
+            a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(),
+            out.data_ptr(), m, n, ng, _build.stream(),
+        ),
+        "packed_w4_gemm",
+    )
+    packed_w4_gemm.launches += 1
+    return out
+
+
+packed_w4_gemm.launches = 0
+
+
+def quant_gemm_packed(
+    qa: QuantizedActivation, kw: KernelPackedWeight, out_dtype=torch.bfloat16
+) -> torch.Tensor:
+    """``ops.reference.quant_gemm`` with 4-bit device weights (K1)."""
+    return packed_w4_gemm(qa.codes, kw.body_packed, kw.keeper, qa.scales, kw.scales).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K2: fused qkv projection storing K/V into the hot ring
+# ---------------------------------------------------------------------------
+
+
+def quant_prologue_plain(y, norm_w, rstd, abits: int, a_clip: float):
+    """RMSNorm (given rstd, bf16 roundings pinned) + dual-path quantization
+    of a gathered bf16 [M, K] activation with a bf16 norm weight
+    -> (codes int8 [M, K], scales f32 [M, ng+1])."""
+    xn = rp_bf16(y.to(torch.float32) * rstd)
+    qa = quantize_dual_path(rp_bf16(xn * norm_w.to(torch.float32)), abits, a_clip, GROUP)
+    return qa.codes, qa.scales
+
+
+def qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row: int, n_q: int, n_kv: int, head_dim: int):
+    """RoPE + per-head KV quantization + in-place ring stores; returns q bf16."""
+    m = acc.shape[0]
+    h = n_kv // head_dim
+    half = head_dim // 2
+
+    def rope(x):  # [M, heads, D] f32
+        rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+        return x * cos[:, None, :] + rot * sin[:, None, :]
+
+    q = rope(acc[:, :n_q].reshape(m, n_q // head_dim, head_dim)).to(torch.bfloat16)
+    kq = quantize_kv_asym(rope(acc[:, n_q : n_q + n_kv].reshape(m, h, head_dim)))
+    vq = quantize_kv_asym(acc[:, n_q + n_kv :].reshape(m, h, head_dim))
+    k_codes[:, :, :, row] = pack_channel_planes(kq.codes[..., None])[..., 0]
+    prm[:, 0, :, row] = kq.params[..., 0].to(prm.dtype)
+    prm[:, 1, :, row] = kq.params[..., 1].to(prm.dtype)
+    prm[:, 2, :, row] = vq.params[..., 0].to(prm.dtype)
+    prm[:, 3, :, row] = vq.params[..., 1].to(prm.dtype)
+    v_codes[:, :, row, :] = vq.codes
+    return q.reshape(m, n_q)
+
+
+def packed_w4_gemm_qkv_ring_fused_plain(
+    y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv,
+    head_dim=128, abits=4, a_clip=1.0, eps=1e-5, rstd=None,
+):
+    """Plain version of K2 (same signature as the kernel's wrapper)."""
+    if rstd is None:
+        rstd = rms_rstd(y, eps)
+    a, sa = quant_prologue_plain(y, norm_w, rstd, abits, a_clip)
+    acc = packed_w4_gemm_plain(a, wp, wk, sa, sw)
+    return qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv, head_dim)
+
+
+def packed_w4_gemm_qkv_ring_fused(
+    y: torch.Tensor,  # bf16 [M, K] — gathered hidden (pre-norm)
+    norm_w: torch.Tensor,  # bf16 [K] — gathered attn norm weight
+    wp: torch.Tensor,  # int8 [kb // 2, N]  (N = n_q + 2 * n_kv)
+    wk: torch.Tensor,  # int8 [128, N]
+    sw: torch.Tensor,  # f32 [ng + 1, N]
+    cos: torch.Tensor,  # f32 [M, head_dim]
+    sin: torch.Tensor,
+    k_codes: torch.Tensor,  # int8 [M, H, D/2, W] — hot ring, updated in place
+    prm: torch.Tensor,  # bf16 [M, 4, H, W]
+    v_codes: torch.Tensor,  # int8 [M, H, W, D]
+    row: int,  # ring column to write
+    n_q: int,
+    n_kv: int,
+    head_dim: int = 128,
+    abits: int = 4,
+    a_clip: float = 1.0,
+    eps: float = 1e-5,
+    rstd: torch.Tensor | None = None,  # f32 [M, 1]
+) -> torch.Tensor:
+    """Kernel K2 -> q bf16 [M, n_q] (RoPE'd); K/V land in the ring in place."""
+    if rstd is None:
+        rstd = rms_rstd(y, eps)
+    if on_cpu(y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, rstd):
+        return packed_w4_gemm_qkv_ring_fused_plain(
+            y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv,
+            head_dim=head_dim, abits=abits, a_clip=a_clip, rstd=rstd,
+        )
+    m, k = y.shape
+    n = n_q + 2 * n_kv
+    ng = k // GROUP - 1
+    h = n_kv // head_dim
+    w = k_codes.shape[3]
+    if head_dim != 128 or n_q % head_dim or n_kv % head_dim or k % GROUP:
+        raise ValueError("packed_w4_gemm_qkv_ring_fused: needs head_dim 128 and K % 128 == 0")
+    if not 0 <= row < w:
+        raise ValueError(f"ring row {row} outside [0, {w})")
+    check_kernel_input(y, "y", torch.bfloat16)
+    check_kernel_input(norm_w, "norm_w", torch.bfloat16, (k,))
+    check_kernel_input(wp, "wp", torch.int8, (ng * HALF, n))
+    check_kernel_input(wk, "wk", torch.int8, (GROUP, n))
+    check_kernel_input(sw, "sw", torch.float32, (ng + 1, n))
+    check_kernel_input(cos, "cos", torch.float32, (m, head_dim))
+    check_kernel_input(sin, "sin", torch.float32, (m, head_dim))
+    check_kernel_input(k_codes, "k_codes", torch.int8, (m, h, head_dim // 2, w))
+    check_kernel_input(prm, "prm", torch.bfloat16, (m, 4, h, w))
+    check_kernel_input(v_codes, "v_codes", torch.int8, (m, h, w, head_dim))
+    rstd = rstd.to(torch.float32).reshape(m, 1).contiguous()
+    dev = y.device
+    a = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sa = torch.empty((m, ng + 1), dtype=torch.float32, device=dev)
+    qkv = torch.empty((m, n), dtype=torch.float32, device=dev)
+    q = torch.empty((m, n_q), dtype=torch.bfloat16, device=dev)
+    _build.check(
+        _lib().atom_qkv_ring_fused(
+            y.data_ptr(), norm_w.data_ptr(), rstd.data_ptr(), wp.data_ptr(), wk.data_ptr(),
+            sw.data_ptr(), cos.data_ptr(), sin.data_ptr(), a.data_ptr(), sa.data_ptr(),
+            qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(), v_codes.data_ptr(),
+            m, k, n_q, h, w, row, abits, a_clip, _build.stream(),
+        ),
+        "packed_w4_gemm_qkv_ring_fused",
+    )
+    packed_w4_gemm_qkv_ring_fused.launches += 1
+    return q
+
+
+packed_w4_gemm_qkv_ring_fused.launches = 0

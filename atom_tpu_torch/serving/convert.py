@@ -1,0 +1,66 @@
+"""The JAX package's serving params and state, as numpy trees, -> the port's.
+
+Byte layouts are identical in both packages (nibble-plane weights, KV pages,
+hot ring), so the same integer codes flow through both.  The input is any
+tree with the JAX field names whose leaves are numpy arrays, such as
+``jax.tree_util.tree_map(np.asarray, params)``; bfloat16 arrays (numpy's
+``ml_dtypes.bfloat16``) are carried over bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from atom_tpu_torch.ops.formats import KernelPackedWeight
+from atom_tpu_torch.ops.kv_hot import HotKV
+from atom_tpu_torch.ops.kv_layout import KVPages
+from atom_tpu_torch.ops.runtime import resolve_device
+from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams, ServingState
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy array (bfloat16 included) -> tensor on ``device``, bitwise."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _kpw(kw, dev) -> KernelPackedWeight:
+    """The JAX package keeps body and keeper scales apart; the port merges
+    them, keeper scale last."""
+    scales = np.concatenate([kw.body_scale, kw.keeper_scale[None, :]], axis=0)
+    return KernelPackedWeight(
+        body_packed=tensor_from_numpy(kw.body_packed, dev),
+        keeper=tensor_from_numpy(kw.keeper, dev),
+        scales=tensor_from_numpy(scales, dev),
+    )
+
+
+def serving_params_from_numpy(params, device=None) -> ServingParams:
+    """Numpy tree of the JAX ``ServingParams`` (bf16 head) -> the port's."""
+    dev = resolve_device(device)
+    layers = []
+    for lp in params.layers:
+        fields = {}
+        for f in ServingLayerParams._fields:
+            v = getattr(lp, f)
+            fields[f] = _kpw(v, dev) if f.startswith("w") else tensor_from_numpy(v, dev)
+        layers.append(ServingLayerParams(**fields))
+    return ServingParams(
+        embed=tensor_from_numpy(params.embed, dev),
+        final_norm=tensor_from_numpy(params.final_norm, dev),
+        lm_head=tensor_from_numpy(params.lm_head, dev),
+        layers=layers,
+    )
+
+
+def serving_state_from_numpy(state, device=None) -> ServingState:
+    """Numpy tree of the JAX ``ServingState`` -> the port's."""
+    dev = resolve_device(device)
+    return ServingState(
+        pages=[KVPages(*(tensor_from_numpy(getattr(p, f), dev) for f in KVPages._fields)) for p in state.pages],
+        hot=[HotKV(*(tensor_from_numpy(getattr(h, f), dev) for f in HotKV._fields)) for h in state.hot],
+        row=int(state.row),
+        flushed=tensor_from_numpy(state.flushed, dev).to(torch.int32),
+    )
