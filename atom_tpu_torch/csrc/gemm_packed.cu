@@ -1,4 +1,6 @@
-// 4-bit-weight dual-path GEMM (K1) and the fused qkv -> hot-ring kernel (K2).
+// 4-bit-weight dual-path GEMM (K1) and the fused qkv projections built on it:
+// K2 (float in, K/V into the hot ring), K7 (int in, K/V codes out: prefill) and
+// K8 (int in, K/V into the hot ring).
 //
 // K1 replaces atom_tpu/ops/pallas_gemm_packed.py:284 packed_w4_gemm (bodies
 // _gemm_packed_kernel :63, _gemm_packed_scratch_kernel :100, the K-blocked
@@ -6,6 +8,8 @@
 //                              + (A_k . W_k)_i32 * sa[:,ng] * sw[ng,:].
 // K2 replaces :1261 packed_w4_gemm_qkv_ring_fused (_gemm_qkv_ring_fused_kernel
 // :1073, _quant_prologue :438, _qkv_ring_epilogue :937, _kv_quantize_tile :909).
+// K7 replaces :792 packed_w4_gemm_qkv (_gemm_qkv_kernel :701) and K8 :1196
+// packed_w4_gemm_qkv_ring (_gemm_qkv_ring_kernel :1049).
 //
 // What bounds them on the H100: at decode M = 32 the product is 32 x K x N int8
 // MACs against K*N/2 bytes of 4-bit weights, 64 MACs per weight byte, far below
@@ -40,7 +44,15 @@
 // and the epilogue (one block per row and 128-column head: RoPE on q and k,
 // per-head asymmetric u4 quantization of post-RoPE K and of V, in-place ring
 // stores at column `row`).  The per-head reductions span 128 columns, wider
-// than a GEMM tile, hence the second pass.  NaN note: the TPU kernel's bf16
+// than a GEMM tile, hence the second pass.  K8 is K2 without its prologue: the
+// caller hands in the quantized activation.  K7 is the GEMM followed by an
+// epilogue with the same per-head arithmetic (one __device__ function serves
+// both epilogues) that writes one byte per code and float32 params, the layout
+// prefill appends to the pages from; at prefill M is the prompt bucket (up to
+// 1024 rows), every 32-row tile re-reads the weights (from L2 where they fit)
+// and the f32 [M, N] scratch is 50 MB at M 1024, N 12288: the product is then
+// bound by the int8 tensor-core rate, not bytes.  The TPU kernels pad M to
+// their tile; these guard row < M instead.  NaN note: the TPU kernel's bf16
 // rounding is integer bit math that turns a NaN into Inf; here
 // __float2bfloat16_rn keeps NaN.
 
@@ -276,8 +288,45 @@ __device__ __forceinline__ float block_max128(float v, float* sm) {
   return v;
 }
 
-// K2 epilogue: block (m, head column block hb) with one thread per channel d.
-// Column blocks [0, n_q/128) are q heads, then H k heads, then H v heads.
+// The per-head arithmetic shared by the ring epilogue (K2, K8) and the prefill
+// epilogue (K7), for block (m, head column block hb) with one thread per
+// channel d.  Column blocks [0, n_q/128) are q heads, then H k heads, then H v
+// heads.  q and k are rotated (RoPE) in float32; k (after RoPE) and v get the
+// per-head asymmetric u4 quantization of ops/reference.py quantize_kv_asym:
+// scale = bf16((max - min, at least 1e-5) / 15), zero = clamp(rint(-min /
+// scale), 0, 15), code = clamp(rint(x / scale) + zero, 0, 15), and the stored
+// zero value is bf16(-zero * scale).
+struct HeadValue {
+  float v;      // the (rotated) value; all a q head needs
+  float scale;  // k / v heads only
+  float zero_val;
+  int code;
+};
+
+__device__ __forceinline__ HeadValue head_rope_quant(const float* __restrict__ x,
+                                                     const float* __restrict__ cosv,
+                                                     const float* __restrict__ sinv, int m, int d,
+                                                     bool rotate, bool quantize, float* red) {
+  HeadValue r;
+  r.v = x[d];
+  r.scale = 0.f;
+  r.zero_val = 0.f;
+  r.code = 0;
+  if (rotate) {
+    const float rot = d < HEAD / 2 ? -x[d + HEAD / 2] : x[d - HEAD / 2];
+    r.v = __fadd_rn(__fmul_rn(r.v, cosv[m * HEAD + d]), __fmul_rn(rot, sinv[m * HEAD + d]));
+  }
+  if (!quantize) return r;  // uniform over the block: a block is one head
+  const float xmax = block_max128(r.v, red);
+  const float xmin = -block_max128(-r.v, red);
+  r.scale = bf16_round(__fdiv_rn(fmaxf(__fsub_rn(xmax, xmin), 1e-5f), 15.f));
+  const float zero = fminf(fmaxf(rintf(__fdiv_rn(-xmin, r.scale)), 0.f), 15.f);
+  r.code = (int)fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(r.v, r.scale)), zero), 0.f), 15.f);
+  r.zero_val = bf16_round(__fmul_rn(-zero, r.scale));
+  return r;
+}
+
+// Ring epilogue (K2, K8): q out; K/V codes and params into ring column `row`.
 __global__ void __launch_bounds__(HEAD)
 qkv_ring_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict__ cosv,
                          const float* __restrict__ sinv, __nv_bfloat16* __restrict__ q,
@@ -288,52 +337,87 @@ qkv_ring_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict_
   const int m = blockIdx.x, hb = blockIdx.y, d = threadIdx.x;
   const int N = n_q + 2 * H * HEAD;
   const int nqh = n_q / HEAD;
-  const float* x = qkv + (size_t)m * N + (size_t)hb * HEAD;
   const bool is_q = hb < nqh;
   const bool is_k = !is_q && hb < nqh + H;
-  float v = x[d];
-  if (is_q || is_k) {
-    const float rot = d < HEAD / 2 ? -x[d + HEAD / 2] : x[d - HEAD / 2];
-    v = __fadd_rn(__fmul_rn(v, cosv[m * HEAD + d]), __fmul_rn(rot, sinv[m * HEAD + d]));
-  }
+  const HeadValue hv = head_rope_quant(qkv + (size_t)m * N + (size_t)hb * HEAD, cosv, sinv, m, d,
+                                       is_q || is_k, !is_q, red);
   if (is_q) {
-    q[(size_t)m * n_q + (size_t)hb * HEAD + d] = __float2bfloat16_rn(v);
+    q[(size_t)m * n_q + (size_t)hb * HEAD + d] = __float2bfloat16_rn(hv.v);
     return;
   }
-  const float xmax = block_max128(v, red);
-  const float xmin = -block_max128(-v, red);
-  const float scale = bf16_round(__fdiv_rn(fmaxf(__fsub_rn(xmax, xmin), 1e-5f), 15.f));
-  const float zero = fminf(fmaxf(rintf(__fdiv_rn(-xmin, scale)), 0.f), 15.f);
-  const int code = (int)fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(v, scale)), zero), 0.f), 15.f);
   const int h = is_k ? hb - nqh : hb - nqh - H;
   if (d == 0) {
     const int plane = is_k ? 0 : 2;
-    ring_prm[(((size_t)m * 4 + plane) * H + h) * W + row] = __float2bfloat16_rn(scale);
-    ring_prm[(((size_t)m * 4 + plane + 1) * H + h) * W + row] =
-        __float2bfloat16_rn(__fmul_rn(-zero, scale));
+    ring_prm[(((size_t)m * 4 + plane) * H + h) * W + row] = __float2bfloat16_rn(hv.scale);
+    ring_prm[(((size_t)m * 4 + plane + 1) * H + h) * W + row] = __float2bfloat16_rn(hv.zero_val);
   }
   if (is_k) {
-    codes[d] = code;
+    codes[d] = hv.code;
     __syncthreads();
     if (d < HEAD / 2)
       ring_k[(((size_t)m * H + h) * (HEAD / 2) + d) * W + row] =
           (int8_t)(codes[d] | (codes[d + HEAD / 2] << 4));
   } else {
-    ring_v[(((size_t)m * H + h) * W + row) * HEAD + d] = (int8_t)code;
+    ring_v[(((size_t)m * H + h) * W + row) * HEAD + d] = (int8_t)hv.code;
   }
+}
+
+// Prefill epilogue (K7): q out; K/V as one byte per code [M, H, 128] and
+// float32 params [M, H, 2] = (scale, zero value), both already bf16-rounded.
+__global__ void __launch_bounds__(HEAD)
+qkv_codes_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict__ cosv,
+                          const float* __restrict__ sinv, __nv_bfloat16* __restrict__ q,
+                          int8_t* __restrict__ k_codes, float* __restrict__ k_prm,
+                          int8_t* __restrict__ v_codes, float* __restrict__ v_prm, int n_q, int H) {
+  __shared__ float red[4];
+  const int m = blockIdx.x, hb = blockIdx.y, d = threadIdx.x;
+  const int N = n_q + 2 * H * HEAD;
+  const int nqh = n_q / HEAD;
+  const bool is_q = hb < nqh;
+  const bool is_k = !is_q && hb < nqh + H;
+  const HeadValue hv = head_rope_quant(qkv + (size_t)m * N + (size_t)hb * HEAD, cosv, sinv, m, d,
+                                       is_q || is_k, !is_q, red);
+  if (is_q) {
+    q[(size_t)m * n_q + (size_t)hb * HEAD + d] = __float2bfloat16_rn(hv.v);
+    return;
+  }
+  const int h = is_k ? hb - nqh : hb - nqh - H;
+  const size_t mh = (size_t)m * H + h;
+  (is_k ? k_codes : v_codes)[mh * HEAD + d] = (int8_t)hv.code;
+  if (d == 0) {
+    float* prm = is_k ? k_prm : v_prm;
+    prm[mh * 2] = hv.scale;
+    prm[mh * 2 + 1] = hv.zero_val;
+  }
+}
+
+cudaError_t launch_gemm(const void* a, const void* wp, const void* wk, const void* sa,
+                        const void* sw, void* out, int M, int N, int ng, cudaStream_t st) {
+  const dim3 grid(N / TN, (M + TM - 1) / TM);
+  gemm_packed_kernel<<<grid, NWARP * 32, 0, st>>>(
+      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
+      (float*)out, M, N, ng);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_ring_epilogue(const void* qkv, const void* cosv, const void* sinv, void* q,
+                                 void* ring_k, void* ring_prm, void* ring_v, int M, int n_q, int H,
+                                 int W, int row, cudaStream_t st) {
+  const int N = n_q + 2 * H * HEAD;
+  qkv_ring_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
+      (const float*)qkv, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
+      (int8_t*)ring_k, (__nv_bfloat16*)ring_prm, (int8_t*)ring_v, n_q, H, W, row);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int atom_gemm_packed(const void* a, const void* wp, const void* wk, const void* sa,
                                 const void* sw, void* out, int M, int N, int ng, void* stream) {
-  const dim3 grid(N / TN, (M + TM - 1) / TM);
-  gemm_packed_kernel<<<grid, NWARP * 32, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
-      (float*)out, M, N, ng);
-  return (int)cudaGetLastError();
+  return (int)launch_gemm(a, wp, wk, sa, sw, out, M, N, ng, (cudaStream_t)stream);
 }
 
+// K2: prologue (norm + activation quantization), GEMM, ring epilogue.
 extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rstd, const void* wp,
                                    const void* wk, const void* sw, const void* cosv,
                                    const void* sinv, void* a_scratch, void* sa_scratch,
@@ -348,14 +432,36 @@ extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rs
                                            (float*)sa_scratch, K, ng, abits, a_clip);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / TN, (M + TM - 1) / TM);
-  gemm_packed_kernel<<<grid, NWARP * 32, 0, st>>>(
-      (const int8_t*)a_scratch, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa_scratch,
-      (const float*)sw, (float*)qkv_scratch, M, N, ng);
-  err = cudaGetLastError();
+  err = launch_gemm(a_scratch, wp, wk, sa_scratch, sw, qkv_scratch, M, N, ng, st);
   if (err != cudaSuccess) return (int)err;
-  qkv_ring_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
+  return (int)launch_ring_epilogue(qkv_scratch, cosv, sinv, q, ring_k, ring_prm, ring_v, M, n_q, H,
+                                   W, row, st);
+}
+
+// K8: GEMM on the caller's quantized activation, ring epilogue.
+extern "C" int atom_qkv_ring(const void* a, const void* wp, const void* wk, const void* sa,
+                             const void* sw, const void* cosv, const void* sinv, void* qkv_scratch,
+                             void* q, void* ring_k, void* ring_prm, void* ring_v, int M, int ng,
+                             int n_q, int H, int W, int row, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int N = n_q + 2 * H * HEAD;
+  const cudaError_t err = launch_gemm(a, wp, wk, sa, sw, qkv_scratch, M, N, ng, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_ring_epilogue(qkv_scratch, cosv, sinv, q, ring_k, ring_prm, ring_v, M, n_q, H,
+                                   W, row, st);
+}
+
+// K7: GEMM, then q / K codes / V codes / params in the prefill layout.
+extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, const void* sa,
+                              const void* sw, const void* cosv, const void* sinv, void* qkv_scratch,
+                              void* q, void* k_codes, void* k_prm, void* v_codes, void* v_prm,
+                              int M, int ng, int n_q, int H, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int N = n_q + 2 * H * HEAD;
+  const cudaError_t err = launch_gemm(a, wp, wk, sa, sw, qkv_scratch, M, N, ng, st);
+  if (err != cudaSuccess) return (int)err;
+  qkv_codes_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
       (const float*)qkv_scratch, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
-      (int8_t*)ring_k, (__nv_bfloat16*)ring_prm, (int8_t*)ring_v, n_q, H, W, row);
+      (int8_t*)k_codes, (float*)k_prm, (int8_t*)v_codes, (float*)v_prm, n_q, H);
   return (int)cudaGetLastError();
 }

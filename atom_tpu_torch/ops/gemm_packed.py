@@ -9,7 +9,15 @@ dual-path activation quantization -> the K1 product -> RoPE on q and k ->
 per-head asymmetric u4 quantization of post-RoPE K and of V -> stores into
 the hot ring at column ``row``, in place.  Returns q.
 
-Both launch ``csrc/gemm_packed.cu`` on CUDA tensors and run their plain
+Kernel K7, ``packed_w4_gemm_qkv``: the K1 product on an already quantized
+activation -> RoPE on q and k -> the same per-head K/V quantization, returned
+as one byte per code with float32 params (prefill appends whole pages from
+them; decode off the ring-fused geometry hands them to ``write_hot``).
+
+Kernel K8, ``packed_w4_gemm_qkv_ring``: K2 without its prologue, for specs
+whose activation quantization the prologue does not implement.
+
+All launch ``csrc/gemm_packed.cu`` on CUDA tensors and run their plain
 versions (``*_plain``) on CPU tensors.  The plain versions compute each
 group's integer dot as a float32 matmul, exact because every partial sum is
 an integer below 2**24 (|sum| <= 128 * 127 * 127); on the card that needs
@@ -43,6 +51,10 @@ def _lib():
     lib.atom_gemm_packed.restype = _I
     lib.atom_qkv_ring_fused.argtypes = [_P] * 15 + [_I] * 7 + [_F, _P]
     lib.atom_qkv_ring_fused.restype = _I
+    lib.atom_qkv_ring.argtypes = [_P] * 12 + [_I] * 6 + [_P]
+    lib.atom_qkv_ring.restype = _I
+    lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_P]
+    lib.atom_qkv_codes.restype = _I
     return lib
 
 
@@ -125,8 +137,10 @@ def quant_prologue_plain(y, norm_w, rstd, abits: int, a_clip: float):
     return qa.codes, qa.scales
 
 
-def qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row: int, n_q: int, n_kv: int, head_dim: int):
-    """RoPE + per-head KV quantization + in-place ring stores; returns q bf16."""
+def rope_quant_heads_plain(acc, cos, sin, n_q: int, n_kv: int, head_dim: int):
+    """The qkv epilogues' per-head arithmetic on the f32 product [M, N]: RoPE on
+    q and k, per-head asymmetric u4 quantization of post-RoPE K and of V
+    -> (q bf16 [M, n_q], K ``KVQuant``, V ``KVQuant``)."""
     m = acc.shape[0]
     h = n_kv // head_dim
     half = head_dim // 2
@@ -138,13 +152,19 @@ def qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row: int, n_q:
     q = rope(acc[:, :n_q].reshape(m, n_q // head_dim, head_dim)).to(torch.bfloat16)
     kq = quantize_kv_asym(rope(acc[:, n_q : n_q + n_kv].reshape(m, h, head_dim)))
     vq = quantize_kv_asym(acc[:, n_q + n_kv :].reshape(m, h, head_dim))
+    return q.reshape(m, n_q), kq, vq
+
+
+def qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row: int, n_q: int, n_kv: int, head_dim: int):
+    """RoPE + per-head KV quantization + in-place ring stores; returns q bf16."""
+    q, kq, vq = rope_quant_heads_plain(acc, cos, sin, n_q, n_kv, head_dim)
     k_codes[:, :, :, row] = pack_channel_planes(kq.codes[..., None])[..., 0]
     prm[:, 0, :, row] = kq.params[..., 0].to(prm.dtype)
     prm[:, 1, :, row] = kq.params[..., 1].to(prm.dtype)
     prm[:, 2, :, row] = vq.params[..., 0].to(prm.dtype)
     prm[:, 3, :, row] = vq.params[..., 1].to(prm.dtype)
     v_codes[:, :, row, :] = vq.codes
-    return q.reshape(m, n_q)
+    return q
 
 
 def packed_w4_gemm_qkv_ring_fused_plain(
@@ -226,3 +246,125 @@ def packed_w4_gemm_qkv_ring_fused(
 
 
 packed_w4_gemm_qkv_ring_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: the qkv projection on an already quantized activation
+# ---------------------------------------------------------------------------
+
+
+def _check_qkv_inputs(name, a, wp, wk, sa, sw, cos, sin, n_q, n_kv, head_dim):
+    m, ktot = a.shape
+    n = n_q + 2 * n_kv
+    ng = ktot // GROUP - 1
+    if head_dim != 128 or n_q % head_dim or n_kv % head_dim or ktot % GROUP:
+        raise ValueError(f"{name}: needs head_dim 128 and K % 128 == 0")
+    check_kernel_input(a, "a", torch.int8)
+    check_kernel_input(wp, "wp", torch.int8, (ng * HALF, n))
+    check_kernel_input(wk, "wk", torch.int8, (GROUP, n))
+    check_kernel_input(sa, "sa", torch.float32, (m, ng + 1))
+    check_kernel_input(sw, "sw", torch.float32, (ng + 1, n))
+    check_kernel_input(cos, "cos", torch.float32, (m, head_dim))
+    check_kernel_input(sin, "sin", torch.float32, (m, head_dim))
+    return m, n, ng
+
+
+def packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, cos, sin, n_q: int, n_kv: int, head_dim: int = 128):
+    """Plain version of K7 (same return contract as the kernel's wrapper)."""
+    acc = packed_w4_gemm_plain(a, wp, wk, sa, sw)
+    q, kq, vq = rope_quant_heads_plain(acc, cos, sin, n_q, n_kv, head_dim)
+    return q, kq.codes, kq.params, vq.codes, vq.params
+
+
+def packed_w4_gemm_qkv(
+    a: torch.Tensor,  # int8 [M, kb + 128]
+    wp: torch.Tensor,  # int8 [kb // 2, N]  (N = n_q + 2 * n_kv)
+    wk: torch.Tensor,  # int8 [128, N]
+    sa: torch.Tensor,  # f32 [M, ng + 1]
+    sw: torch.Tensor,  # f32 [ng + 1, N]
+    cos: torch.Tensor,  # f32 [M, head_dim]
+    sin: torch.Tensor,
+    n_q: int,
+    n_kv: int,
+    head_dim: int = 128,
+):
+    """Kernel K7 -> (q bf16 [M, n_q] RoPE'd, k_codes int8 [M, H, D], k_prm f32
+    [M, H, 2] = (scale, zero value), v_codes, v_prm); K quantized after RoPE."""
+    if on_cpu(a, wp, wk, sa, sw, cos, sin):
+        return packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, cos, sin, n_q, n_kv, head_dim)
+    m, n, ng = _check_qkv_inputs("packed_w4_gemm_qkv", a, wp, wk, sa, sw, cos, sin, n_q, n_kv, head_dim)
+    h = n_kv // head_dim
+    dev = a.device
+    qkv = torch.empty((m, n), dtype=torch.float32, device=dev)
+    q = torch.empty((m, n_q), dtype=torch.bfloat16, device=dev)
+    k_codes = torch.empty((m, h, head_dim), dtype=torch.int8, device=dev)
+    v_codes = torch.empty((m, h, head_dim), dtype=torch.int8, device=dev)
+    k_prm = torch.empty((m, h, 2), dtype=torch.float32, device=dev)
+    v_prm = torch.empty((m, h, 2), dtype=torch.float32, device=dev)
+    if m:
+        _build.check(
+            _lib().atom_qkv_codes(
+                a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(),
+                cos.data_ptr(), sin.data_ptr(), qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(),
+                k_prm.data_ptr(), v_codes.data_ptr(), v_prm.data_ptr(), m, ng, n_q, h, _build.stream(),
+            ),
+            "packed_w4_gemm_qkv",
+        )
+        packed_w4_gemm_qkv.launches += 1
+    return q, k_codes, k_prm, v_codes, v_prm
+
+
+packed_w4_gemm_qkv.launches = 0
+
+
+def packed_w4_gemm_qkv_ring_plain(a, wp, wk, sa, sw, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv, head_dim=128):
+    """Plain version of K8 (same signature as the kernel's wrapper)."""
+    acc = packed_w4_gemm_plain(a, wp, wk, sa, sw)
+    return qkv_ring_epilogue_plain(acc, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv, head_dim)
+
+
+def packed_w4_gemm_qkv_ring(
+    a: torch.Tensor,  # int8 [M, kb + 128]
+    wp: torch.Tensor,  # int8 [kb // 2, N]  (N = n_q + 2 * n_kv)
+    wk: torch.Tensor,  # int8 [128, N]
+    sa: torch.Tensor,  # f32 [M, ng + 1]
+    sw: torch.Tensor,  # f32 [ng + 1, N]
+    cos: torch.Tensor,  # f32 [M, head_dim]
+    sin: torch.Tensor,
+    k_codes: torch.Tensor,  # int8 [M, H, D/2, W] — hot ring, updated in place
+    prm: torch.Tensor,  # bf16 [M, 4, H, W]
+    v_codes: torch.Tensor,  # int8 [M, H, W, D]
+    row: int,  # ring column to write
+    n_q: int,
+    n_kv: int,
+    head_dim: int = 128,
+) -> torch.Tensor:
+    """Kernel K8 -> q bf16 [M, n_q] (RoPE'd); K/V land in the ring in place.
+    M must equal the ring's batch dimension."""
+    if on_cpu(a, wp, wk, sa, sw, cos, sin, k_codes, prm, v_codes):
+        return packed_w4_gemm_qkv_ring_plain(
+            a, wp, wk, sa, sw, cos, sin, k_codes, prm, v_codes, row, n_q, n_kv, head_dim
+        )
+    m, n, ng = _check_qkv_inputs("packed_w4_gemm_qkv_ring", a, wp, wk, sa, sw, cos, sin, n_q, n_kv, head_dim)
+    h = n_kv // head_dim
+    w = k_codes.shape[3]
+    if not 0 <= row < w:
+        raise ValueError(f"ring row {row} outside [0, {w})")
+    check_kernel_input(k_codes, "k_codes", torch.int8, (m, h, head_dim // 2, w))
+    check_kernel_input(prm, "prm", torch.bfloat16, (m, 4, h, w))
+    check_kernel_input(v_codes, "v_codes", torch.int8, (m, h, w, head_dim))
+    qkv = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    q = torch.empty((m, n_q), dtype=torch.bfloat16, device=a.device)
+    _build.check(
+        _lib().atom_qkv_ring(
+            a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(),
+            v_codes.data_ptr(), m, ng, n_q, h, w, row, _build.stream(),
+        ),
+        "packed_w4_gemm_qkv_ring",
+    )
+    packed_w4_gemm_qkv_ring.launches += 1
+    return q
+
+
+packed_w4_gemm_qkv_ring.launches = 0

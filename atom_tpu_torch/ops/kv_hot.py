@@ -2,7 +2,8 @@
 (``atom_tpu/ops/kv_hot.py``).
 
 Every decode step writes all sequences' new (K, V, params) into ring column
-``row`` (from inside the fused qkv kernel); attention covers the flushed
+``row`` (from inside the fused qkv kernels, or with ``write_hot`` off their
+geometry); attention covers the flushed
 pages plus the ring's valid suffix; once per ring wrap every sequence's
 pending block moves to its page(s).  The ring uses the page layouts with W
 lanes in place of S:
@@ -52,3 +53,17 @@ def hot_flush_blocks(hot: HotKV, row_now: int):
         torch.roll(hot.prm, shift, dims=3),
         torch.roll(hot.v_codes, shift, dims=2),
     )
+
+
+def write_hot(hot: HotKV, row: int, k, v) -> HotKV:
+    """Write this step's tokens (``KVQuant`` codes [B, H, D], params
+    [B, H, 2]) into ring column ``row``, in place.  The path of geometries
+    the fused qkv -> ring kernels do not take."""
+    d = hot.v_codes.shape[3]
+    kc = k.codes.to(torch.int16)
+    packed = (kc[:, :, : d // 2] & 0x0F) | ((kc[:, :, d // 2 :] & 0x0F) << 4)
+    hot.k_codes[:, :, :, row] = packed.to(torch.uint8).view(torch.int8)
+    rows = torch.cat([k.params.transpose(1, 2), v.params.transpose(1, 2)], dim=1)  # [B, 4, H]
+    hot.prm[:, :, :, row] = rows.to(torch.bfloat16)
+    hot.v_codes[:, :, row, :] = v.codes.to(torch.int8)
+    return hot

@@ -8,13 +8,15 @@
     v_zero_val; dequant ``x = code * scale + zero_val``.
 
 Pages receive no per-token writes: decode tokens go to the hot ring
-(``kv_hot``) and land here in bulk (``decode.flush_hot``).
+(``kv_hot``) and land here in bulk (``decode.flush_hot``); a prefill writes
+whole pages (``append_kv_prefill_kernel``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 
 class KVPages(NamedTuple):
@@ -68,3 +70,45 @@ def pack_channel_planes(codes: torch.Tensor) -> torch.Tensor:
 def pack_slot_planes(codes: torch.Tensor) -> torch.Tensor:
     """u4 codes [..., S, D] -> slot-plane bytes [..., S/2, D]."""
     return _pack_planes(codes, -2)
+
+
+def merge_params(k_prm: torch.Tensor, v_prm: torch.Tensor) -> torch.Tensor:
+    """(k_prm [..., H, 2, S], v_prm [..., H, 2, S]) -> merged bf16 [..., 4, H, S]."""
+    rows = torch.stack(
+        [k_prm[..., :, 0, :], k_prm[..., :, 1, :], v_prm[..., :, 0, :], v_prm[..., :, 1, :]], dim=-3
+    )
+    return rows.to(torch.bfloat16)
+
+
+def append_kv_prefill_kernel(pages: KVPages, k, v, page_table_row: torch.Tensor) -> KVPages:
+    """Write a whole fresh prefill sequence a page at a time, in place.
+
+    ``k``, ``v``: ``KVQuant`` (codes [T, H, D], params [T, H, 2]) of one fresh
+    sequence; ``page_table_row``: int32 [max_pages].  Every page touched is
+    fully overwritten, tail slots zeroed, so this is for fresh sequences only.
+    Table entries past the allocation are 0, the sink page.  (XLA glue in the
+    JAX package, so plain PyTorch here: one ``index_copy_`` per array.)
+    """
+    t, h, d = k.codes.shape
+    s_size = pages.page_size
+    n_full = -(-t // s_size)
+
+    def paged(x):  # [T, H, X] -> [n_full, S, H, X], zero tail
+        return F.pad(x, (0, 0, 0, 0, 0, n_full * s_size - t)).reshape(n_full, s_size, h, x.shape[-1])
+
+    kc, vc = paged(k.codes), paged(v.codes)
+    kp, vp = paged(k.params), paged(v.params)
+    k_bytes = pack_channel_planes(kc.permute(0, 2, 3, 1))  # [n, H, D/2, S]
+    v_bytes = pack_slot_planes(vc.permute(0, 2, 1, 3))  # [n, H, S/2, D]
+    prm = merge_params(kp.permute(0, 2, 3, 1), vp.permute(0, 2, 3, 1))  # [n, 4, H, S]
+    dest = page_table_row[:n_full].long()
+    # The pages are distinct, except that several entries may name the sink
+    # page 0, where the JAX loop's last write wins: every sink entry copies
+    # the last one's content, so the result does not depend on write order.
+    idx = torch.arange(n_full, device=dest.device)
+    sink = dest == 0
+    src = torch.where(sink, torch.where(sink, idx, -1).max(), idx)
+    pages.k_pages.index_copy_(0, dest, k_bytes.index_select(0, src))
+    pages.v_pages.index_copy_(0, dest, v_bytes.index_select(0, src))
+    pages.params.index_copy_(0, dest, prm.index_select(0, src))
+    return pages

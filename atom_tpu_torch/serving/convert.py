@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from atom_tpu_torch.ops.formats import KernelPackedWeight
+from atom_tpu_torch.ops.gemm_w4a16 import W8A16Weight
 from atom_tpu_torch.ops.kv_hot import HotKV
 from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import resolve_device
@@ -38,8 +39,15 @@ def _kpw(kw, dev) -> KernelPackedWeight:
 
 
 def serving_params_from_numpy(params, device=None) -> ServingParams:
-    """Numpy tree of the JAX ``ServingParams`` (bf16 head) -> the port's."""
+    """Numpy tree of the JAX ``ServingParams`` -> the port's.  The head is a
+    bf16 array or a W8A16 weight (``codes`` int8, ``scale`` f32), carried
+    across bit for bit."""
     dev = resolve_device(device)
+    head = params.lm_head
+    if hasattr(head, "codes"):
+        lm_head = W8A16Weight(tensor_from_numpy(head.codes, dev), tensor_from_numpy(head.scale, dev))
+    else:
+        lm_head = tensor_from_numpy(head, dev)
     layers = []
     for lp in params.layers:
         fields = {}
@@ -50,7 +58,7 @@ def serving_params_from_numpy(params, device=None) -> ServingParams:
     return ServingParams(
         embed=tensor_from_numpy(params.embed, dev),
         final_norm=tensor_from_numpy(params.final_norm, dev),
-        lm_head=tensor_from_numpy(params.lm_head, dev),
+        lm_head=lm_head,
         layers=layers,
     )
 

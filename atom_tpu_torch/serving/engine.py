@@ -1,0 +1,267 @@
+"""FCFS continuous-batching text-generation engine
+(``atom_tpu/serving/engine.py``), serial-prefill path.
+
+Policy: refill the workset up to ``batch_size``, greedy sampling, fixed output
+lengths, per-request latency accounting.  Per iteration the work is one
+bucketed prefill per newly admitted request and one decode step for the whole
+workset.  Sampled ids stay on the device between steps; per step only the
+page table and the sequence lengths go up, one copy each, from pinned host
+memory so the host never waits for the device there.
+
+The host blocks on the device exactly where the JAX engine does: on a
+prefill's token before its time-to-first-token is stamped, on steps where a
+sequence finishes before ``finish_t`` is stamped, and once at the end.
+
+Not ported yet: mixed scheduling (``chunk_fn``, needs ``mixed_step`` and
+kernel K11), LoRA serving and the native C++ scheduler; asking for them
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from atom_tpu_torch.ops.runtime import resolve_device
+from atom_tpu_torch.serving.kvpool import KvPool, SeqKvCache, batch_page_table
+from atom_tpu_torch.serving.workload import RequestSet
+
+
+@dataclasses.dataclass
+class TextGenConfig:
+    batch_size: int = 32
+    page_size: int = 256
+    max_seq_len: int = 2048
+    prefill_buckets: tuple = (128, 256, 512, 1024)
+    # pool sizing: pages for batch_size full-length seqs + slack
+    pool_slack_pages: int = 8
+
+
+@dataclasses.dataclass
+class RequestStat:
+    prompt_len: int
+    output_len: int
+    submit_t: float = 0.0
+    first_token_t: float = 0.0
+    finish_t: float = 0.0
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token_t - self.submit_t
+
+    @property
+    def per_token_latency(self) -> float:
+        n = max(self.output_len - 1, 1)
+        return (self.finish_t - self.first_token_t) / n
+
+
+class _ActiveSeq:
+    def __init__(self, idx: int, kv: SeqKvCache, out_len: int, stat: RequestStat):
+        self.idx = idx
+        self.kv = kv
+        self.remaining = out_len
+        self.stat = stat
+
+
+def _state_device(state) -> Optional[torch.device]:
+    """Device of the first tensor in a state of nested tuples and lists."""
+    if isinstance(state, torch.Tensor):
+        return state.device
+    if isinstance(state, (tuple, list)):
+        for item in state:
+            dev = _state_device(item)
+            if dev is not None:
+                return dev
+    return None
+
+
+class TextGenEngine:
+    """Drives (prefill_fn, decode_fn) over a request set with continuous
+    batching.  The step functions are model-agnostic:
+
+      prefill_fn(state, ids[T], table_row, true_len, slot) -> (token, state)
+      decode_fn(state, ids[B], page_table, seq_lens) -> (next_ids[B], state)
+
+    ``ids``, ``table_row``, ``page_table`` and ``seq_lens`` are int32 tensors on
+    the engine's device, ``true_len`` and ``slot`` Python ints, ``token`` a
+    0-dim tensor.  ``state`` is an opaque tree owned by the model (for the W4A4
+    stack: KV pages + hot ring + flush counters).  The engine runs on the
+    device its state lies on; a state without tensors means the card.
+    """
+
+    def __init__(
+        self,
+        cfg: TextGenConfig,
+        pool: KvPool,
+        prefill_fn: Callable,
+        decode_fn: Callable,
+        state,
+        chunk_fn: Optional[Callable] = None,
+        native: object = False,
+        lora: bool = False,
+    ):
+        if chunk_fn is not None:
+            raise NotImplementedError(
+                "mixed scheduling (chunk_fn) needs mixed_step and kernel K11, the slice after this one"
+            )
+        if lora:
+            raise NotImplementedError("LoRA serving (serving/lora.py) is a later slice of the port")
+        if native is not False:
+            raise NotImplementedError("the native C++ scheduler (atom_tpu/native) is a later slice of the port")
+        self.cfg = cfg
+        self.pool = pool
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.state = state
+        self.device = _state_device(state) or resolve_device(None)
+        self.max_pages = -(-cfg.max_seq_len // cfg.page_size)
+        # (bucket, seconds from dispatch to the token on the host) per prefill of the last run
+        self.last_prefill_s: List[tuple] = []
+
+    def _bucket(self, t: int) -> int:
+        for b in self.cfg.prefill_buckets:
+            if t <= b:
+                return b
+        raise ValueError(f"prompt length {t} exceeds largest prefill bucket")
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy that does not make the host wait: the
+        pinned staging block is held by PyTorch until the copy has run."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def run(self, rs: RequestSet, progress: bool = False, record: bool = False) -> dict:
+        cfg = self.cfg
+        bsz = cfg.batch_size
+        state = self.state  # device tree, threaded through the steps
+        stats: List[RequestStat] = [
+            RequestStat(int(p), int(o)) for p, o in zip(rs.prompt_lens, rs.output_lens)
+        ]
+
+        workset: List[Optional[_ActiveSeq]] = [None] * bsz
+        next_req = 0
+        done = 0
+        n_req = len(rs)
+        # per-slot current token ids live on the device [bsz]
+        ids_dev = torch.zeros((bsz,), dtype=torch.int32, device=self.device)
+
+        tokens = {r: [] for r in range(n_req)} if record else None
+        self.last_prefill_s = []
+
+        t_start = time.perf_counter()
+        n_decode_steps = 0
+        # host scheduling tax: admission + page/table assembly + retirement
+        # bookkeeping, excluding the step functions' dispatch
+        host_sched_s = 0.0
+        while done < n_req:
+            now = time.perf_counter()
+            # --- admit new requests into free slots (FCFS) ---
+            for slot in range(bsz):
+                if workset[slot] is not None or next_req >= n_req:
+                    continue
+                r = next_req
+                next_req += 1
+                stats[r].submit_t = now
+                prompt = rs.prompts[r]
+                t_true = len(prompt)
+                kv = SeqKvCache(self.pool, t_true)
+                seq = _ActiveSeq(r, kv, int(rs.output_lens[r]), stats[r])
+                bucket = self._bucket(t_true)
+                ids = np.zeros((bucket,), np.int32)
+                ids[:t_true] = prompt
+                table_row = np.zeros((self.max_pages,), np.int32)
+                table_row[: len(kv.page_ids)] = kv.page_ids
+                t_p = time.perf_counter()
+                tok, state = self.prefill_fn(state, self._upload(ids), self._upload(table_row), t_true, slot)
+                ids_dev[slot] = tok
+                # TTFT is stamped on device completion of the prefill (not
+                # its dispatch): fetch the produced token first.
+                tok_host = int(tok.item())
+                stats[r].first_token_t = time.perf_counter()
+                self.last_prefill_s.append((bucket, stats[r].first_token_t - t_p))
+                if record:
+                    tokens[r].append(tok_host)
+                seq.remaining -= 1
+                if seq.remaining == 0:  # single-token outputs finish here
+                    stats[r].finish_t = stats[r].first_token_t
+                    kv.release()
+                    done += 1
+                else:
+                    workset[slot] = seq
+
+            stepped = [slot for slot in range(bsz) if workset[slot] is not None]
+            if not stepped:
+                continue
+
+            # --- one step: whole-workset decode ---
+            t_h = time.perf_counter()
+            for slot in stepped:
+                workset[slot].kv.acquire_one()  # extend; allocate page on boundary
+            table, lens = batch_page_table([s.kv if s else None for s in workset], self.max_pages)
+            table_dev = self._upload(table)
+            lens_dev = self._upload(lens)
+            host_sched_s += time.perf_counter() - t_h
+            ids_dev, state = self.decode_fn(state, ids_dev, table_dev, lens_dev)
+            n_decode_steps += 1
+
+            if record:
+                ids_host = ids_dev.cpu().numpy()
+                for slot in stepped:
+                    tokens[workset[slot].idx].append(int(ids_host[slot]))
+            # Tail-latency truthfulness: when any sequence finishes this step,
+            # wait for the step's output before stamping finish_t, so decode
+            # p90 reflects device completion, not host dispatch rate.  Steps
+            # where nothing finishes stay fully asynchronous.
+            if any(workset[s].remaining == 1 for s in stepped):
+                self._sync()
+            now = time.perf_counter()
+            for slot in stepped:
+                s = workset[slot]
+                s.remaining -= 1
+                if s.remaining == 0:
+                    s.stat.finish_t = now
+                    s.kv.release()
+                    workset[slot] = None
+                    done += 1
+            host_sched_s += time.perf_counter() - now
+            if progress and done and done % 8 == 0:
+                print(f"  done {done}/{n_req}", flush=True)
+
+        # Execution barrier: everything above is asynchronous; fetch one scalar.
+        _ = int(ids_dev.sum().item())
+        elapsed = time.perf_counter() - t_start
+        self.state = state
+
+        out_tokens = rs.total_output_tokens
+        ttfts = np.array([s.ttft for s in stats])
+        ptls = np.array([s.per_token_latency for s in stats])
+        out = {
+            "elapsed_s": elapsed,
+            "requests": n_req,
+            "decode_steps": n_decode_steps,
+            "mixed_steps": 0,
+            "total_tokens": rs.total_tokens,
+            "output_tokens": out_tokens,
+            "throughput_tok_s": rs.total_tokens / elapsed,
+            "output_tok_s": out_tokens / elapsed,
+            "ttft_avg_s": float(ttfts.mean()),
+            "ttft_p90_s": float(np.percentile(ttfts, 90)),
+            "decode_ms_per_token_avg": float(ptls.mean() * 1e3),
+            "decode_ms_per_token_p90": float(np.percentile(ptls, 90) * 1e3),
+            "scheduler": "python",
+            "host_sched_ms_per_step": host_sched_s / max(n_decode_steps, 1) * 1e3,
+        }
+        if record:
+            out["tokens"] = tokens
+            out["ttft_per_request"] = [float(s.ttft) for s in stats]
+            out["prompt_lens"] = [int(s.prompt_len) for s in stats]
+        return out

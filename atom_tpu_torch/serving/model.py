@@ -1,26 +1,32 @@
-"""Quantized serving Llama, decode half (``atom_tpu/serving/model.py``).
+"""Quantized serving Llama (``atom_tpu/serving/model.py``): prefill and decode.
 
-One decode step for B sequences: embedding row fetch (K6) -> per layer the
-fused qkv kernel storing K/V into the hot ring (K2), on every W-th step the
-ring flush into the pages (K4), paged + ring decode attention (K3), then
-o_proj, the MLP and their dynamic quantization around three 4-bit GEMMs
-(K1) -> final norm -> bf16 head with f32 logits -> argmax.
+``prefill_step``: one fresh sequence [T] (bucket-padded): embedding rows (K6)
+-> per layer the qkv projection with RoPE and K/V quantization (K7), whole
+pages appended, causal attention over the just-quantized codes (plain
+PyTorch), o_proj and the MLP around three 4-bit GEMMs (K1) -> final norm ->
+head on the last true row -> first generated token.
 
-The ring and the pages are updated in place (the JAX version donates them).
-Prefill, the KV pool, the engine and the W8A16 head are the next slice of
-the port; a geometry or spec off the fused decode path raises
-``NotImplementedError``.
+``decode_step``: one token for each of B sequences: embedding rows (K6) -> per
+layer the fused qkv kernel storing K/V into the hot ring (K2; K8 for a spec
+its prologue does not implement; K7 + ``write_hot`` off its geometry), on
+every W-th step the ring flush into the pages (K4), paged + ring decode
+attention (K3), then o_proj and the MLP (K1) -> final norm -> head -> argmax.
+
+The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5); both
+steps share it.  The ring and the pages are updated in place (the JAX version
+donates them).  ``mixed_step`` and the LoRA / tensor-parallel hooks of the JAX
+step functions are not ported yet.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from atom_tpu_torch.config import KeeperPrecision, QuantSpec, QuantType
 from atom_tpu_torch.models.configs import ModelConfig
-from atom_tpu_torch.models.nn import rmsnorm, rope_tables
+from atom_tpu_torch.models.nn import apply_rope, rmsnorm, rope_tables
 from atom_tpu_torch.numerics import rms_rstd
 from atom_tpu_torch.ops import reference as R
 from atom_tpu_torch.ops.decode import flush_hot, paged_ring_decode_attention
@@ -30,13 +36,17 @@ from atom_tpu_torch.ops.formats import (
     quantize_activation_packed,
     quantize_weight_packed,
 )
-from atom_tpu_torch.ops.gemm_packed import packed_w4_gemm_qkv_ring_fused, quant_gemm_packed
-from atom_tpu_torch.ops.kv_hot import HotKV, hot_flush_blocks, make_hot
-from atom_tpu_torch.ops.kv_layout import KVPages, make_kv_pages_kernel
+from atom_tpu_torch.ops.gemm_packed import (
+    packed_w4_gemm_qkv,
+    packed_w4_gemm_qkv_ring,
+    packed_w4_gemm_qkv_ring_fused,
+    quant_gemm_packed,
+)
+from atom_tpu_torch.ops.gemm_w4a16 import W8A16Weight, quantize_w8a16, w8a16_gemm
+from atom_tpu_torch.ops.kv_hot import HOT_W, HotKV, hot_flush_blocks, make_hot, write_hot
+from atom_tpu_torch.ops.kv_layout import KVPages, append_kv_prefill_kernel, make_kv_pages_kernel
 from atom_tpu_torch.ops.misc import embed_gather
 from atom_tpu_torch.ops.runtime import resolve_device
-
-NEXT_SLICE = "the next slice of the port (prefill, the unfused qkv kernels, the W8A16 head)"
 
 
 class ServingLayerParams(NamedTuple):
@@ -58,7 +68,7 @@ class ServingLayerParams(NamedTuple):
 class ServingParams(NamedTuple):
     embed: torch.Tensor  # bf16 [V, D]
     final_norm: torch.Tensor  # bf16 [D]
-    lm_head: torch.Tensor  # bf16 [D, V]
+    lm_head: Union[torch.Tensor, W8A16Weight]  # bf16 [D, V], or its W8A16 form (padded)
     layers: List[ServingLayerParams]
 
 
@@ -108,17 +118,72 @@ def _embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return embed_gather(embed, ids).to(torch.bfloat16)
 
 
-def _lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
-    """bf16 head matmul with f32 logits (f32 accumulation of bf16 products),
-    so near-tie argmax decisions match the JAX head."""
+def quantize_lm_head(params: ServingParams, bits: int = 8) -> ServingParams:
+    """Weight-only INT8 lm_head for serving (W8A16, per output column).
+
+    The head is padded before quantization, K to a multiple of 1024 and N to
+    a multiple of 512, as the JAX package does for its kernel's tile grid:
+    padded columns quantize to zero codes and ``_lm_head_logits`` slices the
+    logits back to the true vocabulary.  Prefill and decode share the head,
+    so a decode continuation stays consistent with a prefill.
+    """
+    if bits != 8:
+        raise NotImplementedError(
+            f"quantize_lm_head(bits={bits}): the weight-only INT4 head needs kernel K13 (w4a16_gemm), not ported yet"
+        )
+    w = params.lm_head.to(torch.float32)
+    pk = (-w.shape[0]) % 1024
+    pn = (-w.shape[1]) % 512
+    if pk or pn:
+        w = F.pad(w, (0, pn, 0, pk))
+    return params._replace(lm_head=quantize_w8a16(w))
+
+
+def _lm_head_logits(x: torch.Tensor, lm_head, vocab: int | None = None) -> torch.Tensor:
+    """Head matmul with f32 logits (f32 accumulation of bf16 products), so
+    near-tie argmax decisions match the JAX head.  A ``W8A16Weight`` head
+    runs the weight-only kernel (K5); ``vocab`` slices off its pad columns."""
     xb = x.to(torch.bfloat16)
-    if xb.is_cuda:
+    if isinstance(lm_head, W8A16Weight):
+        if lm_head.codes.shape[0] > xb.shape[1]:  # rows past the hidden size are K padding
+            lm_head = W8A16Weight(lm_head.codes[: xb.shape[1]], lm_head.scale)
+        out = w8a16_gemm(xb, lm_head)
+    elif xb.is_cuda:
         out = torch.mm(xb, lm_head, out_dtype=torch.float32)
     else:
         out = xb.to(torch.float32) @ lm_head.to(torch.float32)
     if vocab is not None and out.shape[-1] != vocab:
         out = out[..., :vocab]
     return out
+
+
+def _attn_block_common(x, lp: "ServingLayerParams", cfg: ModelConfig, spec: QuantSpec, rope):
+    """norm + reorder + quant -> qkv projection, shared by prefill and the
+    decode fallback -> (q bf16 [T, heads, dh], K ``KVQuant``, V ``KVQuant``).
+
+    K is rotated in f32 before its asymmetric u4 quantization: the cache
+    stores post-RoPE codes.  On the fused geometry RoPE and the per-head
+    quantization run in the GEMM's epilogue (K7)."""
+    n_q = cfg.num_heads * cfg.head_dim
+    n_kv = cfg.num_kv_heads * cfg.head_dim
+    dh = cfg.head_dim
+    cos, sin = rope  # [T, dh]
+    h_in = R.rmsnorm_reorder_quant(x, lp.ln_attn, lp.attn_reorder, spec)
+    t = x.shape[0]
+
+    if n_q % 512 == 0 and n_kv % 512 == 0 and dh == 128:
+        q, kc, kp, vc, vp = packed_w4_gemm_qkv(
+            h_in.codes, lp.wqkv.body_packed, lp.wqkv.keeper, h_in.scales, lp.wqkv.scales,
+            cos, sin, n_q=n_q, n_kv=n_kv, head_dim=dh,
+        )
+        return q.reshape(t, cfg.num_heads, dh), R.KVQuant(kc, kp), R.KVQuant(vc, vp)
+
+    qkv = quant_gemm_packed(h_in, lp.wqkv, out_dtype=torch.float32)
+    q = apply_rope(qkv[:, :n_q].reshape(t, cfg.num_heads, dh), cos[:, None, :], sin[:, None, :])
+    k = apply_rope(qkv[:, n_q : n_q + n_kv].reshape(t, cfg.num_kv_heads, dh), cos[:, None, :], sin[:, None, :])
+    kq = R.quantize_kv_asym(k)
+    vq = R.quantize_kv_asym(qkv[:, n_q + n_kv :].reshape(t, cfg.num_kv_heads, dh))
+    return q.to(torch.bfloat16), kq, vq
 
 
 def _rms_rstd(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -154,25 +219,35 @@ def _fused_spec_ok(spec: QuantSpec) -> bool:
 
 
 def _attn_block_decode_ring(x, lp: ServingLayerParams, cfg: ModelConfig, spec: QuantSpec, rope, hot: HotKV, row: int):
-    """Fused qkv kernel (K2) storing K/V straight into the hot ring at
-    column ``row`` -> q [B, heads, dh]."""
+    """Decode attention input block -> q [B, heads, dh], with this step's
+    K/V stored into the hot ring at column ``row`` in place: from inside the
+    fused qkv kernel (K2, or K8 where the spec is not the one K2's prologue
+    quantizes for), or through ``_attn_block_common`` + ``write_hot`` off the
+    fused geometry."""
     n_q = cfg.num_heads * cfg.head_dim
     n_kv = cfg.num_kv_heads * cfg.head_dim
     dh = cfg.head_dim
     b, d = x.shape
-    fused_geometry = n_q % 512 == 0 and n_kv % 512 == 0 and dh == 128 and b % 32 == 0
-    if not (fused_geometry and _fused_spec_ok(spec) and d % 128 == 0 and (d - 128) // 128 <= 112):
-        raise NotImplementedError(
-            f"decode qkv off the fused path (n_q={n_q}, n_kv={n_kv}, head_dim={dh}, batch={b}, "
-            f"hidden={d}, fused_spec={_fused_spec_ok(spec)}) is {NEXT_SLICE}"
-        )
+    if not (n_q % 512 == 0 and n_kv % 512 == 0 and dh == 128 and b % 32 == 0):
+        q, kq, vq = _attn_block_common(x, lp, cfg, spec, rope)
+        write_hot(hot, row, kq, vq)
+        return q
+
     cos, sin = rope
-    y = torch.index_select(x, -1, lp.attn_reorder)
-    q = packed_w4_gemm_qkv_ring_fused(
-        y, lp.ln_attn_g, lp.wqkv.body_packed, lp.wqkv.keeper, lp.wqkv.scales,
-        cos, sin, hot.k_codes, hot.prm, hot.v_codes, row,
-        n_q=n_q, n_kv=n_kv, head_dim=dh, abits=spec.abits, a_clip=spec.a_clip_ratio,
-        rstd=_rms_rstd(x),
+    if _fused_spec_ok(spec) and d % 128 == 0 and (d - 128) // 128 <= 112:
+        y = torch.index_select(x, -1, lp.attn_reorder)
+        q = packed_w4_gemm_qkv_ring_fused(
+            y, lp.ln_attn_g, lp.wqkv.body_packed, lp.wqkv.keeper, lp.wqkv.scales,
+            cos, sin, hot.k_codes, hot.prm, hot.v_codes, row,
+            n_q=n_q, n_kv=n_kv, head_dim=dh, abits=spec.abits, a_clip=spec.a_clip_ratio,
+            rstd=_rms_rstd(x),
+        )
+        return q.reshape(b, cfg.num_heads, dh)
+
+    h_in = R.rmsnorm_reorder_quant(x, lp.ln_attn, lp.attn_reorder, spec)
+    q = packed_w4_gemm_qkv_ring(
+        h_in.codes, lp.wqkv.body_packed, lp.wqkv.keeper, h_in.scales, lp.wqkv.scales,
+        cos, sin, hot.k_codes, hot.prm, hot.v_codes, row, n_q=n_q, n_kv=n_kv, head_dim=dh,
     )
     return q.reshape(b, cfg.num_heads, dh)
 
@@ -263,6 +338,144 @@ def decode_step(params, state, ids, page_table, seq_lens, cfg: ModelConfig, spec
     return torch.argmax(logits, dim=-1).to(torch.int32), new_state
 
 
+_NEG_INF_PREFILL = -1e30
+
+# prompts longer than this use the blocked (online-softmax) prefill attention
+PREFILL_SCAN_THRESHOLD = 2048
+PREFILL_KEY_BLOCK = 1024
+
+
+def causal_code_attention(
+    q: torch.Tensor,  # [Tq, HQ, D] bf16/f32 (RoPE'd)
+    kq,  # KVQuant over the full key range [Tk, Hkv, ...]
+    vq,
+    groups: int,
+    sm_scale: float,
+    row_pos: torch.Tensor | None = None,  # int [Tq] global query positions
+    key_block: int = 0,
+    kernel: bool = False,
+) -> torch.Tensor:
+    """Causal affine-code attention -> attn [Tq, HQ*D] bf16.
+
+    The prefill attention core: f32 q times raw u4 K codes with the affine
+    correction, f32 softmax, V dequantization folded into the probabilities:
+    the numerics the decode kernel reproduces, so decode continuations match
+    prefill predictions.  Plain PyTorch, as the JAX version is plain XLA.
+
+    ``key_block == 0``: one-pass softmax materialising [HQ, Tq, Tk] scores.
+    ``key_block > 0``: online softmax over key blocks, O(Tq * key_block)
+    live memory.
+    """
+    if kernel:
+        raise NotImplementedError(
+            "causal_code_attention(kernel=True) needs kernel K12 (flash_code_attention), not ported yet"
+        )
+    tq, hq, dh = q.shape
+    tk = kq.codes.shape[0]
+    dev = q.device
+    if row_pos is None:
+        row_pos = torch.arange(tq, device=dev)
+    qf = q.to(torch.float32)
+    q_sum = qf.sum(dim=2)  # [Tq, HQ]
+    k_codes = kq.codes.repeat_interleave(groups, dim=1).to(torch.float32)  # [Tk, HQ, D]
+    k_prm = kq.params.repeat_interleave(groups, dim=1)  # [Tk, HQ, 2]
+    v_codes = vq.codes.repeat_interleave(groups, dim=1).to(torch.float32)
+    v_prm = vq.params.repeat_interleave(groups, dim=1)
+
+    if key_block == 0 or key_block >= tk:
+        dot = torch.einsum("qhd,khd->hqk", qf, k_codes)
+        k_scale = k_prm[:, :, 0].T[:, None, :]  # [HQ, 1, Tk]
+        k_zero = k_prm[:, :, 1].T[:, None, :]
+        scores = (dot * k_scale + q_sum.T[:, :, None] * k_zero) * sm_scale
+        visible = torch.arange(tk, device=dev)[None, :] <= row_pos[:, None]
+        mask = torch.where(visible, 0.0, torch.finfo(torch.float32).min)[None]
+        probs = torch.softmax(scores + mask, dim=-1)
+        pw = probs * v_prm[:, :, 0].T[:, None, :]
+        attn = torch.einsum("hqk,khd->qhd", pw, v_codes)
+        attn = attn + torch.einsum("hqk,kh->qh", probs, v_prm[:, :, 1])[..., None]
+        return attn.to(torch.bfloat16).reshape(tq, hq * dh)
+
+    while tk % key_block:  # largest power-of-2 fraction that divides Tk
+        key_block //= 2
+        if key_block < 8:
+            key_block = tk
+            break
+
+    acc = torch.zeros((hq, tq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((hq, tq, 1), _NEG_INF_PREFILL, dtype=torch.float32, device=dev)
+    l = torch.zeros((hq, tq, 1), dtype=torch.float32, device=dev)
+    for k0 in range(0, tk, key_block):
+        blk = slice(k0, k0 + key_block)
+        kp, vp = k_prm[blk], v_prm[blk]
+        dot = torch.einsum("qhd,khd->hqk", qf, k_codes[blk])
+        k_scale = kp[:, :, 0].T[:, None, :]  # [HQ, 1, kb]
+        k_zero = kp[:, :, 1].T[:, None, :]
+        scores = (dot * k_scale + q_sum.T[:, :, None] * k_zero) * sm_scale
+        valid = ((k0 + torch.arange(key_block, device=dev))[None, :] <= row_pos[:, None])[None]
+        scores = torch.where(valid, scores, _NEG_INF_PREFILL)
+        m_new = torch.maximum(m, scores.amax(dim=2, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(scores - m_new), 0.0)
+        l = l * alpha + p.sum(dim=2, keepdim=True)
+        pv = torch.einsum("hqk,khd->hqd", p * vp[:, :, 0].T[:, None, :], v_codes[blk])
+        z = torch.einsum("hqk,kh->hq", p, vp[:, :, 1])[..., None]
+        acc = acc * alpha + pv + z
+        m = m_new
+    attn = acc / torch.clamp_min(l, 1e-20)  # [HQ, Tq, D]
+    return attn.to(torch.bfloat16).transpose(0, 1).reshape(tq, hq * dh)
+
+
+@torch.no_grad()
+def prefill_hidden(
+    params: ServingParams,
+    pages: List[KVPages],
+    ids: torch.Tensor,  # int32 [T]
+    table_row: torch.Tensor,  # int32 [max_pages]
+    cfg: ModelConfig,
+    spec: QuantSpec,
+):
+    """Layer stack of a prefill -> (final-norm hidden [T, D], pages).
+
+    The sequence's K/V land in its pages (in place); attention runs over the
+    just-quantized post-RoPE codes with the decode kernel's numerics."""
+    t = ids.shape[0]
+    dh = cfg.head_dim
+    x = _embed_lookup(params.embed, ids)  # [T, D]
+    cos, sin = rope_tables(torch.arange(t, device=ids.device), dh, cfg.rope_theta)
+    key_block = PREFILL_KEY_BLOCK if t > PREFILL_SCAN_THRESHOLD else 0
+    for l, lp in enumerate(params.layers):
+        q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
+        append_kv_prefill_kernel(pages[l], kq, vq, table_row)
+        attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, key_block=key_block)
+        del q, kq, vq  # the one-pass scores and f32 code copies are per layer
+        x = _post_attn(x, attn, lp, spec)
+    return rmsnorm(x, params.final_norm, cfg.norm_eps), pages
+
+
+@torch.no_grad()
+def prefill_step(
+    params: ServingParams,
+    state: ServingState,
+    ids: torch.Tensor,  # int32 [T] — bucket-padded prompt
+    table_row: torch.Tensor,  # int32 [max_pages] — this sequence's pages
+    true_len: int,
+    slot: int,  # this sequence's batch slot
+    cfg: ModelConfig,
+    spec: QuantSpec,
+):
+    """Prefill one fresh sequence -> (first generated token, 0-dim int32 on
+    the device; state).  The whole prompt lands in pages; the slot's flushed
+    count becomes the prompt length, so decode's first ring flush leaves the
+    page-resident prefix alone.  The ring and ``row`` are untouched."""
+    x, pages = prefill_hidden(params, state.pages, ids, table_row, cfg, spec)
+    last = x[max(true_len - 1, 0)]
+    logits = _lm_head_logits(last[None], params.lm_head, cfg.vocab_size)[0]
+    flushed = state.flushed.clone()
+    flushed[slot] = true_len
+    new_state = ServingState(pages=pages, hot=state.hot, row=state.row, flushed=flushed)
+    return torch.argmax(logits).to(torch.int32), new_state
+
+
 @torch.no_grad()
 def decode_burst(params, state, ids, page_table, seq_lens, n_windows: int, cfg: ModelConfig, spec: QuantSpec):
     """``n_windows`` whole ring windows of W decode steps each, the last step
@@ -274,3 +487,20 @@ def decode_burst(params, state, ids, page_table, seq_lens, n_windows: int, cfg: 
             seq_lens = seq_lens + 1
             ids, state = decode_step(params, state, ids, page_table, seq_lens, cfg, spec, flush=i == w - 1)
     return ids, state, seq_lens
+
+
+def make_step_fns(params: ServingParams, cfg: ModelConfig, spec: QuantSpec):
+    """(prefill_fn, decode_fn) closures with the engine's calling convention.
+    ``decode_fn`` counts its calls: every W-th one flushes the ring."""
+
+    def prefill_fn(state, ids, table_row, true_len, slot):
+        return prefill_step(params, state, ids, table_row, true_len, slot, cfg, spec)
+
+    counter = {"n": 0}
+
+    def decode_fn(state, ids, page_table, seq_lens):
+        counter["n"] += 1
+        flush = counter["n"] % HOT_W == 0
+        return decode_step(params, state, ids, page_table, seq_lens, cfg, spec, flush=flush)
+
+    return prefill_fn, decode_fn

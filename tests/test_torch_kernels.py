@@ -229,6 +229,61 @@ def test_flush_hot_matches_pallas():
     np.testing.assert_array_equal(_tbits(tpages.k_pages)[0], kp[0])  # sink untouched
 
 
+def test_idle_rows_attention_and_flush_match_pallas():
+    """The engine steps every slot of its batch; idle ones have ``seq_lens ==
+    0``, ``flushed == 0``, ``n_hot == 0``, an all-zero page-table row and
+    another request's leftovers in their ring rows.  K3 returns a finite
+    (zero) row for them and leaves live rows alone; K4 skips them: pages
+    bitwise equal to the Pallas kernel's, sink page 0 untouched."""
+    rng = np.random.default_rng(21)
+    b, h, s, w, max_pages, row = 8, 4, 256, 32, 2, 31
+    kp, vp, prm = _pages(rng, 1 + b * max_pages, h, s)
+    table = (1 + np.arange(b * max_pages).reshape(b, max_pages)).astype(np.int32)
+    idle = np.array([1, 0, 1, 1, 0, 0, 1, 0], bool)
+    table[idle] = 0
+    lens = np.where(idle, 0, [0, 300, 0, 0, 40, 290, 0, 257]).astype(np.int32)
+    flushed = np.where(idle, 0, [0, 268, 0, 0, 8, 270, 0, 225]).astype(np.int32)  # slot 5 joined mid-window
+    ring = _ring(rng, b, h, w)
+    q = _bf16(rng, (b, 4, 128), 1.0)
+
+    # the flushing step: attention sees flushed_new = lens for active rows, n_hot = 0
+    for fl, n_hot in ((flushed, lens - flushed), (lens, np.zeros_like(lens))):
+        want = j_attn(
+            jnp.asarray(q), JPages(*(jnp.asarray(x) for x in (kp, vp, prm))), jnp.asarray(table),
+            jnp.asarray(fl), JHot(*(jnp.asarray(x) for x in ring)), jnp.asarray(n_hot.astype(np.int32)),
+            jnp.int32(row), interpret=True,
+        )
+        got = t_attn(
+            _t(q), TPages(*(_t(x) for x in (kp, vp, prm))), _t(table), _t(fl),
+            THot(*(_t(x) for x in ring)), _t(n_hot.astype(np.int32)), row,
+        ).to(torch.float32).numpy()
+        assert np.isfinite(got).all() and not got[idle].any()
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+    active = (lens > 0) & (lens > flushed)
+    assert not active[idle].any() and active[~idle].all()
+    page_lo = (lens - w) // s
+    slot0 = page_lo * s
+    o = lens - w - slot0
+    tbl = lambda i: table[np.arange(b), np.clip(i, 0, max_pages - 1)]  # noqa: E731
+    pg_a = np.where(active & (page_lo >= 0), tbl(page_lo), 0)
+    pg_b = np.where(active & ((page_lo + 1) * s < lens), tbl(page_lo + 1), 0)
+    book = [x.astype(np.int32) for x in (pg_a, pg_b, slot0, o, flushed, lens)]
+    jpages = flush_hot_pallas(
+        JPages(*(jnp.asarray(x.copy()) for x in (kp, vp, prm))),
+        *j_hot_flush_blocks(JHot(*(jnp.asarray(x) for x in ring)), jnp.int32(row)),
+        *(jnp.asarray(x) for x in book), interpret=True,
+    )
+    tpages = flush_hot(
+        TPages(*(_t(x) for x in (kp, vp, prm))), *t_hot_flush_blocks(THot(*(_t(x) for x in ring)), row),
+        *(_t(x) for x in book),
+    )
+    for a, t0, x0, name in zip(jpages, tpages, (kp, vp, prm), ("k", "v", "params")):
+        np.testing.assert_array_equal(_tbits(t0), _bits(a), err_msg=name)
+        np.testing.assert_array_equal(_tbits(t0)[0], _bits(x0)[0], err_msg=f"{name}: sink page written")
+    assert not np.array_equal(_tbits(tpages.k_pages), kp)  # the live rows were flushed
+
+
 @pytest.mark.parametrize("mutation", ["ring skipped", "one ring lane short", "one page lane extra", "one page lane short"])
 def test_chip_smoke_attention_gate_catches_masking_errors(mutation):
     """``chip_smoke.py`` holds K3 to its plain version within ``ATTN_TOL`` on

@@ -192,14 +192,68 @@ def test_decode_step_matches_jax(model, flush):
 
 
 def test_off_fused_path_raises():
-    """A geometry off the fused decode path is the next slice of the port."""
+    """Off the ring-fused decode path nothing raises any more: a batch that
+    is not a multiple of 32 decodes through ``_attn_block_common`` +
+    ``write_hot``, a spec with ``fused_serving=False`` through the int-input
+    ring kernel.  What does raise is what is not ported yet, naming its kernel."""
     _, tcfg = _cfgs(4, 4)
     small = tcfg.replace(num_layers=1)
     params = tm.init_serving_params(small, T_SPEC, device="cpu")
     st = tm.make_serving_state(1, 3, 16, 4, PAGE, 128, device="cpu")  # batch 16: not a multiple of 32
     ones = torch.ones(16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tm.decode_step(params, st, ones, torch.ones((16, 1), dtype=torch.int32), ones, small, T_SPEC)
+    nxt, st = tm.decode_step(params, st, ones, torch.ones((16, 1), dtype=torch.int32), ones, small, T_SPEC)
+    assert nxt.shape == (16,) and st.row == 1 and bool(st.hot[0].v_codes[:, :, 0].any())
+    with pytest.raises(NotImplementedError, match="K13"):
+        tm.quantize_lm_head(params, bits=4)
+    with pytest.raises(NotImplementedError, match="K12"):
+        tm.causal_code_attention(torch.zeros((2, 4, 128)), None, None, 1, 1.0, kernel=True)
+
+
+@pytest.mark.parametrize("branch", ["batch_8_fallback", "int_input_ring_kernel"])
+def test_decode_step_off_fused_branches_match_jax(branch):
+    """The two decode branches beside the ring-fused kernel, against the JAX
+    decode step on the same state (ring holding W-1 tokens, a flushing step):
+    a batch of 8 (K7 + ``write_hot``), and batch 32 with ``fused_serving=False``
+    (the int-input ring kernel K8).  Both run the eager quantization chain in
+    JAX too, so the step's ring column and flushed pages are near bitwise:
+    flushed counts and ``row`` equal, every ring column but the written one
+    untouched and bitwise, at most 0.2% of all page and ring bytes differing
+    (the new token's codes, which sit behind a jitted JAX program's 1-ulp
+    quantizer fuzz), next ids agreeing by majority."""
+    jcfg, tcfg = _cfgs(4, 4)
+    jparams = jm.init_serving_params(jax.random.PRNGKey(1), jcfg, ATOM_W4A4)
+    tparams = serving_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    b = 8 if branch == "batch_8_fallback" else B
+    jspec = ATOM_W4A4 if b == 8 else ATOM_W4A4.replace(fused_serving=False)
+    tspec = T_SPEC if b == 8 else T_SPEC.replace(fused_serving=False)
+    rng = np.random.default_rng(30 + b)
+    table, ids = _inputs(rng, jcfg.vocab_size)
+    flushed = rng.integers(0, 2 * PAGE - W, B)
+    flushed[:3] = [0, 240, PAGE - W]
+    lens = (flushed + W).astype(np.int32)
+    flushed[5], lens[5] = 0, 0  # idle slot
+    st = _state(rng, jcfg.num_kv_heads, flushed, row=W - 1)
+    cut = lambda tree: jax.tree_util.tree_map(lambda a: a[:b] if a.shape[:1] == (B,) else a, tree)  # noqa: E731
+    st = st._replace(hot=cut(st.hot), flushed=st.flushed[:b])
+    table, ids, lens = table[:b], ids[:b], lens[:b]
+
+    jids, jst = jm.decode_step(jparams, _to_jax(st), jnp.asarray(ids), jnp.asarray(table), jnp.asarray(lens),
+                               jcfg, jspec, flush=True)
+    tids, tst = tm.decode_step(tparams, serving_state_from_numpy(st, "cpu"), torch.from_numpy(ids),
+                               torch.from_numpy(table), torch.from_numpy(lens), tcfg, tspec, flush=True)
+    assert np.mean(tids.numpy() == np.asarray(jids)) > 0.5
+    np.testing.assert_array_equal(tst.flushed.numpy(), np.asarray(jst.flushed))
+    assert tst.row == int(jst.row) == 0
+    total = differing = 0
+    for layer in range(2):
+        jr, tr = jst.hot[layer], tst.hot[layer]
+        for a, t, axis in ((jr.k_codes, tr.k_codes, 3), (jr.prm, tr.prm, 3), (jr.v_codes, tr.v_codes, 2)):
+            np.testing.assert_array_equal(np.delete(_tbits(t), W - 1, axis), np.delete(_bits(a), W - 1, axis))
+            total, differing = total + t.numel(), differing + int((_tbits(t) != _bits(a)).sum())
+        for f in ("k_pages", "v_pages", "params"):
+            a, t = _bits(getattr(jst.pages[layer], f)), _tbits(getattr(tst.pages[layer], f))
+            total, differing = total + a.size, differing + int((a != t).sum())
+    assert differing / total <= 2e-3, f"{differing / total:.4%} of ring and page bytes differ"
 
 
 def test_no_device_means_the_card(monkeypatch):
@@ -241,14 +295,23 @@ def test_port_imports_neither_jax_nor_atom_tpu():
                 names = [node.module]
             bad += [f"{path.relative_to(REPO)}: {n}" for n in names if n.split(".")[0] in ("jax", "jaxlib", "atom_tpu")]
     assert not bad, bad
-    assert len(_port_sources()) > 15
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    assert len(names) > 25
+    for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py"):
+        assert f"atom_tpu_torch/{new}" in names
+    assert "chip_smoke.py" in names
 
 
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'atom_tpu'): sys.modules[m] = None\n"
-        "import atom_tpu_torch.serving.model, atom_tpu_torch.serving.convert, chip_smoke\n"
+        "import importlib, pathlib\n"
+        "mods = sorted(str(p.with_suffix('')).replace('/', '.') for p in pathlib.Path('atom_tpu_torch').rglob('*.py'))\n"
+        "mods = [m[:-9] if m.endswith('.__init__') else m for m in mods]\n"
+        "for m in mods + ['chip_smoke']: importlib.import_module(m)\n"
+        "assert len(mods) > 25, mods\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'atom_tpu.')) for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
