@@ -8,5 +8,13 @@ Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  A kernel wrapper given CPU tensors computes its plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.
 
+Ported so far: the W4A4 serving stack (prefill with an optional flash-prefill
+kernel, decode with an optional fused post-attention configuration, the mixed
+prefill+decode step, the KV pool and the continuous-batching engine with
+serial or mixed prefill, the bf16 and the W8A16 head).  What raises
+``NotImplementedError`` until its slice lands: the weight-only INT4 head
+(``quantize_lm_head(bits=4)``), ``TextGenEngine(lora=True)`` and
+``TextGenEngine(native=...)``.
+
 The package imports neither ``jax`` nor anything of ``atom_tpu``.
 """

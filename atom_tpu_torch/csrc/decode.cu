@@ -1,4 +1,5 @@
-// Decode attention over pages + hot ring (K3) and the ring -> pages flush (K4).
+// Decode attention over pages + hot ring (K3), the ring -> pages flush (K4) and
+// decode attention over the pages alone with its softmax state (K11).
 //
 // K3 replaces atom_tpu/ops/pallas_decode.py:416 paged_ring_decode_attention
 // (_decode_ring_kernel :195, _decode_page_step :335).  One block per
@@ -31,6 +32,20 @@
 // read-modify-write of that byte, which only this block touches (W <= S/2).
 // Inactive sequences have no valid lane and write nothing.  Bound: a few
 // hundred KB per layer every W-th step, launch latency dominates.
+//
+// K11 replaces :533 paged_decode_attention_rotated (_decode_kernel :74, the page
+// step of :335, the finalize of :187): K3 without the ring, returning also the
+// online-softmax state m, l per query row so that the caller merges it with a
+// second part (the ring, or a prompt chunk's own keys).  The mixed step calls it
+// with the decode batch (G = HQ / H query rows per kv head) and with one
+// sequence whose query axis holds all C queries of a prompt chunk (G * C rows
+// per kv head: 256 at 7B, 2048 for 64 q / 8 kv heads).  Registers and shared
+// memory hold GMAX query rows, so the grid gets a third axis over tiles of
+// GMAX rows; every tile of a (sequence, kv head) walks the same pages, which
+// the first tile brings into L2 for the others.  A sequence with nothing
+// flushed walks no page and stores out = 0, m = -1e30, l = 0.  Bound: the
+// pages' bytes read once (memory); the design re-reads them once per tile
+// from L2, and each tile is latency-bound as K3 is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,6 +198,45 @@ __device__ void attend_chunk(const Chunk& ch, int G, const float (*qs)[D], const
   __syncthreads();  // pw is rewritten by the next chunk
 }
 
+// Load G query rows (row0 ...) into shared memory as float32 with their channel sums.
+__device__ __forceinline__ void load_queries(const __nv_bfloat16* __restrict__ q, size_t row0, int G,
+                                             float (*qs)[D], float* qsum, BlockRed& red) {
+  const int d = threadIdx.x;
+  float sums[GMAX];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    sums[g] = 0.f;
+    if (g < G) {
+      qs[g][d] = __bfloat162float(q[(row0 + g) * D + d]);
+      sums[g] = qs[g][d];
+    }
+  }
+  block_reduce<false>(sums, G, red);
+  if (d < G) qsum[d] = sums[d];
+  __syncthreads();
+}
+
+// Walk sequence b's flushed pages of kv head h in order, one online-softmax step per page.
+__device__ __forceinline__ void attend_pages(const int8_t* __restrict__ k_pages,
+                                             const __nv_bfloat16* __restrict__ params,
+                                             const int8_t* __restrict__ v_pages,
+                                             const int* __restrict__ table_row, int seq_len, int H, int h,
+                                             int S, int max_pages, int G, const float (*qs)[D],
+                                             const float* qsum, float* pw, BlockRed& red, float sm_scale,
+                                             float (&m)[GMAX], float (&l)[GMAX], float (&acc)[GMAX]) {
+  const int n_pg = min((seq_len + S - 1) / S, max_pages);
+  for (int i = 0; i < n_pg; ++i) {
+    const size_t p = (size_t)table_row[i];
+    Chunk pg;
+    pg.k = k_pages + (p * H + h) * DH * S;
+    pg.prm = params + (p * 4 * H + h) * S;
+    pg.plane_stride = (size_t)H * S;
+    pg.v = v_pages + (p * H + h) * (S / 2) * D;
+    pg.L = S;
+    attend_chunk<false>(pg, G, qs, qsum, pw, red, sm_scale, i * S, seq_len, m, l, acc);
+  }
+}
+
 __global__ void __launch_bounds__(D)
 paged_ring_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_pages,
                          const __nv_bfloat16* __restrict__ params, const int8_t* __restrict__ v_pages,
@@ -197,19 +251,7 @@ paged_ring_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
   __shared__ BlockRed red;
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
   const int G = HQ / H;
-
-  float sums[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    sums[g] = 0.f;
-    if (g < G) {
-      qs[g][d] = __bfloat162float(q[((size_t)b * HQ + h * G + g) * D + d]);
-      sums[g] = qs[g][d];
-    }
-  }
-  block_reduce<false>(sums, G, red);
-  if (d < G) qsum[d] = sums[d];
-  __syncthreads();
+  load_queries(q, (size_t)b * HQ + h * G, G, qs, qsum, red);
 
   float m[GMAX], l[GMAX], acc[GMAX];
 #pragma unroll
@@ -227,23 +269,58 @@ paged_ring_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
   ring.L = W;
   attend_chunk<true>(ring, G, qs, qsum, pw, red, sm_scale, row, n_hot[b], m, l, acc);
 
-  const int seq_len = seq_lens[b];
-  const int n_pg = min((seq_len + S - 1) / S, max_pages);
-  for (int i = 0; i < n_pg; ++i) {
-    const size_t p = (size_t)page_table[(size_t)b * max_pages + i];
-    Chunk pg;
-    pg.k = k_pages + (p * H + h) * DH * S;
-    pg.prm = params + (p * 4 * H + h) * S;
-    pg.plane_stride = (size_t)H * S;
-    pg.v = v_pages + (p * H + h) * (S / 2) * D;
-    pg.L = S;
-    attend_chunk<false>(pg, G, qs, qsum, pw, red, sm_scale, i * S, seq_len, m, l, acc);
-  }
+  attend_pages(k_pages, params, v_pages, page_table + (size_t)b * max_pages, seq_lens[b], H, h, S, max_pages, G,
+               qs, qsum, pw, red, sm_scale, m, l, acc);
 
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g >= G) break;
     out[((size_t)b * HQ + h * G + g) * D + d] = __float2bfloat16_rn(__fdiv_rn(acc[g], fmaxf(l[g], 1e-20f)));
+  }
+}
+
+// K11: pages only.  Block (b, h, tile) owns query rows [tile*GMAX, ...) of the
+// HQ / H rows of kv head h (q is kv-head-major).
+__global__ void __launch_bounds__(D)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_pages,
+                    const __nv_bfloat16* __restrict__ params, const int8_t* __restrict__ v_pages,
+                    const int* __restrict__ page_table, const int* __restrict__ seq_lens,
+                    void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                    int HQ, int H, int S, int max_pages, int out_f32, float sm_scale) {
+  extern __shared__ float pw[];  // [GMAX][S]
+  __shared__ float qs[GMAX][D];
+  __shared__ float qsum[GMAX];
+  __shared__ BlockRed red;
+  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const int rows_per_head = HQ / H;
+  const int g0 = blockIdx.z * GMAX;
+  const int G = min(GMAX, rows_per_head - g0);
+  const size_t row0 = (size_t)b * HQ + (size_t)h * rows_per_head + g0;  // first query row of the tile
+  load_queries(q, row0, G, qs, qsum, red);
+
+  float m[GMAX], l[GMAX], acc[GMAX];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+    acc[g] = 0.f;
+  }
+
+  attend_pages(k_pages, params, v_pages, page_table + (size_t)b * max_pages, seq_lens[b], H, h, S, max_pages, G,
+               qs, qsum, pw, red, sm_scale, m, l, acc);
+
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= G) break;
+    const float o = __fdiv_rn(acc[g], fmaxf(l[g], 1e-20f));
+    if (out_f32)
+      static_cast<float*>(out)[(row0 + g) * D + d] = o;
+    else
+      static_cast<__nv_bfloat16*>(out)[(row0 + g) * D + d] = __float2bfloat16_rn(o);
+    if (d == 0) {
+      m_out[row0 + g] = m[g];
+      l_out[row0 + g] = l[g];
+    }
   }
 }
 
@@ -314,5 +391,18 @@ extern "C" int atom_flush_hot(const void* k_flush, const void* prm_flush, const 
       (const int8_t*)k_flush, (const __nv_bfloat16*)prm_flush, (const int8_t*)v_flush,
       (const int*)page_a, (const int*)page_b, (const int*)slot0, (const int*)o, (const int*)lo,
       (const int*)hi, (int8_t*)k_pages, (__nv_bfloat16*)params, (int8_t*)v_pages, H, S, W, Dh);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int atom_paged_decode(const void* q, const void* k_pages, const void* params,
+                                 const void* v_pages, const void* page_table, const void* seq_lens,
+                                 void* out, void* m_out, void* l_out, int B, int HQ, int H, int S,
+                                 int max_pages, int out_f32, float sm_scale, void* stream) {
+  const int tiles = (HQ / H + GMAX - 1) / GMAX;
+  const size_t smem = (size_t)GMAX * S * sizeof(float);
+  paged_decode_kernel<<<dim3(B, H, tiles), D, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k_pages, (const __nv_bfloat16*)params,
+      (const int8_t*)v_pages, (const int*)page_table, (const int*)seq_lens, out, (float*)m_out,
+      (float*)l_out, HQ, H, S, max_pages, out_f32, sm_scale);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-// 4-bit-weight dual-path GEMM (K1) and the fused qkv projections built on it:
-// K2 (float in, K/V into the hot ring), K7 (int in, K/V codes out: prefill) and
-// K8 (int in, K/V into the hot ring).
+// 4-bit-weight dual-path GEMM (K1) and the fused kernels built on it: the qkv
+// projections K2 (float in, K/V into the hot ring), K7 (int in, K/V codes out:
+// prefill) and K8 (int in, K/V into the hot ring); K9, the GEMM with the
+// activation quantization (and optional RMSNorm) in front and the residual add
+// behind; and K10, the whole quantized MLP block.
 //
 // K1 replaces atom_tpu/ops/pallas_gemm_packed.py:284 packed_w4_gemm (bodies
 // _gemm_packed_kernel :63, _gemm_packed_scratch_kernel :100, the K-blocked
@@ -55,6 +57,29 @@
 // their tile; these guard row < M instead.  NaN note: the TPU kernel's bf16
 // rounding is integer bit math that turns a NaN into Inf; here
 // __float2bfloat16_rn keeps NaN.
+//
+// K9 replaces :540 packed_w4_gemm_fused_in (_gemm_fused_in_kernel :494,
+// _quant_prologue :438): two launches, the prologue above (its norm optional;
+// rstd always comes from outside, as on the TPU, so the statistic is the one
+// the unfused chain uses) and the GEMM with the epilogue
+// out = bf16(resid + bf16(acc)): the GEMM output is rounded to bf16 before the
+// add, then the sum once more, which is what x + quant_gemm(...) does, so K9
+// equals the unfused chain bit for bit.  Bound: the weight stream, as K1.
+//
+// K10 replaces atom_tpu/ops/pallas_mlp.py:238 fused_mlp_packed (_fused_mlp_kernel
+// :84).  On the TPU one sequential grid runs prologue, gate/up tiles and down
+// tiles in turn with the act codes in VMEM.  Here blocks run in parallel and
+// the down product needs every act code of a row, so the phases are launches
+// on one stream: (1) the prologue, (2) the gate/up GEMM into an f32 [M, 2*inter]
+// scratch, (3) SiLU(gate) * up in f32 and the requantization per 128 channels
+// (the last 128 of inter the INT8 keeper, every other block INT4 with the
+// clip), (4) the down GEMM with the residual epilogue (or resid + row_scale *
+// acc, the MoE form, without the bf16 pin, as the TPU kernel has it).  The
+// scratch (2.8 MB at 7B), act codes and scales stay in L2 between launches.
+// SiLU is x / (1 + expf(-x)) with IEEE division, the formula of PyTorch's CUDA
+// silu, so the act codes equal the plain version's.  Bound: the two weight
+// streams (gate/up 45 MB + down 22.5 MB at 7B): memory.  Later work: fold
+// (3) into (2)'s epilogue with a 128-column tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +101,10 @@ __device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
 
 __device__ __forceinline__ uint32_t ld_a(const int8_t* A, int lda, int M, int row, int col) {
   return row < M ? ld_u32(A + (size_t)row * lda + col) : 0u;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // t[c] = byte c of w[0..3], in order: a 4 x 4 byte transpose.
@@ -172,10 +201,18 @@ __device__ __forceinline__ void dot_keeper(const int8_t* A, int lda, int M, int 
   }
 }
 
+// Epilogues of the GEMM: the f32 product (K1 and the qkv kernels' scratch);
+// bf16(resid + bf16(acc)), resid optional (K9, K10); bf16(resid + row_scale *
+// acc) (K10 with a per-row output scale).
+enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2 };
+
+template <int EPI>
 __global__ void __launch_bounds__(NWARP * 32)
 gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
                    const int8_t* __restrict__ wk, const float* __restrict__ sa,
-                   const float* __restrict__ sw, float* __restrict__ out, int M, int N, int ng) {
+                   const float* __restrict__ sw, void* __restrict__ out,
+                   const __nv_bfloat16* __restrict__ resid, const float* __restrict__ row_scale,
+                   int M, int N, int ng) {
   __shared__ int tile[NWARP][TM * TS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -227,17 +264,55 @@ gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
     }
     __syncthreads();
   }
-  if (row < M)
-    *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + ec) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  if (row >= M) return;
+  const size_t o = (size_t)row * N + n0 + ec;
+  if (EPI == EPI_F32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    return;
+  }
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float v = acc[j];
+    if (EPI == EPI_RESID) {
+      if (resid != nullptr) v = __fadd_rn(__bfloat162float(resid[o + j]), bf16_round(v));
+    } else {
+      v = __fadd_rn(__bfloat162float(resid[o + j]), __fmul_rn(row_scale[row], v));
+    }
+    ob[j] = __float2bfloat16_rn(v);
+  }
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// One warp quantizes one 128-channel group of one row symmetrically (lane:
+// 4 consecutive channels): an INT8 keeper without clip, or abits with a_clip.
+__device__ __forceinline__ void quant_group_store(const float (&v)[4], int lane, bool keeper, int abits,
+                                                  float a_clip, int8_t* __restrict__ codes4,
+                                                  float* __restrict__ scale_out) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(v[i]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const int qmax = keeper ? 127 : (1 << (abits - 1)) - 1;
+  amax = fmaxf(amax, 1e-5f);
+  if (!keeper && a_clip < 1.f) amax = __fmul_rn(amax, a_clip);
+  const float scale = __fdiv_rn(amax, (float)qmax);
+  char4 codes;
+  float q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    q[i] = fminf(fmaxf(rintf(__fdiv_rn(v[i], scale)), (float)(-qmax - 1)), (float)qmax);
+  codes.x = (signed char)q[0];
+  codes.y = (signed char)q[1];
+  codes.z = (signed char)q[2];
+  codes.w = (signed char)q[3];
+  *reinterpret_cast<char4*>(codes4) = codes;
+  if (lane == 0) *scale_out = scale;
 }
 
-// K2 prologue: one block per token row m; warp w quantizes groups w, w+8, ...
-// xn = bf16(y * rstd); v = bf16(xn * wg); per 128-group symmetric quantization
+// Prologue of K2, K9 and K10: one block per token row m; warp w quantizes
+// groups w, w+8, ...  With a norm weight: xn = bf16(y * rstd); v = bf16(xn *
+// wg); without (wg null): v = y.  Then per 128-group symmetric quantization
 // (INT4 body with clip, the last group an INT8 keeper without clip).
 __global__ void __launch_bounds__(256)
 quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ wg,
@@ -245,36 +320,46 @@ quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* 
                       int K, int ng, int abits, float a_clip) {
   const int m = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float r = rstd[m];
+  const bool norm = wg != nullptr;
+  const float r = norm ? rstd[m] : 1.f;
   for (int g = warp; g <= ng; g += 8) {
     const int k0 = g * GROUP + lane * 4;
     float v[4];
-    float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float x = __bfloat162float(y[(size_t)m * K + k0 + i]);
-      const float xn = bf16_round(__fmul_rn(x, r));
-      v[i] = bf16_round(__fmul_rn(xn, __bfloat162float(wg[k0 + i])));
-      amax = fmaxf(amax, fabsf(v[i]));
+      v[i] = __bfloat162float(y[(size_t)m * K + k0 + i]);
+      if (norm) {
+        const float xn = bf16_round(__fmul_rn(v[i], r));
+        v[i] = bf16_round(__fmul_rn(xn, __bfloat162float(wg[k0 + i])));
+      }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const bool keeper = g == ng;
-    const int qmax = keeper ? 127 : (1 << (abits - 1)) - 1;
-    amax = fmaxf(amax, 1e-5f);
-    if (!keeper && a_clip < 1.f) amax = __fmul_rn(amax, a_clip);
-    const float scale = __fdiv_rn(amax, (float)qmax);
-    char4 codes;
-    float q[4];
+    quant_group_store(v, lane, g == ng, abits, a_clip, a + (size_t)m * K + k0,
+                      sa + (size_t)m * (ng + 1) + g);
+  }
+}
+
+// K10 phase 3: act = SiLU(gate) * up in f32 from the gate/up product
+// gu [M, 2*inter] (gate columns, then up), requantized per 128 channels into
+// the down GEMM's input layout; the last block of inter is the INT8 keeper.
+__global__ void __launch_bounds__(256)
+silu_mul_quant_kernel(const float* __restrict__ gu, int8_t* __restrict__ a, float* __restrict__ sa,
+                      int inter, int abits, float a_clip) {
+  const int m = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nblk = inter / GROUP;
+  const float* row = gu + (size_t)m * 2 * inter;
+  for (int blk = warp; blk < nblk; blk += 8) {
+    const int c0 = blk * GROUP + lane * 4;
+    const float4 g4 = *reinterpret_cast<const float4*>(row + c0);
+    const float4 u4 = *reinterpret_cast<const float4*>(row + inter + c0);
+    const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+    const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+    float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      q[i] = fminf(fmaxf(rintf(__fdiv_rn(v[i], scale)), (float)(-qmax - 1)), (float)qmax);
-    codes.x = (signed char)q[0];
-    codes.y = (signed char)q[1];
-    codes.z = (signed char)q[2];
-    codes.w = (signed char)q[3];
-    *reinterpret_cast<char4*>(a + (size_t)m * K + k0) = codes;
-    if (lane == 0) sa[(size_t)m * (ng + 1) + g] = scale;
+      v[i] = __fmul_rn(__fdiv_rn(g[i], __fadd_rn(1.f, expf(-g[i]))), u[i]);
+    quant_group_store(v, lane, blk == nblk - 1, abits, a_clip, a + (size_t)m * inter + c0,
+                      sa + (size_t)m * nblk + blk);
   }
 }
 
@@ -391,12 +476,27 @@ qkv_codes_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict
   }
 }
 
+template <int EPI>
+cudaError_t launch_gemm_epi(const void* a, const void* wp, const void* wk, const void* sa,
+                            const void* sw, void* out, const void* resid, const void* row_scale,
+                            int M, int N, int ng, cudaStream_t st) {
+  const dim3 grid(N / TN, (M + TM - 1) / TM);
+  gemm_packed_kernel<EPI><<<grid, NWARP * 32, 0, st>>>(
+      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
+      out, (const __nv_bfloat16*)resid, (const float*)row_scale, M, N, ng);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_gemm(const void* a, const void* wp, const void* wk, const void* sa,
                         const void* sw, void* out, int M, int N, int ng, cudaStream_t st) {
-  const dim3 grid(N / TN, (M + TM - 1) / TM);
-  gemm_packed_kernel<<<grid, NWARP * 32, 0, st>>>(
-      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
-      (float*)out, M, N, ng);
+  return launch_gemm_epi<EPI_F32>(a, wp, wk, sa, sw, out, nullptr, nullptr, M, N, ng, st);
+}
+
+cudaError_t launch_prologue(const void* y, const void* wg, const void* rstd, void* a, void* sa,
+                            int M, int K, int abits, float a_clip, cudaStream_t st) {
+  quant_prologue_kernel<<<M, 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
+                                           (const float*)rstd, (int8_t*)a, (float*)sa, K,
+                                           K / GROUP - 1, abits, a_clip);
   return cudaGetLastError();
 }
 
@@ -427,10 +527,7 @@ extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rs
   const cudaStream_t st = (cudaStream_t)stream;
   const int ng = K / GROUP - 1;
   const int N = n_q + 2 * H * HEAD;
-  quant_prologue_kernel<<<M, 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
-                                           (const float*)rstd, (int8_t*)a_scratch,
-                                           (float*)sa_scratch, K, ng, abits, a_clip);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_gemm(a_scratch, wp, wk, sa_scratch, sw, qkv_scratch, M, N, ng, st);
   if (err != cudaSuccess) return (int)err;
@@ -464,4 +561,46 @@ extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, con
       (const float*)qkv_scratch, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
       (int8_t*)k_codes, (float*)k_prm, (int8_t*)v_codes, (float*)v_prm, n_q, H);
   return (int)cudaGetLastError();
+}
+
+// K9: prologue (norm optional: wg and rstd null without it), then the GEMM with
+// the residual epilogue into bf16 (resid null: bf16(acc)) or, with out_f32, the
+// plain f32 product.
+extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rstd, const void* wp,
+                                  const void* wk, const void* sw, const void* resid,
+                                  void* a_scratch, void* sa_scratch, void* out, int M, int K, int N,
+                                  int abits, int out_f32, float a_clip, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ng = K / GROUP - 1;
+  const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
+  if (err != cudaSuccess) return (int)err;
+  if (out_f32) return (int)launch_gemm(a_scratch, wp, wk, sa_scratch, sw, out, M, N, ng, st);
+  return (int)launch_gemm_epi<EPI_RESID>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N,
+                                         ng, st);
+}
+
+// K10: prologue, gate/up GEMM, SiLU * up + requantization, down GEMM with the
+// residual epilogue (row_scale null) or resid + row_scale * acc.
+extern "C" int atom_fused_mlp(const void* y, const void* wg, const void* rstd, const void* gu_wp,
+                              const void* gu_wk, const void* gu_sw, const void* dn_wp,
+                              const void* dn_wk, const void* dn_sw, const void* resid,
+                              const void* row_scale, void* a_scratch, void* sa_scratch,
+                              void* gu_scratch, void* act, void* act_scales, void* out, int M, int D,
+                              int inter, int abits, float a_clip, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, D, abits, a_clip, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, gu_scratch, M, 2 * inter,
+                    D / GROUP - 1, st);
+  if (err != cudaSuccess) return (int)err;
+  silu_mul_quant_kernel<<<M, 256, 0, st>>>((const float*)gu_scratch, (int8_t*)act,
+                                           (float*)act_scales, inter, abits, a_clip);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nga = inter / GROUP - 1;
+  if (row_scale != nullptr)
+    return (int)launch_gemm_epi<EPI_ROW_SCALE>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid,
+                                               row_scale, M, D, nga, st);
+  return (int)launch_gemm_epi<EPI_RESID>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M,
+                                         D, nga, st);
 }

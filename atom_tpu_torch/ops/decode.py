@@ -1,13 +1,18 @@
 """Paged + hot-ring decode attention and the ring flush
-(``atom_tpu/ops/pallas_decode.py``), kernels K3 and K4.
+(``atom_tpu/ops/pallas_decode.py``), kernels K3, K4 and K11.
 
 ``paged_ring_decode_attention`` (K3) attends each sequence's query heads
 over its flushed pages and the valid suffix of the hot ring, on 4-bit codes
 with the affine dequantization folded into the scores and the probabilities.
 ``flush_hot`` (K4) writes each active sequence's pending ring block
-``[lo, hi)`` into its one or two pages, in place.  Both launch
-``csrc/decode.cu`` on CUDA tensors and run their plain versions on CPU
-tensors.
+``[lo, hi)`` into its one or two pages, in place.
+``paged_decode_attention_rotated`` (K11) is K3 without the ring: attention
+over the flushed pages alone, which can also return the softmax state (m, l)
+so that a caller merges it with another part (``kv_hot.merge_attention``);
+the mixed prefill+decode step calls it for the decode rows and, with all of a
+prompt chunk's queries folded into the query-head axis, for the chunk's
+page-resident prefix.  All launch ``csrc/decode.cu`` on CUDA tensors and run
+their plain versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ def _lib():
     lib.atom_paged_ring_decode.restype = _I
     lib.atom_flush_hot.argtypes = [_P] * 12 + [_I] * 5 + [_P]
     lib.atom_flush_hot.restype = _I
+    lib.atom_paged_decode.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+    lib.atom_paged_decode.restype = _I
     return lib
 
 
@@ -42,6 +49,24 @@ def _planes(b: torch.Tensor, dim: int) -> torch.Tensor:
     """u4 plane bytes -> codes f32, low nibbles first along ``dim``."""
     u = b.to(torch.int32) & 0xFF
     return torch.cat([u & 0x0F, u >> 4], dim=dim).to(torch.float32)
+
+
+def _gather_pages(pages: KVPages, page_table, seq_lens):
+    """Each sequence's pages as float32 codes for the plain versions -> (K
+    codes [B, P, H, D, S], params [B, H, 4, P, S], V codes [B, P, H, S, D],
+    slot validity [B, P, S]).  Pages past a sequence's last one are clamped
+    to it (and masked)."""
+    s = pages.page_size
+    max_pages = page_table.shape[1]
+    dev = page_table.device
+    last = torch.clamp_min((seq_lens + s - 1) // s - 1, 0)
+    idx = torch.minimum(torch.arange(max_pages, device=dev)[None, :], last[:, None])
+    pt = torch.gather(page_table, 1, idx).long()  # [B, P]
+    kc = _planes(pages.k_pages[pt], dim=-2)
+    prm = pages.params[pt].to(torch.float32).permute(0, 3, 2, 1, 4)
+    vc = _planes(pages.v_pages[pt], dim=-2)
+    pos = torch.arange(max_pages * s, device=dev).reshape(max_pages, s)
+    return kc, prm, vc, pos[None] < seq_lens[:, None, None]
 
 
 def paged_ring_decode_attention_plain(q, pages: KVPages, page_table, seq_lens, hot: HotKV, n_hot, row: int):
@@ -54,15 +79,7 @@ def paged_ring_decode_attention_plain(q, pages: KVPages, page_table, seq_lens, h
     qf = q.to(torch.float32).reshape(b, h, g, d)
     q_sum = qf.sum(-1)  # [B, H, G]
 
-    # pages past a sequence's last one are clamped to it (and masked)
-    last = torch.clamp_min((seq_lens + s - 1) // s - 1, 0)
-    idx = torch.minimum(torch.arange(max_pages, device=q.device)[None, :], last[:, None])
-    pt = torch.gather(page_table, 1, idx).long()  # [B, P]
-    kc = _planes(pages.k_pages[pt], dim=-2)  # [B, P, H, D, S]
-    prm = pages.params[pt].to(torch.float32).permute(0, 3, 2, 1, 4)  # [B, H, 4, P, S]
-    vc = _planes(pages.v_pages[pt], dim=-2)  # [B, P, H, S, D]
-    pos = torch.arange(max_pages * s, device=q.device).reshape(max_pages, s)
-    valid_p = pos[None] < seq_lens[:, None, None]  # [B, P, S]
+    kc, prm, vc, valid_p = _gather_pages(pages, page_table, seq_lens)
     dots = torch.einsum("bhgd,bphds->bhgps", qf, kc)
     sc_p = (dots * prm[:, :, None, 0] + q_sum[..., None, None] * prm[:, :, None, 1]) * sm_scale
     sc_p = torch.where(valid_p[:, None, None], sc_p, _NEG_INF).reshape(b, h, g, max_pages * s)
@@ -203,3 +220,78 @@ def flush_hot(
 
 
 flush_hot.launches = 0
+
+
+def paged_decode_attention_rotated_plain(q, pages: KVPages, page_table, seq_lens, out_dtype=torch.bfloat16,
+                                         return_state: bool = False):
+    """Plain version of K11: one masked softmax over the page slots; an empty
+    sequence gives ``out = 0, m = -1e30, l = 0``."""
+    b, hq, d = q.shape
+    h = pages.kv_heads
+    g = hq // h
+    sm_scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32).reshape(b, h, g, d)
+    q_sum = qf.sum(-1)  # [B, H, G]
+
+    kc, prm, vc, valid = _gather_pages(pages, page_table, seq_lens)
+    valid = valid[:, None, None]  # [B, 1, 1, P, S]
+    dots = torch.einsum("bhgd,bphds->bhgps", qf, kc)
+    scores = (dots * prm[:, :, None, 0] + q_sum[..., None, None] * prm[:, :, None, 1]) * sm_scale
+    scores = torch.where(valid, scores, _NEG_INF)
+    m = scores.amax((-2, -1))  # [B, H, G]
+    p = torch.where(valid, torch.exp(scores - m[..., None, None]), 0.0)
+    l = p.sum((-2, -1))
+    pv = torch.einsum("bhgps,bphsd->bhgd", p * prm[:, :, None, 2], vc)
+    z = (p * prm[:, :, None, 3]).sum((-2, -1))
+    out = ((pv + z[..., None]) / torch.clamp_min(l, 1e-20)[..., None]).reshape(b, hq, d).to(out_dtype)
+    if return_state:
+        return out, m.reshape(b, hq), l.reshape(b, hq)
+    return out
+
+
+def paged_decode_attention_rotated(
+    q: torch.Tensor,  # bf16 [B, HQ, D] — RoPE'd, kv-head-major
+    pages: KVPages,  # K pages hold post-RoPE codes
+    page_table: torch.Tensor,  # int32 [B, max_pages]
+    seq_lens: torch.Tensor,  # int32 [B] — flushed tokens per sequence
+    out_dtype=torch.bfloat16,  # or torch.float32
+    return_state: bool = False,
+):
+    """Kernel K11 -> attention over the pages alone, normalised by
+    ``max(l, 1e-20)``, [B, HQ, D] in ``out_dtype``; with ``return_state``
+    also the softmax state (m f32 [B, HQ], l f32 [B, HQ]).  Any number of
+    query heads per kv head: the kernel tiles them, so a prompt chunk's C
+    queries ride as ``G * C`` query rows of one sequence."""
+    tensors = (q, *pages, page_table, seq_lens)
+    if on_cpu(*tensors):
+        return paged_decode_attention_rotated_plain(q, pages, page_table, seq_lens, out_dtype, return_state)
+    b, hq, d = q.shape
+    h, s = pages.kv_heads, pages.page_size
+    if d != 128 or hq % h or s % 2:
+        raise ValueError(f"paged_decode_attention_rotated: needs head_dim 128 and HQ a multiple of H, got D={d}, HQ={hq}, H={h}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"paged_decode_attention_rotated: out_dtype {out_dtype} is neither bfloat16 nor float32")
+    check_kernel_input(q, "q", torch.bfloat16)
+    check_kernel_input(pages.k_pages, "k_pages", torch.int8)
+    check_kernel_input(pages.params, "params", torch.bfloat16)
+    check_kernel_input(pages.v_pages, "v_pages", torch.int8)
+    check_kernel_input(page_table, "page_table", torch.int32, (b, page_table.shape[1]))
+    check_kernel_input(seq_lens, "seq_lens", torch.int32, (b,))
+    out = torch.empty((b, hq, d), dtype=out_dtype, device=q.device)
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    _build.check(
+        _lib().atom_paged_decode(
+            q.data_ptr(), pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, hq, h, s, page_table.shape[1], int(out_dtype == torch.float32), 1.0 / math.sqrt(d), _build.stream(),
+        ),
+        "paged_decode_attention_rotated",
+    )
+    paged_decode_attention_rotated.launches += 1
+    if return_state:
+        return out, m, l
+    return out
+
+
+paged_decode_attention_rotated.launches = 0

@@ -17,6 +17,12 @@ them; decode off the ring-fused geometry hands them to ``write_hot``).
 Kernel K8, ``packed_w4_gemm_qkv_ring``: K2 without its prologue, for specs
 whose activation quantization the prologue does not implement.
 
+Kernel K9, ``packed_w4_gemm_fused_in``: the K1 product with the dynamic
+activation quantization (and, given a norm weight, the RMSNorm) in front and
+the residual add behind: ``bf16(resid + bf16(acc))``, the roundings of the
+unfused chain ``x + quant_gemm_packed(reorder_quant(..))``, which it equals
+bit for bit.
+
 All launch ``csrc/gemm_packed.cu`` on CUDA tensors and run their plain
 versions (``*_plain``) on CPU tensors.  The plain versions compute each
 group's integer dot as a float32 matmul, exact because every partial sum is
@@ -55,6 +61,10 @@ def _lib():
     lib.atom_qkv_ring.restype = _I
     lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_P]
     lib.atom_qkv_codes.restype = _I
+    lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _P]
+    lib.atom_gemm_fused_in.restype = _I
+    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 4 + [_F, _P]
+    lib.atom_fused_mlp.restype = _I
     return lib
 
 
@@ -129,11 +139,14 @@ def quant_gemm_packed(
 
 
 def quant_prologue_plain(y, norm_w, rstd, abits: int, a_clip: float):
-    """RMSNorm (given rstd, bf16 roundings pinned) + dual-path quantization
-    of a gathered bf16 [M, K] activation with a bf16 norm weight
-    -> (codes int8 [M, K], scales f32 [M, ng+1])."""
-    xn = rp_bf16(y.to(torch.float32) * rstd)
-    qa = quantize_dual_path(rp_bf16(xn * norm_w.to(torch.float32)), abits, a_clip, GROUP)
+    """RMSNorm (given rstd, bf16 roundings pinned; skipped when ``norm_w`` is
+    None) + dual-path quantization of a gathered bf16 [M, K] activation with
+    a bf16 norm weight -> (codes int8 [M, K], scales f32 [M, ng+1])."""
+    v = y.to(torch.float32)
+    if norm_w is not None:
+        xn = rp_bf16(v * rstd)
+        v = rp_bf16(xn * norm_w.to(torch.float32))
+    qa = quantize_dual_path(v, abits, a_clip, GROUP)
     return qa.codes, qa.scales
 
 
@@ -368,3 +381,99 @@ def packed_w4_gemm_qkv_ring(
 
 
 packed_w4_gemm_qkv_ring.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: activation quantization (+ RMSNorm) -> GEMM -> residual add
+# ---------------------------------------------------------------------------
+
+
+def resid_epilogue_plain(acc, resid, row_scale=None, out_dtype=torch.bfloat16):
+    """The fused GEMMs' epilogue on the f32 product: ``resid + bf16(acc)``
+    rounded once more (the unfused ``x + quant_gemm``), or with ``row_scale``
+    ``resid + row_scale * acc`` without the pin; ``acc`` cast when there is
+    no residual."""
+    if resid is None:
+        return acc.to(out_dtype)
+    if row_scale is not None:
+        return (resid.to(torch.float32) + row_scale.to(torch.float32).reshape(-1, 1) * acc).to(resid.dtype)
+    return (resid.to(torch.float32) + rp_bf16(acc)).to(resid.dtype)
+
+
+def packed_w4_gemm_fused_in_plain(y, kw: KernelPackedWeight, norm_w=None, rstd=None, resid=None,
+                                  abits=4, a_clip=1.0, eps=1e-5, out_dtype=torch.bfloat16):
+    """Plain version of K9 (same signature as the kernel's wrapper)."""
+    if norm_w is not None and rstd is None:
+        rstd = rms_rstd(y, eps)
+    a, sa = quant_prologue_plain(y, norm_w, rstd, abits, a_clip)
+    acc = packed_w4_gemm_plain(a, kw.body_packed, kw.keeper, sa, kw.scales)
+    return resid_epilogue_plain(acc, resid, out_dtype=out_dtype)
+
+
+def check_fused_in_inputs(name, y, kw: KernelPackedWeight, norm_w, rstd, eps):
+    """Checks shared by K9 and K10's input side -> (rstd f32 [M, 1] or None)."""
+    m, k = y.shape
+    ng = k // GROUP - 1
+    n = kw.body_packed.shape[1]
+    if k % GROUP or k < 2 * GROUP or n % _TN:
+        raise ValueError(f"{name}: K={k} must be a multiple of 128 (at least 256), N={n} of {_TN}")
+    check_kernel_input(y, "y", torch.bfloat16)
+    check_kernel_input(kw.body_packed, "body_packed", torch.int8, (ng * HALF, n))
+    check_kernel_input(kw.keeper, "keeper", torch.int8, (GROUP, n))
+    check_kernel_input(kw.scales, "scales", torch.float32, (ng + 1, n))
+    if norm_w is None:
+        if rstd is not None:
+            raise ValueError(f"{name}: rstd is only meaningful with norm_w")
+        return None
+    check_kernel_input(norm_w, "norm_w", torch.bfloat16, (k,))
+    if rstd is None:  # rms statistics do not depend on the channel order
+        rstd = rms_rstd(y, eps)
+    return rstd.to(torch.float32).reshape(m, 1).contiguous()
+
+
+def packed_w4_gemm_fused_in(
+    y: torch.Tensor,  # bf16 [M, K] — gathered (reordered) activation
+    kw: KernelPackedWeight,  # K -> N
+    norm_w: torch.Tensor | None = None,  # bf16 [K] — gathered norm weight
+    rstd: torch.Tensor | None = None,  # f32 [M, 1] — the norm's reciprocal std
+    resid: torch.Tensor | None = None,  # bf16 [M, N] — residual added in the epilogue
+    abits: int = 4,
+    a_clip: float = 1.0,
+    eps: float = 1e-5,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Kernel K9: 4-bit GEMM with the dynamic quantization (+ optional
+    RMSNorm) in front and the residual add behind -> [M, N] in the residual's
+    type (``out_dtype`` without one).  ``rstd`` comes from outside the
+    kernel (``numerics.rms_rstd``; computed here when a norm weight comes
+    without it), so the statistic is the unfused chain's."""
+    tensors = [t for t in (y, *kw, norm_w, rstd, resid) if t is not None]
+    if on_cpu(*tensors):
+        return packed_w4_gemm_fused_in_plain(y, kw, norm_w, rstd, resid, abits, a_clip, eps, out_dtype)
+    m, k = y.shape
+    n = kw.body_packed.shape[1]
+    rstd = check_fused_in_inputs("packed_w4_gemm_fused_in", y, kw, norm_w, rstd, eps)
+    if resid is not None:
+        check_kernel_input(resid, "resid", torch.bfloat16, (m, n))
+        out_dtype = resid.dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"packed_w4_gemm_fused_in: out_dtype {out_dtype} is neither bfloat16 nor float32")
+    dev = y.device
+    a = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sa = torch.empty((m, k // GROUP), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _build.check(
+            _lib().atom_gemm_fused_in(
+                y.data_ptr(), ptr(norm_w), ptr(rstd), kw.body_packed.data_ptr(), kw.keeper.data_ptr(),
+                kw.scales.data_ptr(), ptr(resid), a.data_ptr(), sa.data_ptr(), out.data_ptr(),
+                m, k, n, abits, int(out_dtype == torch.float32), a_clip, _build.stream(),
+            ),
+            "packed_w4_gemm_fused_in",
+        )
+        packed_w4_gemm_fused_in.launches += 1
+    return out
+
+
+packed_w4_gemm_fused_in.launches = 0

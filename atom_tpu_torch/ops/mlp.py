@@ -1,0 +1,132 @@
+"""The whole quantized MLP block as one fused function
+(``atom_tpu/ops/pallas_mlp.py``), kernel K10.
+
+``fused_mlp_packed`` computes ``resid + down(quant(silu(gate(quant(y))) *
+up(quant(y))))``: the dual-path quantization of the (optionally normed)
+input, the gate and up GEMMs, SiLU(gate) * up in float32, its requantization
+per 128 channels (the last 128 channels of the intermediate the INT8 keeper,
+every other block INT4 with the clip), the down GEMM and the residual add
+``bf16(resid + bf16(acc))``, or ``resid + row_scale * acc`` for a caller that
+weights the block's output per row (MoE routing).  It launches
+``csrc/gemm_packed.cu`` on CUDA tensors and runs its plain version on CPU
+tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from atom_tpu_torch.numerics import rms_rstd
+from atom_tpu_torch.ops import _build
+from atom_tpu_torch.ops.formats import KernelPackedWeight, quantize_dual_path
+from atom_tpu_torch.ops.gemm_packed import (
+    GROUP,
+    HALF,
+    _lib,
+    check_fused_in_inputs,
+    packed_w4_gemm_plain,
+    quant_prologue_plain,
+    resid_epilogue_plain,
+)
+from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
+
+
+def fused_mlp_supported(d: int, inter: int, keeper: int, group: int) -> bool:
+    """Geometry gate of the fused MLP (the JAX package's, so that both
+    packages take the fused branch for the same models): 128-wide groups and
+    keeper, hidden a multiple of 512, intermediate a multiple of 256 with at
+    most 112 body groups."""
+    return (
+        keeper == GROUP
+        and group == GROUP
+        and d % 512 == 0
+        and inter % 256 == 0
+        and (inter - GROUP) // GROUP <= 112
+    )
+
+
+def fused_mlp_act_plain(y, gu: KernelPackedWeight, norm_w=None, rstd=None, abits=4, a_clip=1.0, eps=1e-5):
+    """First half of the plain version: input quantization, gate/up product,
+    SiLU(gate) * up, requantization -> (act codes int8 [M, inter], scales f32
+    [M, inter / 128]) in the down GEMM's input layout."""
+    if norm_w is not None and rstd is None:
+        rstd = rms_rstd(y, eps)
+    a, sa = quant_prologue_plain(y, norm_w, rstd, abits, a_clip)
+    prod = packed_w4_gemm_plain(a, gu.body_packed, gu.keeper, sa, gu.scales)
+    inter = prod.shape[1] // 2
+    act = F.silu(prod[:, :inter]) * prod[:, inter:]
+    qa = quantize_dual_path(act, abits, a_clip, GROUP)
+    return qa.codes, qa.scales
+
+
+def fused_mlp_down_plain(act, act_scales, resid, dn: KernelPackedWeight, row_scale=None):
+    """Second half of the plain version: down product and the residual epilogue."""
+    acc = packed_w4_gemm_plain(act, dn.body_packed, dn.keeper, act_scales, dn.scales)
+    return resid_epilogue_plain(acc, resid, row_scale)
+
+
+def fused_mlp_packed_plain(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=None, abits=4, a_clip=1.0, eps=1e-5):
+    """Plain version of K10 (same signature as the kernel's wrapper)."""
+    act, act_scales = fused_mlp_act_plain(y, gu, norm_w, rstd, abits, a_clip, eps)
+    return fused_mlp_down_plain(act, act_scales, resid, dn, row_scale)
+
+
+def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=None, abits=4, a_clip=1.0, eps=1e-5):
+    """Kernel K10, also returning what its phases hand on: (out, act codes,
+    act scales).  For checks that hold the two halves to their plain
+    versions separately."""
+    tensors = [t for t in (y, resid, *gu, *dn, norm_w, rstd, row_scale) if t is not None]
+    if on_cpu(*tensors):
+        act, act_scales = fused_mlp_act_plain(y, gu, norm_w, rstd, abits, a_clip, eps)
+        return fused_mlp_down_plain(act, act_scales, resid, dn, row_scale), act, act_scales
+    m, d = y.shape
+    inter = gu.body_packed.shape[1] // 2
+    if not fused_mlp_supported(d, inter, GROUP, GROUP):
+        raise ValueError(f"fused_mlp_packed: geometry D={d}, inter={inter} is outside fused_mlp_supported")
+    rstd = check_fused_in_inputs("fused_mlp_packed", y, gu, norm_w, rstd, eps)
+    nga = inter // GROUP - 1
+    check_kernel_input(resid, "resid", torch.bfloat16, (m, d))
+    check_kernel_input(dn.body_packed, "down body_packed", torch.int8, (nga * HALF, d))
+    check_kernel_input(dn.keeper, "down keeper", torch.int8, (GROUP, d))
+    check_kernel_input(dn.scales, "down scales", torch.float32, (nga + 1, d))
+    if row_scale is not None:
+        row_scale = row_scale.to(torch.float32).reshape(m).contiguous()
+    dev = y.device
+    a = torch.empty((m, d), dtype=torch.int8, device=dev)
+    sa = torch.empty((m, d // GROUP), dtype=torch.float32, device=dev)
+    prod = torch.empty((m, 2 * inter), dtype=torch.float32, device=dev)
+    act = torch.empty((m, inter), dtype=torch.int8, device=dev)
+    act_scales = torch.empty((m, inter // GROUP), dtype=torch.float32, device=dev)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    if m:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _build.check(
+            _lib().atom_fused_mlp(
+                y.data_ptr(), ptr(norm_w), ptr(rstd), gu.body_packed.data_ptr(), gu.keeper.data_ptr(),
+                gu.scales.data_ptr(), dn.body_packed.data_ptr(), dn.keeper.data_ptr(), dn.scales.data_ptr(),
+                resid.data_ptr(), ptr(row_scale), a.data_ptr(), sa.data_ptr(), prod.data_ptr(), act.data_ptr(),
+                act_scales.data_ptr(), out.data_ptr(), m, d, inter, abits, a_clip, _build.stream(),
+            ),
+            "fused_mlp_packed",
+        )
+        fused_mlp_packed.launches += 1
+    return out, act, act_scales
+
+
+def fused_mlp_packed(
+    y: torch.Tensor,  # bf16 [M, D] — mlp-reordered hidden (normed here iff norm_w is given)
+    resid: torch.Tensor,  # bf16 [M, D]
+    gu: KernelPackedWeight,  # K = D, N = 2 * inter (gate columns, then up)
+    dn: KernelPackedWeight,  # K = inter, N = D
+    norm_w: torch.Tensor | None = None,  # bf16 [D] — gathered mlp norm weight
+    rstd: torch.Tensor | None = None,  # f32 [M, 1] — the norm's reciprocal std
+    row_scale: torch.Tensor | None = None,  # f32 [M] — scales the down output
+    abits: int = 4,
+    a_clip: float = 1.0,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Kernel K10 -> bf16 [M, D]; see the module docstring."""
+    return fused_mlp_packed_stages(y, resid, gu, dn, norm_w, rstd, row_scale, abits, a_clip, eps)[0]
+
+
+fused_mlp_packed.launches = 0

@@ -1,19 +1,23 @@
 """FCFS continuous-batching text-generation engine
-(``atom_tpu/serving/engine.py``), serial-prefill path.
+(``atom_tpu/serving/engine.py``), with serial or mixed prefill.
 
 Policy: refill the workset up to ``batch_size``, greedy sampling, fixed output
-lengths, per-request latency accounting.  Per iteration the work is one
+lengths, per-request latency accounting.  Serial mode: per iteration one
 bucketed prefill per newly admitted request and one decode step for the whole
-workset.  Sampled ids stay on the device between steps; per step only the
-page table and the sequence lengths go up, one copy each, from pinned host
-memory so the host never waits for the device there.
+workset.  Mixed mode (``chunk_fn`` given): an admitted request only reserves
+its slot; its prompt then rides the following steps in page-size chunks, one
+chunk per step beside the workset's decode rows (earliest admitted first), so
+running requests keep stepping while another is admitted.  Sampled ids stay
+on the device between steps; per step only the page table and the sequence
+lengths (and a chunk's ids and table row) go up, one copy each, from pinned
+host memory so the host never waits for the device there.
 
 The host blocks on the device exactly where the JAX engine does: on a
-prefill's token before its time-to-first-token is stamped, on steps where a
-sequence finishes before ``finish_t`` is stamped, and once at the end.
+prefill's (or a prompt's last chunk's) token before its time-to-first-token
+is stamped, on steps where a sequence finishes before ``finish_t`` is
+stamped, and once at the end.
 
-Not ported yet: mixed scheduling (``chunk_fn``, needs ``mixed_step`` and
-kernel K11), LoRA serving and the native C++ scheduler; asking for them
+Not ported yet: LoRA serving and the native C++ scheduler; asking for them
 raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -84,12 +88,17 @@ class TextGenEngine:
 
       prefill_fn(state, ids[T], table_row, true_len, slot) -> (token, state)
       decode_fn(state, ids[B], page_table, seq_lens) -> (next_ids[B], state)
+      chunk_fn(state, ids[B], page_table, seq_lens, chunk_ids[C], table_row,
+               pos0, chunk_len, chunk_slot) -> (next_ids[B], chunk_token, state)
 
-    ``ids``, ``table_row``, ``page_table`` and ``seq_lens`` are int32 tensors on
-    the engine's device, ``true_len`` and ``slot`` Python ints, ``token`` a
-    0-dim tensor.  ``state`` is an opaque tree owned by the model (for the W4A4
-    stack: KV pages + hot ring + flush counters).  The engine runs on the
-    device its state lies on; a state without tensors means the card.
+    ``ids``, ``table_row``, ``page_table``, ``seq_lens`` and ``chunk_ids`` are
+    int32 tensors on the engine's device, ``true_len``, ``slot``, ``pos0``,
+    ``chunk_len`` and ``chunk_slot`` Python ints, ``token`` and
+    ``chunk_token`` 0-dim tensors.  ``chunk_fn`` (optional) selects mixed
+    scheduling; its chunk size is the page size.  ``state`` is an opaque tree
+    owned by the model (for the W4A4 stack: KV pages + hot ring + flush
+    counters).  The engine runs on the device its state lies on; a state
+    without tensors means the card.
     """
 
     def __init__(
@@ -103,10 +112,6 @@ class TextGenEngine:
         native: object = False,
         lora: bool = False,
     ):
-        if chunk_fn is not None:
-            raise NotImplementedError(
-                "mixed scheduling (chunk_fn) needs mixed_step and kernel K11, the slice after this one"
-            )
         if lora:
             raise NotImplementedError("LoRA serving (serving/lora.py) is a later slice of the port")
         if native is not False:
@@ -115,6 +120,7 @@ class TextGenEngine:
         self.pool = pool
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
+        self.chunk_fn = chunk_fn
         self.state = state
         self.device = _state_device(state) or resolve_device(None)
         self.max_pages = -(-cfg.max_seq_len // cfg.page_size)
@@ -148,6 +154,9 @@ class TextGenEngine:
         ]
 
         workset: List[Optional[_ActiveSeq]] = [None] * bsz
+        # slots in the middle of a chunked prefill (mixed scheduling): slot -> [seq, next position]
+        prefilling: dict = {}
+        chunk = cfg.page_size  # a chunked prefill appends whole pages
         next_req = 0
         done = 0
         n_req = len(rs)
@@ -159,6 +168,7 @@ class TextGenEngine:
 
         t_start = time.perf_counter()
         n_decode_steps = 0
+        n_mixed_steps = 0  # steps that carried a prefill chunk and at least one decode row
         # host scheduling tax: admission + page/table assembly + retirement
         # bookkeeping, excluding the step functions' dispatch
         host_sched_s = 0.0
@@ -166,7 +176,7 @@ class TextGenEngine:
             now = time.perf_counter()
             # --- admit new requests into free slots (FCFS) ---
             for slot in range(bsz):
-                if workset[slot] is not None or next_req >= n_req:
+                if workset[slot] is not None or slot in prefilling or next_req >= n_req:
                     continue
                 r = next_req
                 next_req += 1
@@ -175,6 +185,11 @@ class TextGenEngine:
                 t_true = len(prompt)
                 kv = SeqKvCache(self.pool, t_true)
                 seq = _ActiveSeq(r, kv, int(rs.output_lens[r]), stats[r])
+                if self.chunk_fn is not None:
+                    # mixed scheduling: the prompt rides the following steps in
+                    # page-size chunks; the slot is reserved now
+                    prefilling[slot] = [seq, 0]
+                    continue
                 bucket = self._bucket(t_true)
                 ids = np.zeros((bucket,), np.int32)
                 ids[:t_true] = prompt
@@ -198,11 +213,13 @@ class TextGenEngine:
                 else:
                     workset[slot] = seq
 
+            # slots that decode this step (a prefill completing below joins the
+            # workset only for the next step: it is not retired or recorded now)
             stepped = [slot for slot in range(bsz) if workset[slot] is not None]
-            if not stepped:
+            if not stepped and not prefilling:
                 continue
 
-            # --- one step: whole-workset decode ---
+            # --- one step: whole-workset decode (+ one prefill chunk) ---
             t_h = time.perf_counter()
             for slot in stepped:
                 workset[slot].kv.acquire_one()  # extend; allocate page on boundary
@@ -210,10 +227,45 @@ class TextGenEngine:
             table_dev = self._upload(table)
             lens_dev = self._upload(lens)
             host_sched_s += time.perf_counter() - t_h
-            ids_dev, state = self.decode_fn(state, ids_dev, table_dev, lens_dev)
-            n_decode_steps += 1
+            if prefilling:
+                # FCFS: the next chunk of the earliest admitted prefilling request
+                slot_p = next(iter(prefilling))
+                seq_p, pos = prefilling[slot_p]
+                prompt = rs.prompts[seq_p.idx]
+                t_true = len(prompt)
+                clen = min(chunk, t_true - pos)
+                cids = np.zeros((chunk,), np.int32)
+                cids[:clen] = prompt[pos : pos + clen]
+                table_row = np.zeros((self.max_pages,), np.int32)
+                table_row[: len(seq_p.kv.page_ids)] = seq_p.kv.page_ids
+                ids_dev, chunk_tok, state = self.chunk_fn(
+                    state, ids_dev, table_dev, lens_dev, self._upload(cids), self._upload(table_row), pos, clen, slot_p
+                )
+                pos += clen
+                if pos >= t_true:  # prompt complete: its first token is produced
+                    ids_dev[slot_p] = chunk_tok
+                    tok_host = int(chunk_tok.item())  # wait for the device before stamping
+                    seq_p.stat.first_token_t = time.perf_counter()
+                    if record:
+                        tokens[seq_p.idx].append(tok_host)
+                    seq_p.remaining -= 1
+                    del prefilling[slot_p]
+                    if seq_p.remaining == 0:
+                        seq_p.stat.finish_t = seq_p.stat.first_token_t
+                        seq_p.kv.release()
+                        done += 1
+                    else:
+                        workset[slot_p] = seq_p
+                else:
+                    prefilling[slot_p][1] = pos
+                if stepped:
+                    n_mixed_steps += 1
+            else:
+                ids_dev, state = self.decode_fn(state, ids_dev, table_dev, lens_dev)
+            if stepped:
+                n_decode_steps += 1
 
-            if record:
+            if record and stepped:
                 ids_host = ids_dev.cpu().numpy()
                 for slot in stepped:
                     tokens[workset[slot].idx].append(int(ids_host[slot]))
@@ -248,7 +300,7 @@ class TextGenEngine:
             "elapsed_s": elapsed,
             "requests": n_req,
             "decode_steps": n_decode_steps,
-            "mixed_steps": 0,
+            "mixed_steps": n_mixed_steps,
             "total_tokens": rs.total_tokens,
             "output_tokens": out_tokens,
             "throughput_tok_s": rs.total_tokens / elapsed,

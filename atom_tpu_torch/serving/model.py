@@ -1,4 +1,5 @@
-"""Quantized serving Llama (``atom_tpu/serving/model.py``): prefill and decode.
+"""Quantized serving Llama (``atom_tpu/serving/model.py``): prefill, decode and
+the mixed prefill+decode step.
 
 ``prefill_step``: one fresh sequence [T] (bucket-padded): embedding rows (K6)
 -> per layer the qkv projection with RoPE and K/V quantization (K7), whole
@@ -12,13 +13,26 @@ its prologue does not implement; K7 + ``write_hot`` off its geometry), on
 every W-th step the ring flush into the pages (K4), paged + ring decode
 attention (K3), then o_proj and the MLP (K1) -> final norm -> head -> argmax.
 
-The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5); both
+``mixed_step``: one decode step for the whole batch plus one page-size chunk
+of an admitted prompt, its rows concatenated onto the decode batch's for the
+GEMMs (K7, K1).  Decode rows attend their pages (K11) and the ring
+(``hot_attention``), merged; chunk rows attend the prompt's page-resident
+prefix (K11, all chunk queries as one sequence's query rows) and the chunk
+itself (dense causal), merged; the chunk's K/V land as one whole page.
+
+With ``ATOM_TPU_FUSED_MLP=1`` a decode step's post-attention half runs as two
+fused kernels: o_proj with its activation quantization and residual add (K9)
+and the whole MLP block (K10).  With ``PREFILL_KERNEL_THRESHOLD`` lowered,
+prefill attention runs as one flash kernel over the codes (K12).
+
+The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5); all
 steps share it.  The ring and the pages are updated in place (the JAX version
-donates them).  ``mixed_step`` and the LoRA / tensor-parallel hooks of the JAX
-step functions are not ported yet.
+donates them).  The LoRA / tensor-parallel hooks of the JAX step functions
+are not ported yet.
 """
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Union
 
 import torch
@@ -29,7 +43,7 @@ from atom_tpu_torch.models.configs import ModelConfig
 from atom_tpu_torch.models.nn import apply_rope, rmsnorm, rope_tables
 from atom_tpu_torch.numerics import rms_rstd
 from atom_tpu_torch.ops import reference as R
-from atom_tpu_torch.ops.decode import flush_hot, paged_ring_decode_attention
+from atom_tpu_torch.ops.decode import flush_hot, paged_decode_attention_rotated, paged_ring_decode_attention
 from atom_tpu_torch.ops.formats import (
     KernelPackedWeight,
     pack_for_kernel,
@@ -37,15 +51,26 @@ from atom_tpu_torch.ops.formats import (
     quantize_weight_packed,
 )
 from atom_tpu_torch.ops.gemm_packed import (
+    packed_w4_gemm_fused_in,
     packed_w4_gemm_qkv,
     packed_w4_gemm_qkv_ring,
     packed_w4_gemm_qkv_ring_fused,
     quant_gemm_packed,
 )
 from atom_tpu_torch.ops.gemm_w4a16 import W8A16Weight, quantize_w8a16, w8a16_gemm
-from atom_tpu_torch.ops.kv_hot import HOT_W, HotKV, hot_flush_blocks, make_hot, write_hot
+from atom_tpu_torch.ops.kv_hot import (
+    HOT_W,
+    HotKV,
+    hot_attention,
+    hot_flush_blocks,
+    make_hot,
+    merge_attention,
+    write_hot,
+)
 from atom_tpu_torch.ops.kv_layout import KVPages, append_kv_prefill_kernel, make_kv_pages_kernel
 from atom_tpu_torch.ops.misc import embed_gather
+from atom_tpu_torch.ops.mlp import fused_mlp_packed, fused_mlp_supported
+from atom_tpu_torch.ops.prefill import flash_code_attention
 from atom_tpu_torch.ops.runtime import resolve_device
 
 
@@ -192,9 +217,27 @@ def _rms_rstd(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec):
-    """reorder+quant -> o_proj -> residual; then the MLP block (unfused)."""
-    a_in = R.reorder_quant(attn_out, lp.o_reorder, spec)
-    x = x + quant_gemm_packed(a_in, lp.wo)
+    """reorder+quant -> o_proj -> residual; then the MLP block.
+
+    Behind ``_fused_oproj_ok`` the half-layer runs as fused kernels and only
+    the reorder gathers and the norm statistic stay outside them: o_proj with
+    the quantization in front and the residual add behind (K9), then, behind
+    ``_fused_mlp_ok``, the whole MLP block (K10; the RMSNorm runs inside it on
+    the gathered hidden with the pre-gathered weight, exact because rms
+    statistics do not depend on the channel order).  A geometry K10 does not
+    take keeps the fused o_proj and the unfused MLP."""
+    if _fused_oproj_ok(x.shape, lp, spec):
+        ao = torch.index_select(attn_out, -1, lp.o_reorder)
+        x = packed_w4_gemm_fused_in(ao, lp.wo, resid=x, abits=spec.abits, a_clip=spec.a_clip_ratio)
+        if _fused_mlp_ok(x.shape, lp, spec):
+            y = torch.index_select(x, -1, lp.mlp_reorder)
+            return fused_mlp_packed(
+                y, x, lp.wgateup, lp.wdown, norm_w=lp.ln_mlp_g, rstd=_rms_rstd(x),
+                abits=spec.abits, a_clip=spec.a_clip_ratio,
+            )
+    else:
+        a_in = R.reorder_quant(attn_out, lp.o_reorder, spec)
+        x = x + quant_gemm_packed(a_in, lp.wo)
     m_in = R.rmsnorm_reorder_quant(x, lp.ln_mlp, lp.mlp_reorder, spec)
     gu = quant_gemm_packed(m_in, lp.wgateup, out_dtype=torch.float32)
     inter = gu.shape[1] // 2
@@ -215,6 +258,49 @@ def _fused_spec_ok(spec: QuantSpec) -> bool:
         and spec.act_group_size == 128
         and spec.keeper == 128
         and spec.keeper_precision == KeeperPrecision.INT8
+    )
+
+
+_OFF_VALUES = ("", "0", "false", "no", "off")
+
+
+def _env_flag(name: str) -> bool:
+    """An environment switch, parsed: unset, empty, ``0``, ``false``, ``no``
+    and ``off`` (any case) are off, anything else is on."""
+    return os.environ.get(name, "").strip().lower() not in _OFF_VALUES
+
+
+def _fused_mlp_enabled() -> bool:
+    """The fused o_proj / MLP kernels (K9, K10) are opt-in:
+    ``ATOM_TPU_FUSED_MLP=1`` switches them on, ``ATOM_TPU_NO_FUSED_MLP=1``
+    forces them off.  The values are parsed, so ``ATOM_TPU_FUSED_MLP=0`` (or
+    empty, or ``false``) is off; the JAX package tests only whether the
+    variable is set and reads ``0`` as on, which the port does not copy."""
+    if _env_flag("ATOM_TPU_NO_FUSED_MLP"):
+        return False
+    return _env_flag("ATOM_TPU_FUSED_MLP")
+
+
+def _fused_oproj_ok(x_shape, lp: ServingLayerParams, spec: QuantSpec) -> bool:
+    """Gate of the fused-in o_proj GEMM (K9): switched on, a decode batch of
+    at most 32 rows (above that every further 32-row tile streams the weights
+    again, so prefill and the mixed step keep the unfused GEMMs), the
+    activation scheme the prologue implements, and at most 112 body groups."""
+    m = x_shape[0]
+    n_q = 2 * lp.wo.body_packed.shape[0] + 128  # o_proj input width
+    return _fused_mlp_enabled() and m <= 32 and _fused_spec_ok(spec) and (n_q - 128) // 128 <= 112
+
+
+def _fused_mlp_ok(x_shape, lp: ServingLayerParams, spec: QuantSpec) -> bool:
+    """Gate of the fused MLP kernel (K10): as ``_fused_oproj_ok``, on a
+    geometry ``fused_mlp_supported`` takes."""
+    m, d = x_shape
+    inter = lp.wgateup.body_packed.shape[1] // 2
+    return (
+        _fused_mlp_enabled()
+        and m <= 32
+        and _fused_spec_ok(spec)
+        and fused_mlp_supported(d, inter, spec.keeper, spec.act_group_size)
     )
 
 
@@ -275,6 +361,29 @@ def make_serving_state(
     )
 
 
+def _flush_plan(state: ServingState, page_table, seq_lens, flush: bool):
+    """Bookkeeping of a ring flush, shared by the decode and the mixed step ->
+    (``flush_hot``'s arguments after the ring blocks, or None; the new
+    ``flushed`` counts).  On a flushing step every active sequence's pending
+    block [flushed, lens) goes to the one or two pages it spans."""
+    if not flush:
+        return None, state.flushed
+    w = state.hot[0].window
+    s_page = state.pages[0].page_size
+    max_pg = page_table.shape[1]
+    active = (seq_lens > 0) & (seq_lens > state.flushed)
+    page_lo = torch.div(seq_lens - w, s_page, rounding_mode="floor")  # may be negative
+    slot0 = page_lo * s_page
+    o_lane = seq_lens - w - slot0  # in [0, S)
+
+    def tbl(idx):
+        return torch.gather(page_table, 1, idx.clamp(0, max_pg - 1)[:, None].long())[:, 0]
+
+    pg_a = torch.where(active & (page_lo >= 0), tbl(page_lo), 0)
+    pg_b = torch.where(active & ((page_lo + 1) * s_page < seq_lens), tbl(page_lo + 1), 0)
+    return (pg_a, pg_b, slot0, o_lane, state.flushed, seq_lens), torch.where(active, seq_lens, state.flushed)
+
+
 @torch.no_grad()
 def decode_hidden(
     params: ServingParams,
@@ -298,31 +407,15 @@ def decode_hidden(
     cos, sin = rope_tables(pos, dh, cfg.rope_theta)
 
     w = state.hot[0].window
-    s_page = state.pages[0].page_size
     row = state.row
-    max_pg = page_table.shape[1]
-    if flush:
-        active = (seq_lens > 0) & (seq_lens > state.flushed)
-        page_lo = torch.div(seq_lens - w, s_page, rounding_mode="floor")  # may be negative
-        slot0 = page_lo * s_page
-        o_lane = seq_lens - w - slot0  # in [0, S)
-
-        def tbl(idx):
-            return torch.gather(page_table, 1, idx.clamp(0, max_pg - 1)[:, None].long())[:, 0]
-
-        pg_a = torch.where(active & (page_lo >= 0), tbl(page_lo), 0)
-        pg_b = torch.where(active & ((page_lo + 1) * s_page < seq_lens), tbl(page_lo + 1), 0)
-        lo, hi = state.flushed, seq_lens
-        flushed_new = torch.where(active, seq_lens, state.flushed)
-    else:
-        flushed_new = state.flushed
+    flush_args, flushed_new = _flush_plan(state, page_table, seq_lens, flush)
     n_hot = seq_lens - flushed_new  # ring-resident suffix per sequence
 
     for l, lp in enumerate(params.layers):
         hot = state.hot[l]
         q = _attn_block_decode_ring(x, lp, cfg, spec, (cos, sin), hot, row)
         if flush:
-            flush_hot(state.pages[l], *hot_flush_blocks(hot, row), pg_a, pg_b, slot0, o_lane, lo, hi)
+            flush_hot(state.pages[l], *hot_flush_blocks(hot, row), *flush_args)
         attn = paged_ring_decode_attention(q, state.pages[l], page_table, flushed_new, hot, n_hot, row)
         x = _post_attn(x, attn.reshape(b, cfg.num_heads * dh), lp, spec)
 
@@ -343,6 +436,9 @@ _NEG_INF_PREFILL = -1e30
 # prompts longer than this use the blocked (online-softmax) prefill attention
 PREFILL_SCAN_THRESHOLD = 2048
 PREFILL_KEY_BLOCK = 1024
+# prompts longer than this use the flash-prefill kernel (K12) instead; off by
+# default, as in the JAX package, whose tests and scripts lower it
+PREFILL_KERNEL_THRESHOLD = 10**9
 
 
 def causal_code_attention(
@@ -364,15 +460,23 @@ def causal_code_attention(
 
     ``key_block == 0``: one-pass softmax materialising [HQ, Tq, Tk] scores.
     ``key_block > 0``: online softmax over key blocks, O(Tq * key_block)
-    live memory.
+    live memory.  ``kernel``: the flash kernel K12, which takes ``row_pos`` as
+    contiguous by contract (its first entry + arange).  It exists for head_dim
+    128 only; asked for at another head_dim this raises (the JAX package
+    takes the default path there without saying so), while ``prefill_hidden``
+    asks for it only at 128.
     """
-    if kernel:
-        raise NotImplementedError(
-            "causal_code_attention(kernel=True) needs kernel K12 (flash_code_attention), not ported yet"
-        )
     tq, hq, dh = q.shape
     tk = kq.codes.shape[0]
     dev = q.device
+    if kernel and dh != 128:
+        raise ValueError(f"causal_code_attention(kernel=True): the flash kernel needs head_dim 128, got {dh}")
+    if kernel:
+        off = 0 if row_pos is None else int(row_pos[0])
+        return flash_code_attention(
+            q.to(torch.bfloat16), kq.codes, kq.params, vq.codes, vq.params, groups, sm_scale,
+            row_offset=off, offset_max=0 if row_pos is None else max(tk - tq, 0),
+        )
     if row_pos is None:
         row_pos = torch.arange(tq, device=dev)
     qf = q.to(torch.float32)
@@ -443,10 +547,11 @@ def prefill_hidden(
     x = _embed_lookup(params.embed, ids)  # [T, D]
     cos, sin = rope_tables(torch.arange(t, device=ids.device), dh, cfg.rope_theta)
     key_block = PREFILL_KEY_BLOCK if t > PREFILL_SCAN_THRESHOLD else 0
+    use_kernel = t > PREFILL_KERNEL_THRESHOLD and dh == 128
     for l, lp in enumerate(params.layers):
         q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
         append_kv_prefill_kernel(pages[l], kq, vq, table_row)
-        attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, key_block=key_block)
+        attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, key_block=key_block, kernel=use_kernel)
         del q, kq, vq  # the one-pass scores and f32 code copies are per layer
         x = _post_attn(x, attn, lp, spec)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), pages
@@ -489,6 +594,142 @@ def decode_burst(params, state, ids, page_table, seq_lens, n_windows: int, cfg: 
     return ids, state, seq_lens
 
 
+# ---------------------------------------------------------------------------
+# Mixed prefill+decode step (chunked prefill riding the decode batch)
+# ---------------------------------------------------------------------------
+#
+# Prompts are processed in page-size chunks, each chunk concatenated onto the
+# decode batch's token rows.  The GEMMs are weight-bound at decode batch
+# sizes, so the chunk's rows ride the same weight reads; decode sequences
+# keep stepping every iteration instead of waiting through a whole prompt.
+
+
+def _chunk_prefix_attention(q_chunk, pages: KVPages, table_row, prefix_len):
+    """Chunk queries against the page-resident prefix (``prefix_len``: int32
+    [1] on the device) -> (out f32 [C, HQ, D] normalised, m [C, HQ], l [C, HQ]).
+
+    All C queries share the page walk: they enter the paged kernel (K11) as
+    one batch row with ``G * C`` query rows per kv head, row
+    ``h * (G * C) + g * C + i`` being chunk query i of q-head ``h * G + g``."""
+    c, hq, d = q_chunk.shape
+    qr = q_chunk.transpose(0, 1).reshape(1, hq * c, d).contiguous()
+    out, m, l = paged_decode_attention_rotated(
+        qr, pages, table_row[None], prefix_len, out_dtype=torch.float32, return_state=True
+    )
+    return out.reshape(hq, c, d).transpose(0, 1), m.reshape(hq, c).T, l.reshape(hq, c).T
+
+
+def _chunk_self_attention(q_chunk, kq, vq, chunk_len: int, groups: int, sm_scale: float):
+    """Causal dense attention of the chunk over its own just-quantized K/V
+    -> (out f32 [C, HQ, D] unnormalised, m [C, HQ], l [C, HQ]) for merging.
+    The affine-code numerics of ``prefill_hidden``; rows and columns from
+    ``chunk_len`` on are masked padding.  Plain PyTorch, as the JAX version
+    is plain XLA."""
+    c = q_chunk.shape[0]
+    qf = q_chunk.to(torch.float32)  # [C, HQ, D]
+    k_codes = kq.codes.repeat_interleave(groups, dim=1).to(torch.float32)
+    k_prm = kq.params.repeat_interleave(groups, dim=1)  # [C, HQ, 2]
+    dot = torch.einsum("qhd,khd->hqk", qf, k_codes)
+    q_sum = qf.sum(dim=2)  # [C, HQ]
+    scores = (dot * k_prm[:, :, 0].T[:, None, :] + q_sum.T[:, :, None] * k_prm[:, :, 1].T[:, None, :]) * sm_scale
+    pos = torch.arange(c, device=q_chunk.device)
+    causal = ((pos[None, :] <= pos[:, None]) & (pos[None, :] < chunk_len))[None]
+    scores = torch.where(causal, scores, -1e30)  # [HQ, C, C]
+    m = scores.amax(dim=2)  # [HQ, C]
+    p = torch.where(causal, torch.exp(scores - m[:, :, None]), 0.0)
+    l = p.sum(dim=2)
+    v_prm = vq.params.repeat_interleave(groups, dim=1)
+    v_codes = vq.codes.repeat_interleave(groups, dim=1).to(torch.float32)
+    out = torch.einsum("hqk,khd->qhd", p * v_prm[:, :, 0].T[:, None, :], v_codes)
+    out = out + torch.einsum("hqk,kh->qh", p, v_prm[:, :, 1])[..., None]
+    return out, m.T, l.T
+
+
+@torch.no_grad()
+def mixed_step(
+    params: ServingParams,
+    state: ServingState,
+    ids: torch.Tensor,  # int32 [B] — decode tokens (idle rows: 0)
+    page_table: torch.Tensor,  # int32 [B, max_pages]
+    seq_lens: torch.Tensor,  # int32 [B] — including the incoming token; 0 = idle
+    chunk_ids: torch.Tensor,  # int32 [C] — prompt chunk, C == page_size
+    chunk_table_row: torch.Tensor,  # int32 [max_pages] — the admitted sequence's pages
+    pos0: int,  # chunk start, a multiple of C
+    chunk_len: int,  # valid tokens in this chunk
+    chunk_slot: int,  # the admitted sequence's batch slot
+    cfg: ModelConfig,
+    spec: QuantSpec,
+    flush: bool = False,
+):
+    """One decode step for the whole batch plus one prefill chunk.
+
+    Returns (next_ids int32 [B], chunk_tok 0-dim int32, state).  ``chunk_tok``
+    is the argmax after the chunk's last valid token, meaningful only on the
+    prompt's final chunk (the request's first generated token)."""
+    b = ids.shape[0]
+    dh = cfg.head_dim
+    s_page = state.pages[0].page_size
+    c = chunk_ids.shape[0]
+    if c != s_page:
+        raise ValueError(f"mixed_step: the chunk size {c} must equal the page size {s_page} (aligned appends)")
+    groups = cfg.kv_groups
+    sm_scale = dh**-0.5
+    dev = ids.device
+
+    x = torch.cat([_embed_lookup(params.embed, ids), _embed_lookup(params.embed, chunk_ids)])  # [B+C, D]
+    pos_dec = torch.clamp_min(seq_lens - 1, 0)
+    pos_all = torch.cat([pos_dec, pos0 + torch.arange(c, dtype=pos_dec.dtype, device=dev)])
+    cos, sin = rope_tables(pos_all, dh, cfg.rope_theta)
+
+    w = state.hot[0].window
+    row = state.row
+    flush_args, flushed_new = _flush_plan(state, page_table, seq_lens, flush)
+    n_hot = seq_lens - flushed_new
+    chunk_page = chunk_table_row[pos0 // s_page : pos0 // s_page + 1]
+    prefix_len = torch.full((1,), pos0, dtype=torch.int32, device=dev)
+
+    for l_i, lp in enumerate(params.layers):
+        q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
+        q_dec, q_chk = q[:b], q[b:]
+        kq_chk = R.KVQuant(kq.codes[b:], kq.params[b:])
+        vq_chk = R.KVQuant(vq.codes[b:], vq.params[b:])
+
+        hot_l = write_hot(state.hot[l_i], row, R.KVQuant(kq.codes[:b], kq.params[:b]),
+                          R.KVQuant(vq.codes[:b], vq.params[:b]))
+        pg = state.pages[l_i]
+        if flush:
+            flush_hot(pg, *hot_flush_blocks(hot_l, row), *flush_args)
+
+        # decode rows: pages (K11) + ring, merged
+        out1, m1, l1 = paged_decode_attention_rotated(
+            q_dec.contiguous(), pg, page_table, flushed_new, out_dtype=torch.float32, return_state=True
+        )
+        out2, m2, l2 = hot_attention(q_dec, hot_l, n_hot, row, sm_scale)
+        attn_dec = merge_attention(out1, m1, l1, out2, m2, l2).reshape(b, cfg.num_heads * dh)
+
+        # chunk rows: page-resident prefix (K11) + the chunk itself, merged
+        po, pm, pln = _chunk_prefix_attention(q_chk, pg, chunk_table_row, prefix_len)
+        so, sm_, sl = _chunk_self_attention(q_chk, kq_chk, vq_chk, chunk_len, groups, sm_scale)
+        attn_chk = merge_attention(po, pm, pln, so, sm_, sl).reshape(c, cfg.num_heads * dh)
+
+        # whole-page append of the chunk's K/V (chunk == page, aligned)
+        append_kv_prefill_kernel(pg, kq_chk, vq_chk, chunk_page)
+        del q, kq, vq, so, sm_, sl  # the chunk's [HQ, C, C] scores are per layer
+        x = _post_attn(x, torch.cat([attn_dec, attn_chk]), lp, spec)
+
+    hidden = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    last_chunk_row = b + max(chunk_len - 1, 0)
+    head_rows = torch.cat([hidden[:b], hidden[last_chunk_row][None]])
+    logits = _lm_head_logits(head_rows, params.lm_head, cfg.vocab_size)
+    next_ids = torch.argmax(logits[:b], dim=-1).to(torch.int32)
+    chunk_tok = torch.argmax(logits[b]).to(torch.int32)
+
+    flushed = flushed_new.clone()
+    flushed[chunk_slot] = pos0 + chunk_len
+    new_state = ServingState(pages=state.pages, hot=state.hot, row=(row + 1) % w, flushed=flushed)
+    return next_ids, chunk_tok, new_state
+
+
 def make_step_fns(params: ServingParams, cfg: ModelConfig, spec: QuantSpec):
     """(prefill_fn, decode_fn) closures with the engine's calling convention.
     ``decode_fn`` counts its calls: every W-th one flushes the ring."""
@@ -504,3 +745,28 @@ def make_step_fns(params: ServingParams, cfg: ModelConfig, spec: QuantSpec):
         return decode_step(params, state, ids, page_table, seq_lens, cfg, spec, flush=flush)
 
     return prefill_fn, decode_fn
+
+
+def make_mixed_step_fns(params: ServingParams, cfg: ModelConfig, spec: QuantSpec):
+    """(prefill_fn, decode_fn, chunk_fn) for the mixed-scheduling engine.
+
+    ``decode_fn`` and ``chunk_fn`` share the ring-step counter: a mixed step
+    writes the decode ring and advances ``row`` exactly like a decode step,
+    so the W-th call of either kind runs the flush variant."""
+    prefill_fn, _ = make_step_fns(params, cfg, spec)
+    counter = {"n": 0}
+
+    def flush_now():
+        counter["n"] += 1
+        return counter["n"] % HOT_W == 0
+
+    def decode_fn(state, ids, page_table, seq_lens):
+        return decode_step(params, state, ids, page_table, seq_lens, cfg, spec, flush=flush_now())
+
+    def chunk_fn(state, ids, page_table, seq_lens, chunk_ids, chunk_table_row, pos0, chunk_len, chunk_slot):
+        return mixed_step(
+            params, state, ids, page_table, seq_lens, chunk_ids, chunk_table_row, pos0, chunk_len, chunk_slot,
+            cfg, spec, flush=flush_now(),
+        )
+
+    return prefill_fn, decode_fn, chunk_fn

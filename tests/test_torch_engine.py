@@ -183,7 +183,8 @@ def test_decode_matches_prefill_continuation(geom):
 
 def test_engine_error_paths(tiny_params):
     """Prompt over the largest bucket -> ValueError; KV pool exhaustion ->
-    RuntimeError; what is not ported yet -> NotImplementedError naming it."""
+    RuntimeError; what is not ported yet -> NotImplementedError naming it;
+    ``chunk_fn`` no longer raises: it selects mixed scheduling."""
     engine, pool = _make_engine(tiny_params[1], batch_size=2, n_pages=24)
     rng = np.random.Generator(np.random.PCG64(4))
     long_prompt = rng.integers(1, TTINY.vocab_size, 300).astype(np.int32)
@@ -200,10 +201,24 @@ def test_engine_error_paths(tiny_params):
         engine2.run(RequestSet(prompt_lens, output_lens, prompts))
 
     fns = tm.make_step_fns(tiny_params[1], TTINY, TSPEC)
-    for kwargs, what in ((dict(chunk_fn=lambda *a: None), "K11"), (dict(lora=True), "LoRA"), (dict(native=True), "native"),
-                         (dict(native="auto"), "native")):
+    for kwargs, what in ((dict(lora=True), "LoRA"), (dict(native=True), "native"), (dict(native="auto"), "native")):
         with pytest.raises(NotImplementedError, match=what):
             TextGenEngine(engine.cfg, pool, *fns, engine.state, **kwargs)
+
+    # the chunk_fn entry: the engine takes it and serves the requests through it
+    pre, dec, chunk = tm.make_mixed_step_fns(tiny_params[1], TTINY, TSPEC)
+    calls = []
+
+    def counting_chunk(*args):
+        calls.append(args[6:])  # (pos0, chunk_len, chunk_slot)
+        return chunk(*args)
+
+    engine3, pool3 = _make_engine(tiny_params[1], batch_size=2, n_pages=24)
+    mixed = TextGenEngine(engine3.cfg, pool3, pre, dec, engine3.state, chunk_fn=counting_chunk)
+    res = mixed.run(RequestSet(prompt_lens, output_lens, prompts))
+    assert res["requests"] == 2 and res["output_tokens"] == int(output_lens.sum())
+    assert [c[0] for c in calls] == [0, 0] and [c[2] for c in calls] == [0, 1] and mixed.last_prefill_s == []
+    assert res["mixed_steps"] == 1 and pool3.num_free_pages == 23
 
 
 def test_late_joining_sequence_flush_correctness(tiny_params):

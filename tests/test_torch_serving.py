@@ -195,7 +195,9 @@ def test_off_fused_path_raises():
     """Off the ring-fused decode path nothing raises any more: a batch that
     is not a multiple of 32 decodes through ``_attn_block_common`` +
     ``write_hot``, a spec with ``fused_serving=False`` through the int-input
-    ring kernel.  What does raise is what is not ported yet, naming its kernel."""
+    ring kernel, and ``causal_code_attention(kernel=True)`` through the flash
+    kernel K12 (its plain version here).  What does raise is what is not ported
+    yet, naming its kernel."""
     _, tcfg = _cfgs(4, 4)
     small = tcfg.replace(num_layers=1)
     params = tm.init_serving_params(small, T_SPEC, device="cpu")
@@ -205,8 +207,16 @@ def test_off_fused_path_raises():
     assert nxt.shape == (16,) and st.row == 1 and bool(st.hot[0].v_codes[:, :, 0].any())
     with pytest.raises(NotImplementedError, match="K13"):
         tm.quantize_lm_head(params, bits=4)
-    with pytest.raises(NotImplementedError, match="K12"):
-        tm.causal_code_attention(torch.zeros((2, 4, 128)), None, None, 1, 1.0, kernel=True)
+    from atom_tpu_torch.ops.reference import quantize_kv_asym
+
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((6, 4, 128), generator=gen).to(torch.bfloat16)
+    kq, vq = (quantize_kv_asym(torch.randn((6, 4, 128), generator=gen)) for _ in range(2))
+    want = tm.causal_code_attention(q, kq, vq, 1, 128**-0.5)
+    got = tm.causal_code_attention(q, kq, vq, 1, 128**-0.5, kernel=True)
+    assert got.shape == (6, 512) and got.dtype == torch.bfloat16
+    # the same sums in another order, then one bf16 rounding
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2**-7)
 
 
 @pytest.mark.parametrize("branch", ["batch_8_fallback", "int_input_ring_kernel"])
@@ -297,7 +307,8 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     assert not bad, bad
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     assert len(names) > 25
-    for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py"):
+    for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
+                "ops/prefill.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
