@@ -36,6 +36,10 @@
 // built with --fmad=false and the float math uses _rn intrinsics, so no
 // multiply-add is contracted.
 //
+// The int8 operand loads, the s8 mma and its byte transposes, the keeper's
+// int32 group dot and the per-head u4 quantizer live in int8_mma.cuh, shared
+// with the grouped int8 GEMMs (K14, gemm_int8.cu).
+//
 // Known limits (later work): every block re-reads A (32 x K bytes, from L2)
 // for its 32 columns, twice the bytes of its weight slice; there is no
 // shared-memory staging, cp.async or wgmma yet.
@@ -85,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int GROUP = 128;
@@ -94,41 +100,6 @@ constexpr int TN = 32;     // output columns per block
 constexpr int NWARP = 8;   // warps per block
 constexpr int TS = TN + 1; // shared tile row stride (no bank conflicts)
 constexpr int HEAD = 128;  // head_dim of the qkv epilogue
-
-__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint32_t ld_a(const int8_t* A, int lda, int M, int row, int col) {
-  return row < M ? ld_u32(A + (size_t)row * lda + col) : 0u;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// t[c] = byte c of w[0..3], in order: a 4 x 4 byte transpose.
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&t)[4]) {
-  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t b = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t c = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
-  t[0] = __byte_perm(a, c, 0x5410);
-  t[1] = __byte_perm(a, c, 0x7632);
-  t[2] = __byte_perm(b, d, 0x5410);
-  t[3] = __byte_perm(b, d, 0x7632);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[mt][c][j]: mma tile of rows m0 + 16*mt, columns n0 + 4*n8 + c
-// (n8 = the mma's own column index); j indexes the mma's 4 accumulators.
 
 // One warp: 16 x (int32 dot) of nibble group g, rows [m0, m0+32), cols [n0, n0+32).
 __device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M, int m0,
@@ -162,42 +133,6 @@ __device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][c], a[mt], lo, hi);
     }
-  }
-}
-
-// One warp: int32 dot of the INT8 keeper block (K = 128 full bytes).
-__device__ __forceinline__ void dot_keeper(const int8_t* A, int lda, int M, int m0,
-                                           const int8_t* wk, int N, int n0, int kb,
-                                           int lane, int (&acc)[2][4][4]) {
-  const int gid = lane >> 2, tig = lane & 3;
-  const int8_t* wrow = wk + (size_t)(tig * 4) * N + n0 + 4 * gid;
-  uint32_t w[4][2][4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[s][0][i] = ld_u32(wrow + (size_t)(s * 32 + i) * N);
-      w[s][1][i] = ld_u32(wrow + (size_t)(s * 32 + 16 + i) * N);
-    }
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    uint32_t t0[4], t1[4];
-    transpose4(w[s][0], t0);
-    transpose4(w[s][1], t1);
-    const int k = kb + s * 32 + tig * 4;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = m0 + mt * 16 + gid;
-      a[mt][0] = ld_a(A, lda, M, r, k);
-      a[mt][1] = ld_a(A, lda, M, r + 8, k);
-      a[mt][2] = ld_a(A, lda, M, r, k + 16);
-      a[mt][3] = ld_a(A, lda, M, r + 8, k + 16);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][c], a[mt], t0[c], t1[c]);
   }
 }
 
@@ -237,7 +172,7 @@ gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
       if (g < ng)
         dot_nibble_group(A, lda, M, m0, wp, N, n0, g, lane, ia);
       else
-        dot_keeper(A, lda, M, m0, wk, N, n0, ng * GROUP, lane, ia);
+        dot_int8_group(A, lda, M, m0, wk, N, n0, ng * GROUP, lane, ia);
       const int shift = g < ng ? 4 : 0;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -404,10 +339,10 @@ __device__ __forceinline__ HeadValue head_rope_quant(const float* __restrict__ x
   if (!quantize) return r;  // uniform over the block: a block is one head
   const float xmax = block_max128(r.v, red);
   const float xmin = -block_max128(-r.v, red);
-  r.scale = bf16_round(__fdiv_rn(fmaxf(__fsub_rn(xmax, xmin), 1e-5f), 15.f));
-  const float zero = fminf(fmaxf(rintf(__fdiv_rn(-xmin, r.scale)), 0.f), 15.f);
-  r.code = (int)fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(r.v, r.scale)), zero), 0.f), 15.f);
-  r.zero_val = bf16_round(__fmul_rn(-zero, r.scale));
+  const KvQuant kq = kv_quant_params(xmax, xmin);
+  r.scale = kq.scale;
+  r.code = kv_quant_code(r.v, kq);
+  r.zero_val = kq.zero_val;
   return r;
 }
 

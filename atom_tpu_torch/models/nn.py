@@ -35,3 +35,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     """Rotary embedding on the last axis, cos/sin broadcastable against x."""
     x32 = x.to(torch.float32)
     return (x32 * cos + rotate_half(x32) * sin).to(x.dtype)
+
+
+def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[b, kv_heads, s, d] -> [b, kv_heads * groups, s, d] (GQA broadcast)."""
+    if groups == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, groups, s, d).reshape(b, h * groups, s, d)
+
+
+def causal_mask(q_len: int, kv_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[1, 1, q_len, kv_len] additive causal mask (0 / the dtype's lowest)."""
+    q_ids = torch.arange(q_len, device=device)[:, None] + (kv_len - q_len)
+    kv_ids = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.where(kv_ids <= q_ids, 0.0, torch.finfo(dtype).min)
+    return mask[None, None].to(dtype)

@@ -1,7 +1,18 @@
-"""Weight-only INT8 GEMM with bf16 activations
-(``atom_tpu/ops/pallas_gemm_w4a16.py``, its W8A16 half), kernel K5.
+"""Weight-only GEMMs with bf16 activations (``atom_tpu/ops/pallas_gemm_w4a16.py``):
+kernels K13 (INT4) and K5 (INT8).
 
-``w8a16_gemm``: ``out f32 [M, N] = (sum_k bf16(a[m, k]) * codes[k, n]) *
+``w4a16_gemm`` (K13): ``out [M, N] = sum_g (sum_{k in g} bf16(a[m, k]) *
+code[k, n]) * scale[g, n]``: signed 4-bit codes in 128-row groups, nibble
+planes as in K1, the per-group scale applied to each group's float32 partial
+sum.  It runs the W4A16 baseline stack's projections and the opt-in 4-bit
+lm_head.  The TPU kernel adds the scaled partial sums of ``KBLK = 8`` groups,
+then that block sum into the output; the plain version keeps that order, the
+CUDA kernel (``csrc/gemm_w4a16.cu``) sums each warp's groups and then the
+eight warps.  Every product (bf16 x 4-bit code) is exact in float32, so they
+differ only by the order of the float32 additions: within ``W4A16_RTOL`` of
+the largest output.
+
+``w8a16_gemm`` (K5): ``out f32 [M, N] = (sum_k bf16(a[m, k]) * codes[k, n]) *
 scale[n]`` with float32 accumulation; the per-column scale multiplies once,
 after the whole sum.  It is the serving lm_head's default precision.  int8
 codes are exact in bf16, so every product is exact in float32 and only the
@@ -11,8 +22,6 @@ kernel adds K blocks of 1024, the CUDA kernel (``csrc/gemm_w8a16.cu``)
 ``torch.mm`` does.  They are held to each other within ``W8A16_RTOL`` of the
 largest output: no partial sum is ever rounded to bf16, which would cost
 2**-9.
-
-The weight-only INT4 half of the JAX module (kernel K13) is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from atom_tpu_torch.ops import _build
+from atom_tpu_torch.ops.gemm_packed import unpack_nibble_planes
 from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
 from atom_tpu_torch.quant.core import div_exact
 
@@ -34,6 +44,127 @@ _TN = 64  # output columns per CUDA block
 _TK = 16  # K step of the tensor-core instruction
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# W4A16: weight-only INT4, per-128-group scales (K13)
+# ---------------------------------------------------------------------------
+
+GROUP = 128
+HALF = GROUP // 2
+KBLK = 8  # groups whose scaled partial sums the TPU kernel adds before the output
+# kernel vs plain version: |diff| <= W4A16_RTOL * max|out| (float32 sums of
+# exact products taken in another order)
+W4A16_RTOL = 1e-4
+_TN4 = 32  # output columns per CUDA block
+
+
+class W4A16Weight(NamedTuple):
+    """Nibble-plane packed weight-only-quantized matrix.
+
+    ``packed``: int8 [K/2, N]: per 128-group, byte row r holds code rows
+    ``g*128 + r`` (low nibble) and ``g*128 + 64 + r`` (high), sign-extended;
+    ``scale``: f32 [K/128, N].
+    """
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+
+
+def quantize_w4a16(w: torch.Tensor) -> W4A16Weight:
+    """Symmetric per-128-group INT4 quantization of a [K, N] weight."""
+    k, n = w.shape
+    if k % GROUP:
+        raise ValueError(f"quantize_w4a16: K={k} must be a multiple of {GROUP}")
+    ng = k // GROUP
+    g = w.to(torch.float32).reshape(ng, GROUP, n)
+    scale = div_exact(torch.clamp_min(g.abs().amax(dim=1), 1e-8), 7.0)  # [ng, n]
+    codes = torch.clamp(torch.round(g / scale[:, None, :]), -8, 7).to(torch.int16)
+    lo = codes[:, :HALF] & 0x0F
+    hi = codes[:, HALF:] & 0x0F
+    packed = (lo | (hi << 4)).to(torch.uint8).view(torch.int8).reshape(k // 2, n)
+    return W4A16Weight(packed=packed, scale=scale)
+
+
+def dequantize_w4a16(wq: W4A16Weight) -> torch.Tensor:
+    ng = wq.scale.shape[0]
+    codes = unpack_nibble_planes(wq.packed).to(torch.float32)  # [ng, 128, N]
+    return (codes * wq.scale[:, None, :]).reshape(ng * GROUP, -1)
+
+
+@functools.cache
+def _kernel4():
+    fn = _build.load("gemm_w4a16").atom_gemm_w4a16
+    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def _activation_groups(a: torch.Tensor, wq: W4A16Weight, name: str) -> tuple[int, W4A16Weight]:
+    """The activation's group count and the weight cut to it: a head padded
+    past the hidden size carries zero groups the activation has no columns
+    for, which the JAX kernel leaves out the same way (its K grid follows the
+    activation)."""
+    k = a.shape[1]
+    if k % GROUP:
+        raise ValueError(f"{name}: K={k} must be a multiple of {GROUP}")
+    ng = k // GROUP
+    if wq.scale.shape[0] < ng:
+        raise ValueError(f"{name}: the weight has {wq.scale.shape[0]} groups, the activation {ng}")
+    return ng, W4A16Weight(wq.packed[: ng * HALF], wq.scale[:ng])
+
+
+def w4a16_gemm_plain(a: torch.Tensor, wq: W4A16Weight, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of K13: bf16 activation, one float32 dot per 128-group,
+    scaled, added ``KBLK`` groups at a time, then into the output."""
+    m = a.shape[0]
+    ng, wq = _activation_groups(a, wq, "w4a16_gemm")
+    codes = unpack_nibble_planes(wq.packed).to(torch.float32)  # [ng, 128, N]
+    ag = a.to(torch.bfloat16).to(torch.float32).reshape(m, ng, GROUP).transpose(0, 1)
+    acc_g = torch.bmm(ag, codes)  # [ng, M, N]: exact products, float32 sums
+    out = torch.zeros((m, codes.shape[2]), dtype=torch.float32, device=a.device)
+    for b0 in range(0, ng, KBLK):
+        blk = torch.zeros_like(out)
+        for g in range(b0, min(b0 + KBLK, ng)):
+            blk = blk + acc_g[g] * wq.scale[g]
+        out = out + blk
+    return out.to(out_dtype)
+
+
+def w4a16_gemm(a: torch.Tensor, wq: W4A16Weight, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel K13: bf16/f32 ``a`` [M, K] x W4A16 weight -> [M, N] in
+    ``out_dtype`` (bfloat16 or float32).  ``a`` is rounded to bf16, as every
+    caller in the JAX package passes it."""
+    if on_cpu(a, wq.packed, wq.scale):
+        return w4a16_gemm_plain(a, wq, out_dtype)
+    m = a.shape[0]
+    ng, wq = _activation_groups(a, wq, "w4a16_gemm")
+    n = wq.packed.shape[1]
+    if n % _TN4:
+        raise ValueError(f"w4a16_gemm: N={n} must be a multiple of {_TN4}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w4a16_gemm: out_dtype {out_dtype} is neither bfloat16 nor float32")
+    ab = a.to(torch.bfloat16).contiguous()
+    check_kernel_input(ab, "a", torch.bfloat16)
+    check_kernel_input(wq.packed, "packed", torch.int8, (ng * HALF, n))
+    check_kernel_input(wq.scale, "scale", torch.float32, (ng, n))
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m:
+        _build.check(
+            _kernel4()(ab.data_ptr(), wq.packed.data_ptr(), wq.scale.data_ptr(), out.data_ptr(), m, n, ng,
+                       int(out_dtype == torch.bfloat16), _build.stream()),
+            "w4a16_gemm",
+        )
+        w4a16_gemm.launches += 1
+    return out
+
+
+w4a16_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# W8A16: weight-only INT8, per-column scales (K5)
+# ---------------------------------------------------------------------------
 
 
 class W8A16Weight(NamedTuple):

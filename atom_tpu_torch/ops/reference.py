@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the serving ops (``atom_tpu/ops/reference.py``).
 
-Only the ops on the decode path are ported: the dual-path GEMM oracle, the
-KV quantizer and the fused quantize epilogues' glue.
+Only the ops the ported paths need: the dual-path GEMM oracle and its k/v
+variant with the output quantized per head, the KV quantizer and the fused
+quantize epilogues' glue.
 """
 from __future__ import annotations
 
@@ -72,6 +73,15 @@ def quantize_kv_asym(x: torch.Tensor, clip_ratio: float = 1.0) -> KVQuant:
 def dequantize_kv(codes: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """codes [..., D] int, params [..., 2] -> f32 values."""
     return codes.to(torch.float32) * params[..., 0:1] + params[..., 1:2]
+
+
+def quant_gemm_o4(qa: QuantizedActivation, pw: PackedWeight, head_dim: int = 128) -> KVQuant:
+    """``quant_gemm`` with the asymmetric per-``head_dim`` u4 re-quantization
+    of its output (the k/v projection feeding the INT4 KV cache) -> codes
+    [T, N // head_dim, head_dim], params [T, N // head_dim, 2]."""
+    out = quant_gemm(qa, pw, out_dtype=torch.float32)
+    t, n = out.shape
+    return quantize_kv_asym(out.reshape(t, n // head_dim, head_dim))
 
 
 def rmsnorm_reorder_quant(

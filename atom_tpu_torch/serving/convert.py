@@ -1,4 +1,5 @@
-"""The JAX package's serving params and state, as numpy trees, -> the port's.
+"""The JAX package's serving params and state and its baseline stacks' params
+and dense KV, as numpy trees, -> the port's.
 
 Byte layouts are identical in both packages (nibble-plane weights, KV pages,
 hot ring), so the same integer codes flow through both.  The input is any
@@ -12,10 +13,11 @@ import numpy as np
 import torch
 
 from atom_tpu_torch.ops.formats import KernelPackedWeight
-from atom_tpu_torch.ops.gemm_w4a16 import W8A16Weight
+from atom_tpu_torch.ops.gemm_w4a16 import W4A16Weight, W8A16Weight
 from atom_tpu_torch.ops.kv_hot import HotKV
 from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import resolve_device
+from atom_tpu_torch.serving import baselines as bl
 from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams, ServingState
 
 
@@ -40,11 +42,13 @@ def _kpw(kw, dev) -> KernelPackedWeight:
 
 def serving_params_from_numpy(params, device=None) -> ServingParams:
     """Numpy tree of the JAX ``ServingParams`` -> the port's.  The head is a
-    bf16 array or a W8A16 weight (``codes`` int8, ``scale`` f32), carried
-    across bit for bit."""
+    bf16 array, a W8A16 weight (``codes`` int8, ``scale`` f32) or a W4A16
+    weight (``packed`` int8, ``scale`` f32), carried across bit for bit."""
     dev = resolve_device(device)
     head = params.lm_head
-    if hasattr(head, "codes"):
+    if hasattr(head, "packed"):
+        lm_head = W4A16Weight(tensor_from_numpy(head.packed, dev), tensor_from_numpy(head.scale, dev))
+    elif hasattr(head, "codes"):
         lm_head = W8A16Weight(tensor_from_numpy(head.codes, dev), tensor_from_numpy(head.scale, dev))
     else:
         lm_head = tensor_from_numpy(head, dev)
@@ -72,3 +76,42 @@ def serving_state_from_numpy(state, device=None) -> ServingState:
         row=int(state.row),
         flushed=tensor_from_numpy(state.flushed, dev).to(torch.int32),
     )
+
+
+def baseline_params_from_numpy(params, device=None):
+    """Numpy tree of a JAX baseline stack's params (``Bf16Params``,
+    ``W8Params`` or ``W4A16Params``, told apart by their weights' fields) ->
+    the port's, bit for bit."""
+    dev = resolve_device(device)
+    wq = params.layers[0].wq
+    if hasattr(wq, "packed"):
+        layer_cls, params_cls = bl.W4A16Layer, bl.W4A16Params
+    elif hasattr(wq, "codes"):
+        layer_cls, params_cls = bl.W8Layer, bl.W8Params
+    else:
+        layer_cls, params_cls = bl.Bf16Layer, bl.Bf16Params
+
+    def leaf(v):
+        if hasattr(v, "packed"):
+            return W4A16Weight(tensor_from_numpy(v.packed, dev), tensor_from_numpy(v.scale, dev))
+        if hasattr(v, "codes"):
+            return bl.W8Weight(bl.column_major(tensor_from_numpy(v.codes, dev)), tensor_from_numpy(v.scale, dev))
+        return tensor_from_numpy(v, dev)
+
+    return params_cls(
+        embed=tensor_from_numpy(params.embed, dev),
+        final_norm=tensor_from_numpy(params.final_norm, dev),
+        lm_head=tensor_from_numpy(params.lm_head, dev),
+        layers=[layer_cls(*(leaf(getattr(lp, f)) for f in layer_cls._fields)) for lp in params.layers],
+    )
+
+
+def dense_kv_from_numpy(kvs, device=None) -> list:
+    """List of the JAX package's ``DenseKV`` as numpy -> the port's: the same
+    values and shape [B, maxT, H, Dh], in head-major storage."""
+    dev = resolve_device(device)
+
+    def head_major(a):
+        return tensor_from_numpy(a, dev).transpose(1, 2).contiguous().transpose(1, 2)
+
+    return [bl.DenseKV(head_major(kv.k), head_major(kv.v)) for kv in kvs]

@@ -25,10 +25,10 @@ fused kernels: o_proj with its activation quantization and residual add (K9)
 and the whole MLP block (K10).  With ``PREFILL_KERNEL_THRESHOLD`` lowered,
 prefill attention runs as one flash kernel over the codes (K12).
 
-The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5); all
-steps share it.  The ring and the pages are updated in place (the JAX version
-donates them).  The LoRA / tensor-parallel hooks of the JAX step functions
-are not ported yet.
+The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5) or
+INT4 with 128-row groups (``bits=4``, K13); all steps share it.  The ring
+and the pages are updated in place (the JAX version donates them).  The
+LoRA / tensor-parallel hooks of the JAX step functions are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,7 +57,14 @@ from atom_tpu_torch.ops.gemm_packed import (
     packed_w4_gemm_qkv_ring_fused,
     quant_gemm_packed,
 )
-from atom_tpu_torch.ops.gemm_w4a16 import W8A16Weight, quantize_w8a16, w8a16_gemm
+from atom_tpu_torch.ops.gemm_w4a16 import (
+    W4A16Weight,
+    W8A16Weight,
+    quantize_w4a16,
+    quantize_w8a16,
+    w4a16_gemm,
+    w8a16_gemm,
+)
 from atom_tpu_torch.ops.kv_hot import (
     HOT_W,
     HotKV,
@@ -93,7 +100,7 @@ class ServingLayerParams(NamedTuple):
 class ServingParams(NamedTuple):
     embed: torch.Tensor  # bf16 [V, D]
     final_norm: torch.Tensor  # bf16 [D]
-    lm_head: Union[torch.Tensor, W8A16Weight]  # bf16 [D, V], or its W8A16 form (padded)
+    lm_head: Union[torch.Tensor, W8A16Weight, W4A16Weight]  # bf16 [D, V], or a weight-only form (padded)
     layers: List[ServingLayerParams]
 
 
@@ -144,35 +151,38 @@ def _embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_lm_head(params: ServingParams, bits: int = 8) -> ServingParams:
-    """Weight-only INT8 lm_head for serving (W8A16, per output column).
+    """Weight-only-quantized lm_head for serving: INT8 per output column
+    (``bits=8``, W8A16, the default) or INT4 with one scale per 128-row group
+    and column (any other ``bits``, as in the JAX package: W4A16, opt-in and
+    coarser, see its ``tests/test_serving.py::test_w4a16_head_logits_delta``).
 
     The head is padded before quantization, K to a multiple of 1024 and N to
-    a multiple of 512, as the JAX package does for its kernel's tile grid:
+    a multiple of 512, as the JAX package does for its kernels' tile grid:
     padded columns quantize to zero codes and ``_lm_head_logits`` slices the
     logits back to the true vocabulary.  Prefill and decode share the head,
     so a decode continuation stays consistent with a prefill.
     """
-    if bits != 8:
-        raise NotImplementedError(
-            f"quantize_lm_head(bits={bits}): the weight-only INT4 head needs kernel K13 (w4a16_gemm), not ported yet"
-        )
     w = params.lm_head.to(torch.float32)
     pk = (-w.shape[0]) % 1024
     pn = (-w.shape[1]) % 512
     if pk or pn:
         w = F.pad(w, (0, pn, 0, pk))
-    return params._replace(lm_head=quantize_w8a16(w))
+    return params._replace(lm_head=quantize_w8a16(w) if bits == 8 else quantize_w4a16(w))
 
 
 def _lm_head_logits(x: torch.Tensor, lm_head, vocab: int | None = None) -> torch.Tensor:
     """Head matmul with f32 logits (f32 accumulation of bf16 products), so
     near-tie argmax decisions match the JAX head.  A ``W8A16Weight`` head
-    runs the weight-only kernel (K5); ``vocab`` slices off its pad columns."""
+    runs the weight-only INT8 kernel (K5), a ``W4A16Weight`` head the INT4
+    one (K13); ``vocab`` slices off their pad columns.  Weight rows past the
+    hidden size are K padding and are left out (K13 cuts the groups itself)."""
     xb = x.to(torch.bfloat16)
     if isinstance(lm_head, W8A16Weight):
-        if lm_head.codes.shape[0] > xb.shape[1]:  # rows past the hidden size are K padding
+        if lm_head.codes.shape[0] > xb.shape[1]:
             lm_head = W8A16Weight(lm_head.codes[: xb.shape[1]], lm_head.scale)
         out = w8a16_gemm(xb, lm_head)
+    elif isinstance(lm_head, W4A16Weight):
+        out = w4a16_gemm(xb, lm_head, out_dtype=torch.float32)
     elif xb.is_cuda:
         out = torch.mm(xb, lm_head, out_dtype=torch.float32)
     else:

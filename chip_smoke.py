@@ -4,35 +4,49 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel from ``atom_tpu_torch/csrc`` (one ``nvcc`` per
      source, in parallel) and print the card's name and power limit;
-  2. hold each kernel K1-K12 against its plain PyTorch version at the
+  2. hold each kernel K1-K14 against its plain PyTorch version at the
      Llama-2-7B shapes of the decode step (batch 32, context 512), of prefill
      (K7, K1 and K12 at 1024 and 128 rows), of the head (K5 at 32 rows and 1),
      of the mixed step (K1 and K7 at its 288 rows, K11 on the decode rows and
-     on a chunk's prefix) and of
-     the fused post-attention half (K9, K10), and time kernel, plain version
-     and, where one PyTorch call computes the same function, that call;
-  3. drive the decode path at full width (32 layers, hidden 4096, ATOM_W4A4,
-     random weights from a seed): ``decode_burst`` over 2 ring windows, which
-     flush, with every kernel's launch count read; then decode tok/s by the
-     slope between burst lengths (median of positive samples), with the W8A16
-     head and once more with the bf16 head; then the same with
+     on a chunk's prefix), of the fused post-attention half (K9, K10), of the
+     W4A16 stack (K13 at its layer's seven GEMMs, at 1024 rows and at the head)
+     and of the int8-carrier GEMMs (K14a at 32 and 1024 rows, N 4096 and 11008;
+     K14b at N 4096), and time kernel, plain version and, where one PyTorch call
+     computes the same function, that call;
+  3. drive the W4A4 decode path at full width (32 layers, hidden 4096,
+     ATOM_W4A4, random weights from a seed): ``decode_burst`` over 2 ring
+     windows, which flush, with every kernel's launch count read; then decode
+     tok/s by the slope between burst lengths (median of positive samples), with
+     the W8A16 head, the bf16 head and the W4A16 head (K13); then the same with
      ``ATOM_TPU_FUSED_MLP=1`` (K9 and K10 in place of K1 and its glue);
-  4. drive the serving engine at full width: 64 seeded requests through
-     ``TextGenEngine(...).run`` (prefill, KV pool, continuous batching, W8A16
-     head), launch counts read, every request's tokens and the pool checked;
-     then the same requests through the mixed-scheduling engine
-     (``make_mixed_step_fns``, ``chunk_fn``: K11); then one prefill alone at
-     1024 and 256 rows through the flash kernel (K12) beside the default path;
+  4. drive the serving engine at full width in the JAX package's cross-stack
+     engine configuration (32 seeded requests, max_seq_len 1024): serial
+     prefill with the bf16 head (the W4A4 row of the stack comparison), launch
+     counts read, every request's tokens and the pool checked; then the same
+     requests through the mixed-scheduling engine (``make_mixed_step_fns``,
+     ``chunk_fn``: K11) with the W8A16 head; then one prefill alone at 1024 and
+     256 rows through the flash kernel (K12) beside the default path;
   5. the kernel path against the plain path at 2 layers of the same width: one
      flushing decode step on the ring-fused branch, on the int-input ring
-     branch (``fused_serving=False``), on the batch-8 fallback branch and with
-     the fused post-attention half; a mixed step with a flush and one at
-     ``pos0 = 0`` with a partly filled chunk; a kernel prefill; and the engine
-     with a dozen requests, serial and mixed.
+     branch (``fused_serving=False``), on the batch-8 fallback branch, with the
+     fused post-attention half and with the W4A16 head; a mixed step with a
+     flush and one at ``pos0 = 0`` with a partly filled chunk; a kernel
+     prefill; and the engine with a dozen requests, serial and mixed;
+  6. K14's path (it lies on no serving path): one 7B layer's seven projections
+     through the int8-carrier ``quant_gemm`` drop-in (K14a) and k/v through
+     ``quant_gemm_o4`` (K14b), held bit for bit against K1 on the same codes;
+  7. the baseline stacks (``serving/baselines.py``: bf16, W8A8 with int8 dense
+     KV, W4A16 through K13) at full width, one at a time: a decode burst at
+     batch 32, context 512 (launch counts, tok/s by the slope between 8 and 32
+     steps, device time and kernels per step under the profiler, peak memory),
+     then the engine cell of phase 4 over ``make_baseline_step_fns``; then the
+     W4A16 stack at 2 layers, kernel path against plain path (a decode step, a
+     prefill, the engine with a dozen requests); and the W4A4 stack's ratios
+     against each baseline, burst and engine.
 
-stdout ends with the kernels line, the results line, the card line and then
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-``atom_tpu_torch`` package beside this file, it exits non-zero.
+stdout ends with the kernels line, the results line, the ratios line, the card
+line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the ``atom_tpu_torch`` package beside this file, it exits non-zero.
 
 Usage: python3 chip_smoke.py                  (everything; what a check of the port runs)
        python3 chip_smoke.py --kernels-only   (phases 1 and 2, then stop: prints the
@@ -454,6 +468,7 @@ def check_kernels(torch, dev) -> dict:
     del pages, hot, pk, pp
     torch.cuda.empty_cache()
     res.update(check_new_kernels(torch, dev, timer, gen))
+    res.update(check_slice4_kernels(torch, dev, timer, gen))
     return res
 
 
@@ -672,6 +687,119 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     return res
 
 
+def check_slice4_kernels(torch, dev, timer, gen) -> dict:
+    """Phase 2, continued: K13 at the W4A16 stack's decode, prefill and head
+    shapes, K14a and K14b at decode and prefill rows, each against its plain
+    version."""
+    from atom_tpu_torch.ops import gemm as g8
+    from atom_tpu_torch.ops import gemm_w4a16 as gw
+
+    res = {}
+
+    def randint(lo, hi, shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(dtype)
+
+    def uniform(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    # --- K13 w4a16_gemm: within W4A16_RTOL of the largest output; the bf16 output is the float32 one rounded once
+    def k13_case(m, shapes, out_dtype, time_it=True, library=False):
+        row = dict(max_abs_err=0.0, **(dict(ms=0.0, plain_ms=0.0) if time_it else {}))
+        if library:
+            row["library_ms"] = 0.0
+        nbytes = ops = 0
+        for k, n in shapes:
+            a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            wq = gw.W4A16Weight(randint(-128, 128, (k // 2, n)), uniform(0.001, 0.02, (k // 128, n)))
+            got, want = gw.w4a16_gemm(a, wq, out_dtype=torch.float32), gw.w4a16_gemm_plain(a, wq, torch.float32)
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            require(err <= gw.W4A16_RTOL * top, f"w4a16_gemm at M={m}, K={k}, N={n}: max |diff| {err} beyond {gw.W4A16_RTOL} x {top}")
+            require(torch.equal(bits(gw.w4a16_gemm(a, wq)), bits(got.to(torch.bfloat16))),
+                    f"w4a16_gemm at M={m}, K={k}, N={n}: the bf16 output is not the float32 one rounded once")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if time_it:
+                row["ms"] += timer(lambda: gw.w4a16_gemm(a, wq, out_dtype=out_dtype), n=10 if m > 32 else 25)
+                row["plain_ms"] += timer(lambda: gw.w4a16_gemm_plain(a, wq, out_dtype), n=3, warm=1)
+            if library:
+                # no one PyTorch call multiplies bf16 by int4 with group scales: the bf16 product of the
+                # dequantized weight stands beside it for scale; it reads four times the weight bytes
+                wd = gw.dequantize_w4a16(wq).to(torch.bfloat16)
+                row["library_ms"] += timer(lambda: torch.mm(a, wd), n=10 if m > 32 else 25)
+                del wd
+            nbytes += 2 * a.numel() + wq.packed.numel() + 4 * wq.scale.numel() + m * n * (2 if out_dtype == torch.bfloat16 else 4)
+            ops += 2 * m * n * k
+            del a, wq, got, want
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, PEAK_BF16_OPS)
+        return row
+
+    inter_p = -(-INTER // 1024) * 1024  # the W4A16 stack's MLP width, padded to 11264
+    layer = [(HID, HID)] * 4 + [(HID, inter_p)] * 2 + [(inter_p, HID)]
+    k13 = {"decode_layer": k13_case(BATCH, layer, torch.bfloat16, library=True),
+           "prefill_1024": k13_case(PREFILL_MS[0], [(HID, inter_p)], torch.bfloat16, library=True),
+           "head_m32": k13_case(BATCH, [(HID, HEAD_N)], torch.float32, library=True),
+           "head_m1": k13_case(1, [(HID, HEAD_N)], torch.float32),
+           "m100_k384_n224": k13_case(100, [(384, 224)], torch.float32, time_it=False)}
+    log(f"w4a16_gemm checks: {k13}")
+    first = k13.pop("decode_layer")
+    res["w4a16_gemm"] = dict(
+        first, shape="the W4A16 stack's layer at M=32: q/k/v/o [4096,4096] x4 + gate/up [4096,11264] x2 + down "
+        "[11264,4096], bf16 out, times summed; prefill_1024: [1024,4096]x[4096,11264]; head_m32 / head_m1: [32 or 1, 4096] "
+        "x [4096,32256], f32 out; m100_k384_n224: rows and columns off the tiles",
+        library_note="torch.mm of the dequantized bf16 weight (four times the weight bytes); no one call does bf16 x int4",
+        tolerance=f"|diff| <= {gw.W4A16_RTOL} x max|out| (float32 sums in another order); bf16 out = float32 out rounded once",
+        **{f"{case}_{k_}": v_ for case, r in k13.items() for k_, v_ in r.items()})
+    torch.cuda.empty_cache()
+
+    # --- K14a grouped_int8_gemm and K14b grouped_int8_gemm_o4: bitwise
+    def int8_operands(m, n, k=HID):
+        ng = k // 128
+        a = torch.cat([randint(-8, 8, (m, (ng - 1) * 128)), randint(-127, 128, (m, 128))], dim=1)
+        w = torch.cat([randint(-8, 8, ((ng - 1) * 128, n)), randint(-127, 128, (128, n))], dim=0)
+        return a, w, uniform(0.01, 0.2, (m, ng)), uniform(0.001, 0.02, (ng, n))
+
+    k14a, k14b = {}, {}
+    for m in (BATCH, PREFILL_MS[0]):
+        for n in (HID, INTER):
+            args = int8_operands(m, n)
+            got, want = g8.grouped_int8_gemm(*args), g8.grouped_int8_gemm_plain(*args)
+            require(torch.equal(got, want), f"grouped_int8_gemm at M={m}, N={n} is not bitwise its plain version")
+            nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * m * n
+            b_ms, b_by = bound(nbytes, 2 * m * n * HID, PEAK_INT8_OPS)
+            k14a[f"m{m}_n{n}"] = dict(max_abs_err=0.0, ms=timer(lambda: g8.grouped_int8_gemm(*args), n=10 if m > 32 else 25),
+                                      plain_ms=timer(lambda: g8.grouped_int8_gemm_plain(*args), n=3, warm=1),
+                                      bound_ms=b_ms, bound_by=b_by)
+            if n == HID:
+                codes, prm = g8.grouped_int8_gemm_o4(*args)
+                wc, wp = g8.grouped_int8_gemm_o4_plain(*args)
+                require(torch.equal(codes, wc) and torch.equal(prm, wp),
+                        f"grouped_int8_gemm_o4 at M={m}: codes or params differ from its plain version")
+                nbytes = sum(t.numel() * t.element_size() for t in args) + m * n + 4 * prm.numel()
+                b_ms, b_by = bound(nbytes, 2 * m * n * HID, PEAK_INT8_OPS)
+                k14b[f"m{m}_n{n}"] = dict(max_abs_err=0.0, ms=timer(lambda: g8.grouped_int8_gemm_o4(*args), n=10 if m > 32 else 25),
+                                          plain_ms=timer(lambda: g8.grouped_int8_gemm_o4_plain(*args), n=3, warm=1),
+                                          bound_ms=b_ms, bound_by=b_by)
+            del args
+    # M and N off the tiles (K14b: one head)
+    args = int8_operands(100, 128)
+    require(torch.equal(g8.grouped_int8_gemm(*args), g8.grouped_int8_gemm_plain(*args))
+            and all(torch.equal(x, y) for x, y in zip(g8.grouped_int8_gemm_o4(*args), g8.grouped_int8_gemm_o4_plain(*args))),
+            "grouped_int8_gemm(_o4) at M=100, N=128 differs from its plain version")
+    log(f"grouped_int8_gemm checks: {k14a}; _o4: {k14b}")
+    first = k14a.pop(f"m{BATCH}_n{HID}")
+    res["grouped_int8_gemm"] = dict(
+        first, library_ms=None, library_note="no PyTorch call applies per-group scales to an integer product",
+        shape="a int8 [32,4096] (31 body groups + keeper) x w int8 [4096,4096], sa [32,32], sw [32,4096]; "
+              "m{M}_n{N}: M 32 / 1024, N 4096 / 11008; also M=100, N=128 checked",
+        **{f"{case}_{k_}": v_ for case, r in k14a.items() for k_, v_ in r.items()})
+    first = k14b.pop(f"m{BATCH}_n{HID}")
+    res["grouped_int8_gemm_o4"] = dict(
+        first, library_ms=None, library_note="no PyTorch call applies per-group scales to an integer product",
+        shape="K14a's operands at N=4096 (32 heads of 128) -> codes int8 [32,4096] + params f32 [32,32,2]; m1024_*: 1024 rows",
+        **{f"{case}_{k_}": v_ for case, r in k14b.items() for k_, v_ in r.items()})
+    torch.cuda.empty_cache()
+    return res
+
+
 def llama7b(layers: int):
     from atom_tpu_torch.models.configs import LLAMA2_7B
 
@@ -680,6 +808,7 @@ def llama7b(layers: int):
 
 def counters():
     from atom_tpu_torch.ops import decode as dec
+    from atom_tpu_torch.ops import gemm as g8
     from atom_tpu_torch.ops import gemm_packed as gp
     from atom_tpu_torch.ops import gemm_w4a16 as gw
     from atom_tpu_torch.ops import misc, mlp
@@ -698,6 +827,9 @@ def counters():
         "fused_mlp_packed": mlp.fused_mlp_packed,
         "paged_decode_attention_rotated": dec.paged_decode_attention_rotated,
         "flash_code_attention": pf.flash_code_attention,
+        "w4a16_gemm": gw.w4a16_gemm,
+        "grouped_int8_gemm": g8.grouped_int8_gemm,
+        "grouped_int8_gemm_o4": g8.grouped_int8_gemm_o4,
     }
 
 
@@ -714,8 +846,10 @@ def read_counts() -> dict:
 DECODE_KERNELS = ("packed_w4_gemm", "packed_w4_gemm_qkv_ring_fused", "paged_ring_decode_attention", "flush_hot",
                   "w8a16_gemm", "embed_gather")
 FUSED_DECODE_KERNELS = ("packed_w4_gemm_fused_in", "fused_mlp_packed") + DECODE_KERNELS[1:]
-ENGINE_KERNELS = DECODE_KERNELS + ("packed_w4_gemm_qkv",)
-MIXED_ENGINE_KERNELS = ENGINE_KERNELS + ("paged_decode_attention_rotated",)
+# the serial engine runs the bf16 head (the cross-stack engine row), the mixed engine the W8A16 head
+ENGINE_KERNELS = tuple(k for k in DECODE_KERNELS if k != "w8a16_gemm") + ("packed_w4_gemm_qkv",)
+MIXED_ENGINE_KERNELS = DECODE_KERNELS + ("packed_w4_gemm_qkv", "paged_decode_attention_rotated")
+BASELINE_KERNELS = {"bf16": ("embed_gather",), "w8a8": ("embed_gather",), "w4a16": ("embed_gather", "w4a16_gemm")}
 
 
 @contextlib.contextmanager
@@ -810,7 +944,20 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     return counts, stats
 
 
-N_REQUESTS = 64
+N_REQUESTS, XS_MAXLEN = 32, 900  # the cross-stack engine cell: synth_requests(32, 32000, maxlen=900)
+
+
+def engine_setup(torch, dev, cfg):
+    """The engine cell's configuration, the JAX package's cross-stack engine
+    comparison (``atom_tpu/benchmarks/bench_textgen.py`` engine_run): batch 32,
+    page 256, max_seq_len 1024, buckets up to 512, a pool of batch x 4 + 16
+    pages -> (TextGenConfig, pool, pages, requests)."""
+    from atom_tpu_torch.serving import KvPool, TextGenConfig, synth_requests
+
+    tg = TextGenConfig(batch_size=BATCH, page_size=PAGE, max_seq_len=1024, prefill_buckets=(128, 256, 512))
+    n_pages = tg.batch_size * tg.max_seq_len // tg.page_size + 16
+    pool = KvPool(cfg.num_layers, n_pages, cfg.num_kv_heads, tg.page_size, cfg.head_dim)
+    return tg, pool, n_pages, synth_requests(N_REQUESTS, cfg.vocab_size, maxlen=XS_MAXLEN)
 
 
 def make_engine(tg, pool, state, qparams, cfg, mixed: bool):
@@ -825,23 +972,10 @@ def make_engine(tg, pool, state, qparams, cfg, mixed: bool):
     return TextGenEngine(tg, pool, *make_step_fns(qparams, cfg, ATOM_W4A4), state)
 
 
-def engine_path(torch, dev, qparams, mixed: bool = False) -> tuple[dict, dict]:
-    """Phase 4: the serving engine at full width, as a user would call it:
-    serial prefill, or with ``mixed`` the mixed-scheduling engine, whose
-    prompts ride the decode steps in page-size chunks (``chunk_fn``)."""
-    from atom_tpu_torch.config import ATOM_W4A4
-    from atom_tpu_torch.serving import KvPool, TextGenConfig, synth_requests
-    from atom_tpu_torch.serving.model import make_serving_state
-
-    what = "mixed engine" if mixed else "engine"
-    cfg = llama7b(32)
-    tg = TextGenConfig(batch_size=BATCH, page_size=PAGE, max_seq_len=2048, prefill_buckets=(128, 256, 512, 1024))
-    n_pages = tg.batch_size * (tg.max_seq_len // tg.page_size) + tg.pool_slack_pages
-    pool = KvPool(cfg.num_layers, n_pages, cfg.num_kv_heads, tg.page_size, cfg.head_dim)
-    state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size, cfg.head_dim,
-                               device=dev)
-    rs = synth_requests(N_REQUESTS, cfg.vocab_size, maxlen=tg.max_seq_len)
-    engine = make_engine(tg, pool, state, qparams, cfg, mixed)
+def drive_engine(torch, engine, pool, n_pages: int, rs, cfg, what: str, must_launch) -> tuple[dict, dict]:
+    """One run of ``rs`` at full width as a user would call it (tokens not
+    recorded): launch counts, every request's output tokens, the pool and the
+    metrics checked; for serial prefill the prefill figures by bucket."""
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     res = engine.run(rs, record=False)
@@ -849,14 +983,56 @@ def engine_path(torch, dev, qparams, mixed: bool = False) -> tuple[dict, dict]:
     counts = read_counts()
     log(f"{what}: {res}")
     log(f"{what} launches: {counts}")
-    for name in MIXED_ENGINE_KERNELS if mixed else ENGINE_KERNELS:
+    for name in must_launch:
         require(counts[name] > 0, f"kernel {name} was not launched by the {what}")
-    require(res["requests"] == N_REQUESTS and res["output_tokens"] == rs.total_output_tokens,
+    require(res["requests"] == len(rs) and res["output_tokens"] == rs.total_output_tokens,
             f"the {what} did not produce every request's output tokens")
     require(pool.num_free_pages == n_pages - 1, f"{what}: {n_pages - 1 - pool.num_free_pages} pages not returned to the pool")
     require(all(math.isfinite(res[k]) and res[k] > 0 for k in ("throughput_tok_s", "ttft_avg_s", "decode_ms_per_token_avg")),
             f"{what} metrics not finite")
-    res = dict(res, n_requests=N_REQUESTS, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res = dict(res, n_requests=len(rs), peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if engine.last_prefill_s:
+        by_bucket = {}
+        for bucket, sec in engine.last_prefill_s:
+            by_bucket.setdefault(bucket, []).append(sec * 1e3)
+        prefill_s = sum(sec for _, sec in engine.last_prefill_s)
+        res.update(
+            prefill_ms_by_bucket={str(b): dict(n=len(v), median_ms=statistics.median(v), max_ms=max(v))
+                                  for b, v in sorted(by_bucket.items())},
+            prefill_share=prefill_s / res["elapsed_s"], decode_share=1 - prefill_s / res["elapsed_s"],
+            ms_per_decode_step=(res["elapsed_s"] - prefill_s) / res["decode_steps"] * 1e3)
+    return counts, res
+
+
+def check_recorded(engine, pool, n_pages: int, cfg, what: str) -> None:
+    """A second, short run with the tokens recorded: every request gets its
+    output_len tokens, all in range, and the pool is drained back."""
+    from atom_tpu_torch.serving import synth_requests
+
+    rs2 = synth_requests(8, cfg.vocab_size, seed=7, maxlen=128)
+    rec = engine.run(rs2, record=True)
+    for r, want in enumerate(rs2.output_lens):
+        toks = rec["tokens"][r]
+        require(len(toks) == int(want) and all(0 <= t < cfg.vocab_size for t in toks),
+                f"{what}, request {r}: {len(toks)} tokens recorded, {int(want)} wanted, or a token out of range")
+    require(pool.num_free_pages == n_pages - 1, f"{what}: pages not returned to the pool after the recorded run")
+
+
+def engine_path(torch, dev, qparams, mixed: bool = False) -> tuple[dict, dict]:
+    """Phase 4: the serving engine at full width over the W4A4 stack: serial
+    prefill (with a bf16 head, the cross-stack engine row), or with ``mixed``
+    the mixed-scheduling engine, whose prompts ride the decode steps in
+    page-size chunks (``chunk_fn``)."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.model import make_serving_state
+
+    what = "mixed engine" if mixed else "engine"
+    cfg = llama7b(32)
+    tg, pool, n_pages, rs = engine_setup(torch, dev, cfg)
+    state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size, cfg.head_dim,
+                               device=dev)
+    engine = make_engine(tg, pool, state, qparams, cfg, mixed)
+    counts, res = drive_engine(torch, engine, pool, n_pages, rs, cfg, what, MIXED_ENGINE_KERNELS if mixed else ENGINE_KERNELS)
     if mixed:
         n_chunks = sum(-(-int(t) // PAGE) for t in rs.prompt_lens)
         require(engine.last_prefill_s == [], "the mixed engine ran a serial prefill")
@@ -867,24 +1043,7 @@ def engine_path(torch, dev, qparams, mixed: bool = False) -> tuple[dict, dict]:
         res.update(prompt_chunks=n_chunks, ms_per_step=res["elapsed_s"] / (res["decode_steps"] + n_chunks - res["mixed_steps"]) * 1e3)
         res["mixed_step_alone"] = profile_mixed_step(torch, dev, qparams, engine.state, cfg, ATOM_W4A4)
         log(f"one mixed step alone: {res['mixed_step_alone']}")
-    else:
-        by_bucket = {}
-        for bucket, sec in engine.last_prefill_s:
-            by_bucket.setdefault(bucket, []).append(sec * 1e3)
-        prefill_s = sum(sec for _, sec in engine.last_prefill_s)
-        res.update(
-            prefill_ms_by_bucket={str(b): dict(n=len(v), median_ms=statistics.median(v), max_ms=max(v))
-                                  for b, v in sorted(by_bucket.items())},
-            prefill_share=prefill_s / res["elapsed_s"], decode_share=1 - prefill_s / res["elapsed_s"],
-            ms_per_decode_step=(res["elapsed_s"] - prefill_s) / res["decode_steps"] * 1e3)
-    # a second, short run with the tokens recorded: every request gets its output_len tokens, all in range
-    rs2 = synth_requests(8, cfg.vocab_size, seed=7, maxlen=256)
-    rec = engine.run(rs2, record=True)
-    for r, want in enumerate(rs2.output_lens):
-        toks = rec["tokens"][r]
-        require(len(toks) == int(want) and all(0 <= t < cfg.vocab_size for t in toks),
-                f"{what}, request {r}: {len(toks)} tokens recorded, {int(want)} wanted, or a token out of range")
-    require(pool.num_free_pages == n_pages - 1, f"{what}: pages not returned to the pool after the recorded run")
+    check_recorded(engine, pool, n_pages, cfg, what)
     if not mixed:
         res["prefill_alone"] = prefill_alone(torch, dev, qparams, engine.state, cfg, ATOM_W4A4)
     return counts, res
@@ -974,11 +1133,11 @@ def profile_mixed_step(torch, dev, qparams, state, cfg, spec) -> dict:
     """One mixed step alone on the card (``profile_once``): 31 decoding
     sequences at context 500 (6 tokens in the ring) and, in slot 1, a full
     chunk at ``pos0 = 512`` of a prompt; the pool's pages are free, so the
-    sequences take pages 1.. (8 each)."""
+    sequences take pages 1.. (4 each, within the engine cell's 144)."""
     from atom_tpu_torch.serving.model import mixed_step
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    max_pages, slot = 8, 1
+    max_pages, slot = 4, 1
     table = (1 + torch.arange(BATCH * max_pages, device=dev, dtype=torch.int32)).reshape(BATCH, max_pages)
     lens = torch.full((BATCH,), 500, dtype=torch.int32, device=dev)
     lens[slot] = 0
@@ -996,6 +1155,261 @@ def profile_mixed_step(torch, dev, qparams, state, cfg, spec) -> dict:
 
     return profile_once(torch, once, "profile_mixed_step.txt",
                         f"one mixed step (32 decode rows at context 500 + a 256-token chunk at 512), {cfg.num_layers} layers")
+
+
+def baseline_params(torch, dev, stack: str, layers: int = 32, seed: int = 0):
+    """A baseline stack's random weights at Llama-2-7B width (layer by layer)."""
+    from atom_tpu_torch.serving import baselines as bl
+
+    init = {"bf16": bl.init_bf16_params, "w8a8": bl.init_w8_params, "w4a16": bl.init_w4a16_params}[stack]
+    params = init(llama7b(layers), seed=seed, device=dev)
+    torch.cuda.synchronize()
+    return params
+
+
+def dense_kv(torch, dev, stack: str, cfg, batch: int, max_t: int):
+    """The stack's dense KV: int8 codes for W8A8 (the JAX bench's 8-bit KV), bf16 otherwise."""
+    from atom_tpu_torch.serving.baselines import make_dense_kv
+
+    dtype = torch.int8 if stack == "w8a8" else torch.bfloat16
+    return make_dense_kv(cfg.num_layers, batch, max_t, cfg.num_kv_heads, cfg.head_dim, dtype=dtype, device=dev)
+
+
+BURST_LO, BURST_HI = 8, 32  # decode steps of the baseline bursts' slope
+
+
+def baseline_burst(torch, dev, stack: str, params) -> tuple[dict, dict]:
+    """New phase: a baseline stack's decode burst at full width, batch 32,
+    context 512 (``bench_textgen.py``'s ``burst_throughput_baseline``: dense KV
+    of 672 rows): launch counts over 8 steps, then the step time by the slope
+    between bursts of 8 and 32 steps (median of positive samples; every burst
+    starts at lens 512), and 8 steps under the profiler."""
+    from atom_tpu_torch.serving import baselines as bl
+
+    cfg = llama7b(32)
+    burst = {"bf16": bl.bf16_decode_burst, "w8a8": bl.w8a8_decode_burst, "w4a16": bl.w4a16_decode_burst}[stack]
+    kvs = dense_kv(torch, dev, stack, cfg, BATCH, CTX + BURST_HI * 3 + 64)
+    full = lambda v: torch.full((BATCH,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    ids = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+
+    zero_counts()
+    ids, kvs, lens = burst(params, kvs, ids, full(CTX), BURST_LO, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{stack} burst: launches over {BURST_LO} steps {counts}")
+    for name in BASELINE_KERNELS[stack]:
+        require(counts[name] > 0, f"kernel {name} was not launched by the {stack} burst")
+    require(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{stack} burst: next ids out of range")
+    require(bool((lens == CTX + BURST_LO).all()), f"{stack} burst: lengths did not advance")
+
+    def timed(n):
+        nonlocal ids
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, _, _ = burst(params, kvs, ids, full(CTX), n, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    samples = []
+    for _ in range(3):
+        t_lo, t_hi = timed(BURST_LO), timed(BURST_HI)
+        samples.append((t_hi - t_lo) / (BURST_HI - BURST_LO))
+        log(f"  {stack} step time sample: {samples[-1] * 1e3:.3f} ms")
+    positive = [x for x in samples if x > 0]
+    require(len(positive) > 0, f"no positive step-time sample ({stack})")
+    per_step = statistics.median(positive)
+
+    def once():
+        out, _, _ = burst(params, kvs, ids, full(CTX), BURST_LO, cfg)
+        require(0 <= int(out.max().item()) < cfg.vocab_size, f"{stack} burst: next ids out of range")
+
+    prof = profile_once(torch, once, f"profile_{stack}.txt", f"{BURST_LO} decode steps of the {stack} stack")
+    stats = dict(decode_tok_s=BATCH / per_step, step_ms=per_step * 1e3, step_ms_samples=[x * 1e3 for x in samples],
+                 device_ms_per_step_profiled=prof["device_ms"] / BURST_LO,
+                 device_kernels_per_step=prof["device_kernels"] / BURST_LO,
+                 device_busy_share=prof["device_ms"] / BURST_LO / (per_step * 1e3),
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 kv_gb=sum(t.numel() * t.element_size() for kv in kvs for t in kv) / 1e9)
+    log(f"{stack} burst: {stats}")
+    return counts, stats
+
+
+def baseline_engine(torch, dev, stack: str, params) -> tuple[dict, dict]:
+    """New phase: the engine cell over a baseline stack (``make_baseline_step_fns``,
+    dense KV of ``max_seq_len`` rows), serial prefill, as for the W4A4 row."""
+    from atom_tpu_torch.serving import TextGenEngine
+    from atom_tpu_torch.serving.baselines import make_baseline_step_fns
+
+    what = f"{stack} engine"
+    cfg = llama7b(32)
+    tg, pool, n_pages, rs = engine_setup(torch, dev, cfg)
+    state = dense_kv(torch, dev, stack, cfg, tg.batch_size, tg.max_seq_len)
+    engine = TextGenEngine(tg, pool, *make_baseline_step_fns(params, cfg, stack), state)
+    counts, res = drive_engine(torch, engine, pool, n_pages, rs, cfg, what, BASELINE_KERNELS[stack])
+    check_recorded(engine, pool, n_pages, cfg, what)
+    return counts, res
+
+
+def int8_carrier_layer(torch, dev) -> tuple[dict, dict]:
+    """K14's path: one Llama-2-7B layer's seven W4A4 projections (q, k, v, o,
+    gate, up, down: ``quantize_weight_packed`` of random weights, batch 32)
+    through the int8-carrier drop-in ``ops.gemm.quant_gemm`` (K14a), and k and
+    v through ``ops.gemm.quant_gemm_o4`` (K14b); then K1 on the same codes
+    (nibble planes) and the plain KV quantizer on K1's product: bitwise?"""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.ops import gemm as g8
+    from atom_tpu_torch.ops.formats import pack_for_kernel, quantize_activation_packed, quantize_weight_packed
+    from atom_tpu_torch.ops.gemm_packed import quant_gemm_packed
+    from atom_tpu_torch.ops.reference import quantize_kv_asym
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shapes = dict(q=(HID, HID), k=(HID, HID), v=(HID, HID), o=(HID, HID), gate=(HID, INTER), up=(HID, INTER),
+                  down=(INTER, HID))
+    weights = {n: quantize_weight_packed(torch.randn(sh, generator=gen, device=dev) * sh[0] ** -0.5, ATOM_W4A4)
+               for n, sh in shapes.items()}
+    acts = {k_: quantize_activation_packed(torch.randn((BATCH, k_), generator=gen, device=dev), ATOM_W4A4)
+            for k_ in (HID, INTER)}
+    zero_counts()
+    out = {n: g8.quant_gemm(acts[shapes[n][0]], pw, out_dtype=torch.float32) for n, pw in weights.items()}
+    kv = {n: g8.quant_gemm_o4(acts[HID], weights[n]) for n in ("k", "v")}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["grouped_int8_gemm"] == 7 and counts["grouped_int8_gemm_o4"] == 2,
+            f"int8-carrier layer: launches {counts}")
+    bitwise = {}
+    for n, pw in weights.items():
+        k1 = quant_gemm_packed(acts[shapes[n][0]], pack_for_kernel(pw), out_dtype=torch.float32)
+        bitwise[n] = torch.equal(out[n], k1)
+        if n in kv:
+            want = quantize_kv_asym(k1.reshape(BATCH, HID // 128, 128))
+            bitwise[f"{n}_o4"] = torch.equal(kv[n].codes, want.codes) and torch.equal(kv[n].params, want.params)
+        require(bool(torch.isfinite(out[n]).all()), f"int8-carrier layer: {n} not finite")
+    log(f"int8-carrier layer (K14 vs K1 on the same codes, bitwise): {bitwise}")
+    require(all(bitwise.values()), f"int8-carrier layer: K14 differs from K1 on the same codes: {bitwise}")
+    return counts, dict(bitwise_with_k1=bitwise, launches={k_: v_ for k_, v_ in counts.items() if v_})
+
+
+def capture_head_input(module):
+    """Record the hidden rows a step hands its head: wraps ``module._lm_head_logits``."""
+    seen = []
+    head = module._lm_head_logits
+
+    def wrapped(x, *a, **k):
+        seen.append(x.float())
+        return head(x, *a, **k)
+
+    @contextlib.contextmanager
+    def ctx():
+        module._lm_head_logits = wrapped
+        try:
+            yield seen
+        finally:
+            module._lm_head_logits = head
+
+    return ctx()
+
+
+def w4a16_stack_vs_plain(torch, dev) -> dict:
+    """Phase 5: the W4A16 stack at 2 layers of the same width, kernel path
+    (K13, K6) against plain path: a decode step at batch 32 on a random dense
+    cache (an idle slot), a 512-row prefill of 400 tokens into slot 1, and the
+    engine with a dozen requests.  K13 equals its plain version within float32
+    reordering, so a bf16 output rounds the other way now and then: the gates
+    are the 2-layer W4A4 gates' (hidden moved > 0.05 under 25%, max under 1.5,
+    the tokens), and the cache entries within 2**-6 of the largest."""
+    from atom_tpu_torch.serving import TextGenEngine, synth_requests
+    from atom_tpu_torch.serving import baselines as bl
+    from atom_tpu_torch.serving.baselines import DenseKV, make_baseline_step_fns
+
+    cfg = llama7b(2)
+    params = baseline_params(torch, dev, "w4a16", layers=2, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    max_t = 1024
+    kv0 = [DenseKV(*((torch.randn((BATCH, max_t, cfg.num_kv_heads, cfg.head_dim), generator=gen, device=dev) * 0.5)
+                     .to(torch.bfloat16) for _ in range(2))) for _ in range(cfg.num_layers)]
+    lens = torch.randint(CTX - 40, CTX, (BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    lens[1] = 0
+    ids = torch.randint(0, cfg.vocab_size, (BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    prompt = torch.zeros((512,), dtype=torch.int32, device=dev)
+    prompt[:400] = torch.randint(1, cfg.vocab_size, (400,), generator=gen, device=dev, dtype=torch.int32)
+
+    def fresh():
+        return [DenseKV(*(t.transpose(1, 2).contiguous().transpose(1, 2) for t in kv)) for kv in kv0]
+
+    def run():
+        with capture_head_input(bl) as seen:
+            kvs = fresh()
+            nxt, kvs = bl.w4a16_decode_step(params, kvs, ids, lens, cfg)
+            pkv = fresh()
+            tok, pkv = bl.baseline_prefill_step(params, pkv, prompt, 400, 1, cfg, "w4a16")
+        return seen[0], nxt, kvs, int(tok.item()), pkv
+
+    zero_counts()
+    xk, nk, kk, tk, pk = run()
+    counts = read_counts()
+    require(counts["w4a16_gemm"] == 2 * 7 * cfg.num_layers and counts["embed_gather"] == 2,
+            f"W4A16 stack, 2 layers: launches {counts}")
+    with plain_path():
+        xp, np_, kp, tp, pp = run()
+    torch.cuda.synchronize()
+    require(read_counts() == counts, "the plain path launched a kernel")
+    diff = (xk - xp).abs()
+    moved, dmax = (diff > 0.05).float().mean().item(), diff.max().item()
+    agree = (nk == np_).float().mean().item()
+
+    def kv_gap(a_layers, b_layers):
+        return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                   for la, lb in zip(a_layers, b_layers) for a, b in zip(la, lb))
+
+    gaps = dict(decode=kv_gap(kk, kp), prefill=kv_gap(pk, pp))
+    log(f"W4A16 stack, kernel vs plain path (2 layers): decode {moved:.4%} of hidden moved > 0.05, max {dmax:.4f}, "
+        f"next-id agreement {agree:.3f}; prefill token {tk} / {tp}; cache gaps {gaps}, "
+        f"entries differing {entries_differing(kk, kp):.5f} / {entries_differing(pk, pp):.5f}")
+    require(bool(torch.isfinite(xk).all()), "W4A16 stack: hidden states not finite (idle slot?)")
+    require(moved < 0.25 and dmax < 1.5 and agree >= 0.75, f"W4A16 stack diverges from the plain path: {moved:.2%} moved, max {dmax}")
+    require(tk == tp, f"W4A16 stack: the prefill's token differs between the paths ({tk} / {tp})")
+    require(max(gaps.values()) <= 2**-6, f"W4A16 stack: cache entries differ by {gaps}")
+    res = dict(decode=dict(moved_gt_0p05=moved, max_abs=dmax, next_id_agreement=agree,
+                           cache_entries_differing=entries_differing(kk, kp)),
+               prefill=dict(token_equal=tk == tp, cache_entries_differing=entries_differing(pk, pp)),
+               cache_gap_rel=gaps, launches={k_: v_ for k_, v_ in counts.items() if v_})
+
+    # the engine with a dozen requests on both paths
+    tg, _, n_pages, _ = engine_setup(torch, dev, cfg)
+    rs = synth_requests(12, cfg.vocab_size, seed=11, maxlen=512)
+
+    def run_engine():
+        from atom_tpu_torch.serving import KvPool
+
+        pool = KvPool(cfg.num_layers, n_pages, cfg.num_kv_heads, tg.page_size, cfg.head_dim)
+        state = dense_kv(torch, dev, "w4a16", cfg, tg.batch_size, tg.max_seq_len)
+        out = TextGenEngine(tg, pool, *make_baseline_step_fns(params, cfg, "w4a16"), state).run(rs, record=True)
+        require(pool.num_free_pages == n_pages - 1, "2-layer W4A16 engine: pages not returned to the pool")
+        return out
+
+    zero_counts()
+    rk = run_engine()
+    counts = read_counts()
+    require(counts["w4a16_gemm"] > 0, "2-layer W4A16 engine: kernel w4a16_gemm was not launched")
+    with plain_path():
+        rp = run_engine()
+    require(read_counts() == counts, "the plain path launched a kernel")
+    require(rk["decode_steps"] == rp["decode_steps"], "2-layer W4A16 engine: step counts differ")
+    first = before = total = 0
+    for r in range(len(rs)):
+        a, b = rk["tokens"][r], rp["tokens"][r]
+        require(len(a) == len(b) == int(rs.output_lens[r]), f"2-layer W4A16 engine: request {r} token count")
+        first += a[0] == b[0]
+        same = [x == y for x, y in zip(a, b)]
+        before += same.index(False) if False in same else len(same)
+        total += len(same)
+    log(f"2-layer W4A16 engine, kernel vs plain: {rk['decode_steps']} decode steps, first tokens equal in {first}/{len(rs)}, "
+        f"{before}/{total} positions before the first divergence")
+    require(first * 8 >= 7 * len(rs), f"2-layer W4A16 engine: first tokens agree in only {first}/{len(rs)} requests")
+    res["engine"] = dict(decode_steps=rk["decode_steps"], first_tokens_equal=first, requests=len(rs),
+                         positions_before_first_divergence=before, positions=total,
+                         launches={k_: v_ for k_, v_ in counts.items() if v_})
+    return res
 
 
 def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple[float, float]:
@@ -1031,9 +1445,12 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the serving model through the plain PyTorch versions."""
+    """Route the serving model, the baseline stacks and the int8-carrier
+    drop-ins through the plain PyTorch versions."""
+    import atom_tpu_torch.serving.baselines as bl
     import atom_tpu_torch.serving.model as sm
     from atom_tpu_torch.ops import decode as dec
+    from atom_tpu_torch.ops import gemm as g8
     from atom_tpu_torch.ops import gemm_packed as gp
     from atom_tpu_torch.ops import gemm_w4a16 as gw
     from atom_tpu_torch.ops import misc, mlp
@@ -1052,6 +1469,10 @@ def plain_path():
         (sm, "flush_hot", dec.flush_hot_plain),
         (sm, "paged_ring_decode_attention", dec.paged_ring_decode_attention_plain),
         (gp, "packed_w4_gemm", gp.packed_w4_gemm_plain),
+        (sm, "w4a16_gemm", gw.w4a16_gemm_plain),
+        (bl, "w4a16_gemm", gw.w4a16_gemm_plain),
+        (g8, "grouped_int8_gemm", g8.grouped_int8_gemm_plain),
+        (g8, "grouped_int8_gemm_o4", g8.grouped_int8_gemm_o4_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -1168,14 +1589,9 @@ def mixed_step_kernel_vs_plain(torch, dev, params, flush: bool, pos0: int, chunk
     def run():
         st = sm.ServingState([KVPages(*(t.clone() for t in p)) for p in pages],
                              [HotKV(*(t.clone() for t in r)) for r in hot], row, flushed.clone())
-        seen = []
-        head = sm._lm_head_logits
-        sm._lm_head_logits = lambda x, *a, **k: (seen.append(x.float()), head(x, *a, **k))[1]
-        try:
+        with capture_head_input(sm) as seen:
             nxt, tok, st = sm.mixed_step(params, st, ids, dec_table, lens, chunk_ids, table[slot], pos0, chunk_len, slot,
                                          cfg, ATOM_W4A4, flush=flush)
-        finally:
-            sm._lm_head_logits = head
         return seen[0], nxt, tok, st
 
     zero_counts()
@@ -1344,19 +1760,29 @@ SOURCES = {
     "fused_mlp_packed": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_mlp.py:238"),
     "paged_decode_attention_rotated": ("atom_tpu_torch/csrc/decode.cu", "atom_tpu/ops/pallas_decode.py:533"),
     "flash_code_attention": ("atom_tpu_torch/csrc/prefill.cu", "atom_tpu/ops/pallas_prefill.py:164"),
+    "w4a16_gemm": ("atom_tpu_torch/csrc/gemm_w4a16.cu", "atom_tpu/ops/pallas_gemm_w4a16.py:97"),
+    "grouped_int8_gemm": ("atom_tpu_torch/csrc/gemm_int8.cu", "atom_tpu/ops/pallas_gemm.py:77"),
+    "grouped_int8_gemm_o4": ("atom_tpu_torch/csrc/gemm_int8.cu", "atom_tpu/ops/pallas_gemm.py:203"),
 }
 
 # the path whose run gives a kernel's count on the kernels line: the serial
-# engine for K1-K7; K8 is reached only through a spec off the ring-fused
-# prologue (a 2-layer step); K9 and K10 by the fused decode burst; K11 by the
-# mixed engine; K12 by the prefills alone with the kernel threshold at 0
+# engine (bf16 head) for K1-K4, K6, K7; K5 by the decode burst with the W8A16
+# head; K8 is reached only through a spec off the ring-fused prologue (a
+# 2-layer step); K9 and K10 by the fused decode burst; K11 by the mixed engine;
+# K12 by the prefills alone with the kernel threshold at 0; K13 by the W4A16
+# stack's engine; K14 by the int8-carrier layer (it lies on no serving path)
 MAIN_PATH = {
+    "w8a16_gemm": "decode_burst",
     "packed_w4_gemm_qkv_ring": "int_input_ring_branch",
     "packed_w4_gemm_fused_in": "fused_decode_burst",
     "fused_mlp_packed": "fused_decode_burst",
     "paged_decode_attention_rotated": "mixed_engine",
     "flash_code_attention": "kernel_prefill",
+    "w4a16_gemm": "w4a16_stack_engine",
+    "grouped_int8_gemm": "int8_carrier_layer",
+    "grouped_int8_gemm_o4": "int8_carrier_layer",
 }
+BASELINE_STACKS = ("bf16", "w8a8", "w4a16")
 
 
 def main() -> int:
@@ -1379,7 +1805,9 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-"
+          f"precision reduction {torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
@@ -1397,12 +1825,15 @@ def main() -> int:
         return 0
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_serving_params(llama7b(32), ATOM_W4A4, seed=0, device=dev)
-    qparams = quantize_lm_head(params)
+    qparams, q4params = quantize_lm_head(params), quantize_lm_head(params, bits=4)
     torch.cuda.synchronize()
-    log(f"param init (32 layers, bf16 and W8A16 head): {time.perf_counter() - t0:.1f} s")
+    log(f"param init (32 layers, bf16, W8A16 and W4A16 heads): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    decode_counts, decode_stats = decode_path(torch, dev, (("w8a16", qparams, 5), ("bf16", params, 3)))
+    decode_counts, decode_stats = decode_path(torch, dev, (("w8a16", qparams, 3), ("bf16", params, 3), ("w4a16", q4params, 3)))
+    decode_stats["w8a16"]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del q4params
     torch.cuda.empty_cache()
     log(f"decode path in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1411,10 +1842,10 @@ def main() -> int:
     require(fused_counts["packed_w4_gemm"] == 0, "the fused decode path still launched the unfused GEMM")
     torch.cuda.empty_cache()
     log(f"fused decode path in {time.perf_counter() - t0:.1f} s")
-    del params
     t0 = time.perf_counter()
-    engine_counts, engine_res = engine_path(torch, dev, qparams)
+    engine_counts, engine_res = engine_path(torch, dev, params)
     prefill_res = engine_res.pop("prefill_alone")
+    del params
     torch.cuda.empty_cache()
     log(f"engine path in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1436,13 +1867,50 @@ def main() -> int:
                                                  ("packed_w4_gemm_qkv", "w8a16_gemm")),
         "fused_post_attention_batch_32": kernel_vs_plain_path(torch, dev, q2, BATCH, ATOM_W4A4, q2.lm_head,
                                                               ("packed_w4_gemm_fused_in", "fused_mlp_packed"), fused=True),
+        "w4a16_head_batch_32": kernel_vs_plain_path(torch, dev, p2, BATCH, ATOM_W4A4, quantize_lm_head(p2, bits=4).lm_head,
+                                                    ("packed_w4_gemm_qkv_ring_fused", "w4a16_gemm")),
         "mixed_step_flush_pos0_512": mixed_step_kernel_vs_plain(torch, dev, q2, True, 512, PAGE),
         "mixed_step_first_chunk_100_tokens": mixed_step_kernel_vs_plain(torch, dev, q2, False, 0, 100),
         "kernel_prefill_512": prefill_kernel_vs_plain(torch, dev, q2),
     }
     parity["engine_2_layers"] = engine_kernel_vs_plain(torch, dev, q2)
     parity["mixed_engine_2_layers"] = engine_kernel_vs_plain(torch, dev, q2, mixed=True)
+    del p2, q2
+    torch.cuda.empty_cache()
     log(f"kernel path vs plain path in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    int8_counts, int8_res = int8_carrier_layer(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"int8-carrier layer in {time.perf_counter() - t0:.1f} s")
+
+    baselines, base_counts = {}, {}
+    for stack in BASELINE_STACKS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        bp = baseline_params(torch, dev, stack)
+        log(f"{stack} stack: params ({sum(t.numel() * t.element_size() for t in _leaves(bp)) / 1e9:.2f} GB) "
+            f"in {time.perf_counter() - t0:.1f} s")
+        burst_counts, burst_stats = baseline_burst(torch, dev, stack, bp)
+        torch.cuda.empty_cache()
+        eng_counts, eng_res = baseline_engine(torch, dev, stack, bp)
+        baselines[stack] = dict(burst=burst_stats, engine=eng_res,
+                                params_gb=sum(t.numel() * t.element_size() for t in _leaves(bp)) / 1e9)
+        base_counts[stack] = dict(burst=burst_counts, engine=eng_counts)
+        del bp
+        torch.cuda.empty_cache()
+        log(f"{stack} stack in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parity["w4a16_stack_2_layers"] = w4a16_stack_vs_plain(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"W4A16 stack vs plain path in {time.perf_counter() - t0:.1f} s")
+
+    w4a4_burst, w4a4_engine = decode_stats["w8a16"]["decode_tok_s"], engine_res["throughput_tok_s"]
+    ratios = {b: dict(decode_burst=w4a4_burst / baselines[b]["burst"]["decode_tok_s"],
+                      engine_total_tok_s=w4a4_engine / baselines[b]["engine"]["throughput_tok_s"],
+                      engine_output_tok_s=engine_res["output_tok_s"] / baselines[b]["engine"]["output_tok_s"])
+              for b in BASELINE_STACKS}
+    log(f"W4A4 / baseline ratios: {ratios}")
 
     branch_counts = parity["int_input_ring_batch_32"]["launches"]
     kernel_prefill_launches = sum(v["flash_code_attention_launches"] for k, v in prefill_res.items() if k.startswith("kernel_"))
@@ -1451,30 +1919,46 @@ def main() -> int:
         src, rep = SOURCES[name]
         by_phase = dict(decode_burst=decode_counts[name], fused_decode_burst=fused_counts[name], engine=engine_counts[name],
                         mixed_engine=mixed_counts[name], int_input_ring_branch=branch_counts.get(name, 0),
-                        kernel_prefill=kernel_prefill_launches if name == "flash_code_attention" else 0)
+                        kernel_prefill=kernel_prefill_launches if name == "flash_code_attention" else 0,
+                        int8_carrier_layer=int8_counts[name],
+                        **{f"{b}_stack_{ph}": base_counts[b][ph][name] for b in BASELINE_STACKS for ph in ("burst", "engine")})
         path = MAIN_PATH.get(name, "engine")
         launches = by_phase[path]
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=launches, launches_on=path,
-                         launches_by_phase=by_phase, **k))
-    require(len(rows) == 12, "the kernels line must list K1-K12")
+                         launches_by_phase={k_: v_ for k_, v_ in by_phase.items() if v_}, **k))
+    require(len(rows) == 15, "the kernels line must list K1-K14 (K14's two functions)")
     print(json.dumps({"kernels": rows}), flush=True)
-    engine_config = ("batch 32, page 256, max_seq_len 2048, buckets (128, 256, 512, 1024), "
-                     f"synth_requests({N_REQUESTS}, 32000, maxlen=2048), W8A16 head")
+    engine_config = ("batch 32, page 256, max_seq_len 1024, buckets (128, 256, 512), pool 144 pages, "
+                     f"synth_requests({N_REQUESTS}, 32000, maxlen={XS_MAXLEN})")
     print(json.dumps({
         "decode": dict(decode_stats, protocol="slope between 1 and 4 ring windows, median of positive samples",
                        batch=BATCH, context=CTX),
         "decode_fused_post_attention": dict(fused_stats, flag="ATOM_TPU_FUSED_MLP=1", launches=fused_counts),
-        "engine": dict(engine_res, config=engine_config),
-        "mixed_engine": dict(mixed_res, config=engine_config + ", make_mixed_step_fns + chunk_fn"),
+        "engine": dict(engine_res, config=engine_config + ", bf16 head"),
+        "mixed_engine": dict(mixed_res, config=engine_config + ", W8A16 head, make_mixed_step_fns + chunk_fn"),
         "prefill_alone": prefill_res,
-        "model": "Llama-2-7B width, 32 layers, W4A4", "card": card, "path_parity_2_layers": parity,
-        "wall_s": time.perf_counter() - t_all,
+        "baselines": dict(baselines, burst_protocol=f"slope between {BURST_LO} and {BURST_HI} steps, 3 samples, median of "
+                          f"positive ones, batch {BATCH}, context {CTX}, dense KV of {CTX + BURST_HI * 3 + 64} rows",
+                          engine_config=engine_config),
+        "int8_carrier_layer": int8_res,
+        "model": "Llama-2-7B width, 32 layers; W4A4 and the baseline stacks bf16, W8A8, W4A16", "card": card,
+        "path_parity_2_layers": parity, "wall_s": time.perf_counter() - t_all,
     }), flush=True)
+    print(json.dumps({"w4a4_ratios": ratios, "w4a4_burst_head": "w8a16", "w4a4_engine_head": "bf16", "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _leaves(tree):
+    """The tensors of a params tree of NamedTuples and lists."""
+    if hasattr(tree, "data_ptr"):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for item in tree:
+            yield from _leaves(item)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,145 @@
+"""The port's grouped-scale int8 GEMMs (kernel K14: ``grouped_int8_gemm`` and
+``grouped_int8_gemm_o4``, through their plain versions), their ``quant_gemm``
+/ ``quant_gemm_o4`` drop-ins and ``ops.reference.quant_gemm_o4``, held against
+the JAX package on shared seeded inputs: the Pallas kernels in interpret mode
+and the jnp oracle (``ops/reference.py``).
+
+The CUDA kernels themselves are held against the same plain versions on the
+card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from atom_tpu.config import ATOM_W4A4
+from atom_tpu.ops import pallas_gemm as jg
+from atom_tpu.ops import reference as jr
+from atom_tpu.ops.formats import quantize_activation_packed, quantize_weight_packed
+from atom_tpu_torch.ops import formats as tf
+from atom_tpu_torch.ops import gemm as tg
+from atom_tpu_torch.ops import gemm_packed as gp
+from atom_tpu_torch.ops import reference as tr
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _operands(seed, m, k, n):
+    """JAX W4A4 operands from seeded float inputs, and the port's form of the
+    same codes and scales (activation keeper as the last group)."""
+    rng = np.random.default_rng(seed)
+    qa = quantize_activation_packed(jnp.asarray(rng.standard_normal((m, k)).astype(np.float32)), ATOM_W4A4)
+    pw = quantize_weight_packed(jnp.asarray((rng.standard_normal((k, n)) * 0.05).astype(np.float32)), ATOM_W4A4)
+    tqa = tf.QuantizedActivation(_t(np.concatenate([qa.body, qa.keeper], axis=1)),
+                                 _t(np.concatenate([qa.body_scale, qa.keeper_scale], axis=1)))
+    tpw = tf.PackedWeight(*(_t(x) for x in pw))
+    return qa, pw, tqa, tpw
+
+
+# M not a multiple of the 32-row tile, N of 128 only at 256 (the JAX kernel pads both)
+SHAPES = [(16, 512, 256), (5, 384, 384), (40, 1024, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_grouped_int8_gemm_matches_pallas(m, k, n):
+    """K14a's plain version against the Pallas kernel in interpret mode: each
+    group's int32 dot is exact in both and the float32 epilogue runs group by
+    group in the same order, ``acc + float(dot_g) * sa * sw``, keeper last; but
+    XLA's CPU compiler contracts the last multiply and the add into one fused
+    multiply-add (emulating that reproduces every element of the interpreted
+    kernel), so each term can round once less there: rtol 1e-5, as K1 against
+    its Pallas kernel.  Against the jnp oracle (another float32 order): rtol
+    1e-5, atol 1e-4, the JAX package's own bound for its kernel."""
+    qa, pw, tqa, tpw = _operands(m + n, m, k, n)
+    a, w, sa, sw = jg._assemble_operands(qa, pw)
+    want = np.asarray(jg.grouped_int8_gemm(a, w, sa, sw, interpret=True))
+    ta, tw_, tsa, tsw = tg._assemble_operands(tqa, tpw)
+    for x, y in zip((ta, tw_, tsa, tsw), (a, w, sa, sw)):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    before = tg.grouped_int8_gemm.launches
+    got = tg.grouped_int8_gemm(ta, tw_, tsa, tsw)
+    assert tg.grouped_int8_gemm.launches == before  # a CPU tensor takes the plain version
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    ref = np.asarray(jr.quant_gemm(qa, pw, out_dtype=jnp.float32))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
+    # the drop-in: the same product, rounded to its out_dtype
+    assert torch.equal(tg.quant_gemm(tqa, tpw, out_dtype=torch.float32), got)
+    bf = tg.quant_gemm(tqa, tpw)
+    assert bf.dtype == torch.bfloat16 and torch.equal(bf, got.to(torch.bfloat16))
+    np.testing.assert_allclose(bf.float().numpy(), np.asarray(jg.quant_gemm_pallas(qa, pw, interpret=True), np.float32),
+                               rtol=2**-7, atol=1e-6)  # one bf16 rounding apart where the f32 sums differ
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 512, 256), (5, 384, 384)])
+def test_grouped_int8_gemm_o4_matches_pallas(m, k, n):
+    """K14b's plain version against the Pallas kernel in interpret mode: codes
+    and (scale, zero value) params bit for bit on these inputs (the product as
+    K14a, within the fused multiply-add's rounding, then the quantizer of
+    ``quantize_kv_asym``: IEEE division, bf16-rounded scale and zero value; no
+    value lands on a rounding boundary here); the ``quant_gemm_o4`` drop-in
+    returns them head-major."""
+    qa, pw, tqa, tpw = _operands(7 * m + n, m, k, n)
+    a, w, sa, sw = jg._assemble_operands(qa, pw)
+    wc, wp = jg.grouped_int8_gemm_o4(a, w, sa, sw, interpret=True)
+    before = tg.grouped_int8_gemm_o4.launches
+    codes, params = tg.grouped_int8_gemm_o4(*tg._assemble_operands(tqa, tpw))
+    assert tg.grouped_int8_gemm_o4.launches == before
+    assert codes.dtype == torch.int8 and codes.shape == (m, n) and params.shape == (m, n // 128, 2)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(wc))
+    np.testing.assert_array_equal(params.numpy(), np.asarray(wp))
+    assert int(codes.min()) >= 0 and int(codes.max()) <= 15
+    kq = tg.quant_gemm_o4(tqa, tpw)
+    jq = jg.quant_gemm_o4_pallas(qa, pw, interpret=True)
+    assert kq.codes.shape == (m, n // 128, 128)
+    np.testing.assert_array_equal(kq.codes.numpy(), np.asarray(jq.codes))
+    np.testing.assert_array_equal(kq.params.numpy(), np.asarray(jq.params))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES[:2])
+def test_reference_quant_gemm_o4_matches_jax(m, k, n):
+    """``ops.reference.quant_gemm_o4`` (the oracle: ``quant_gemm``'s other
+    float32 order, then the quantizer) against the JAX oracle: params within
+    1e-5 (the JAX package's own bound for its kernel against the oracle), codes
+    equal but where a product lands on a rounding boundary (at most 0.1%,
+    measured 0), and the K14b plain version within the same bounds of it."""
+    qa, pw, tqa, tpw = _operands(3 * m + k, m, k, n)
+    want = jr.quant_gemm_o4(qa, pw, head_dim=128)
+    got = tr.quant_gemm_o4(tqa, tpw)
+    assert got.codes.shape == (m, n // 128, 128) and got.params.shape == (m, n // 128, 2)
+    assert np.mean(got.codes.numpy() != np.asarray(want.codes)) <= 1e-3
+    np.testing.assert_allclose(got.params.numpy(), np.asarray(want.params), atol=1e-5)
+    kq = tg.quant_gemm_o4(tqa, tpw)
+    assert np.mean(kq.codes.numpy() != got.codes.numpy()) <= 1e-3
+    np.testing.assert_allclose(kq.params.numpy(), got.params.numpy(), atol=1e-5)
+
+
+def test_k14_equals_k1_on_the_same_codes():
+    """The grouped GEMM on int8-carrier codes and K1 on their nibble planes
+    compute the same products in the same float32 order: equal bit for bit
+    (what ``chip_smoke.py`` checks of the two kernels at Llama-2-7B width)."""
+    qa, pw, tqa, tpw = _operands(11, 32, 512, 256)
+    kw = tf.pack_for_kernel(tpw)
+    k1 = gp.packed_w4_gemm_plain(tqa.codes, kw.body_packed, kw.keeper, tqa.scales, kw.scales)
+    np.testing.assert_array_equal(tg.grouped_int8_gemm(*tg._assemble_operands(tqa, tpw)).numpy(), k1.numpy())
+    kq = tg.quant_gemm_o4(tqa, tpw)
+    want = tr.quantize_kv_asym(k1.reshape(32, 2, 128))
+    assert torch.equal(kq.codes, want.codes) and torch.equal(kq.params, want.params)
+
+
+def test_wrappers_refuse_other_devices_and_shapes():
+    """A wrapper takes its plain version only for CPU tensors; a tensor on
+    another device (``meta``) raises rather than falling back, and so does a
+    head width the kernel does not quantize."""
+    meta = [torch.empty((32, 256), dtype=torch.int8, device="meta"), torch.empty((256, 128), dtype=torch.int8),
+            torch.empty((32, 2)), torch.empty((2, 128))]
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        tg.grouped_int8_gemm(*meta)
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        tg.grouped_int8_gemm_o4(*meta)
+    # off the card a head width other than 128 still computes (the plain version quantizes any width)
+    codes, params = tg.grouped_int8_gemm_o4(torch.zeros((2, 256), dtype=torch.int8), torch.zeros((256, 128),
+                                            dtype=torch.int8), torch.ones((2, 2)), torch.ones((2, 128)), head_dim=64)
+    assert codes.shape == (2, 128) and params.shape == (2, 2, 2)

@@ -125,9 +125,14 @@ def test_lm_head_logits_slicing_matches_jax(heads):
 
 
 def test_quantize_lm_head_int4_names_its_kernel(heads):
+    """``bits=4`` no longer raises: it gives the W4A16 head that kernel K13
+    (``w4a16_gemm``) runs, padded as the W8A16 head is (held against the JAX
+    package in ``tests/test_torch_baselines.py``)."""
     _, _, tparams, _ = heads
-    with pytest.raises(NotImplementedError, match="K13"):
-        tm.quantize_lm_head(tparams, bits=4)
+    q4 = tm.quantize_lm_head(tparams, bits=4)
+    assert isinstance(q4.lm_head, tw.W4A16Weight)
+    assert tuple(q4.lm_head.packed.shape) == (512, 512) and tuple(q4.lm_head.scale.shape) == (8, 512)
+    assert tm._lm_head_logits(torch.ones((2, 256)), q4.lm_head, 199).shape == (2, 199)
 
 
 def test_convert_carries_w8a16_head_bitwise(heads):

@@ -196,8 +196,8 @@ def test_off_fused_path_raises():
     is not a multiple of 32 decodes through ``_attn_block_common`` +
     ``write_hot``, a spec with ``fused_serving=False`` through the int-input
     ring kernel, and ``causal_code_attention(kernel=True)`` through the flash
-    kernel K12 (its plain version here).  What does raise is what is not ported
-    yet, naming its kernel."""
+    kernel K12 (its plain version here), and ``quantize_lm_head(bits=4)``
+    gives the W4A16 head (K13)."""
     _, tcfg = _cfgs(4, 4)
     small = tcfg.replace(num_layers=1)
     params = tm.init_serving_params(small, T_SPEC, device="cpu")
@@ -205,8 +205,7 @@ def test_off_fused_path_raises():
     ones = torch.ones(16, dtype=torch.int32)
     nxt, st = tm.decode_step(params, st, ones, torch.ones((16, 1), dtype=torch.int32), ones, small, T_SPEC)
     assert nxt.shape == (16,) and st.row == 1 and bool(st.hot[0].v_codes[:, :, 0].any())
-    with pytest.raises(NotImplementedError, match="K13"):
-        tm.quantize_lm_head(params, bits=4)
+    assert tm.quantize_lm_head(params, bits=4).lm_head.packed.dtype == torch.int8  # the W4A16 head (K13)
     from atom_tpu_torch.ops.reference import quantize_kv_asym
 
     gen = torch.Generator().manual_seed(0)
@@ -308,7 +307,7 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     assert len(names) > 25
     for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
-                "ops/prefill.py"):
+                "ops/prefill.py", "ops/gemm.py", "serving/baselines.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
