@@ -6,11 +6,16 @@ code[k, n]) * scale[g, n]``: signed 4-bit codes in 128-row groups, nibble
 planes as in K1, the per-group scale applied to each group's float32 partial
 sum.  It runs the W4A16 baseline stack's projections and the opt-in 4-bit
 lm_head.  The TPU kernel adds the scaled partial sums of ``KBLK = 8`` groups,
-then that block sum into the output; the plain version keeps that order, the
-CUDA kernel (``csrc/gemm_w4a16.cu``) sums each warp's groups and then the
-eight warps.  Every product (bf16 x 4-bit code) is exact in float32, so they
-differ only by the order of the float32 additions: within ``W4A16_RTOL`` of
-the largest output.
+then that block sum into the output; the plain version keeps that order.  The
+CUDA kernel (``csrc/gemm_w4a16.cu``, wgmma with the converted weights as the
+register operand) has two paths, chosen by :func:`w4a16_plan` from M: up to
+``SKINNY_MAX_M`` rows (decode, the head) a skinny path that splits the groups
+over the blocks of a thread block cluster and adds their partial tiles in rank
+order; above it (prefill) 128 x 128 tiles over all of K.  Both add the scaled
+group partials ``KBLK`` at a time, as the TPU kernel does.  Every product (bf16
+x 4-bit code) is exact in float32, so they differ only by the order of the
+float32 additions inside a group and, under a split, across its ranks: within
+``W4A16_RTOL`` of the largest output.
 
 ``w8a16_gemm`` (K5): ``out f32 [M, N] = (sum_k bf16(a[m, k]) * codes[k, n]) *
 scale[n]`` with float32 accumulation; the per-column scale multiplies once,
@@ -56,7 +61,12 @@ KBLK = 8  # groups whose scaled partial sums the TPU kernel adds before the outp
 # kernel vs plain version: |diff| <= W4A16_RTOL * max|out| (float32 sums of
 # exact products taken in another order)
 W4A16_RTOL = 1e-4
-_TN4 = 32  # output columns per CUDA block
+_TN4 = 32  # N is whole 32-column tiles
+SKINNY_MAX_M = 64  # rows up to which K13 takes the skinny split-K path
+_SKINNY_ROWS = (8, 16, 32, 64)  # activation rows of a skinny block (wgmma's N)
+_SMS = 132  # the H100's SMs: the skinny path's grid covers them where N allows
+_MAX_CLUSTER = 8  # blocks of a portable thread block cluster
+_TILE = 128  # the tile path's block tile, rows and columns; the skinny path's columns
 
 
 class W4A16Weight(NamedTuple):
@@ -92,10 +102,56 @@ def dequantize_w4a16(wq: W4A16Weight) -> torch.Tensor:
     return (codes * wq.scale[:, None, :]).reshape(ng * GROUP, -1)
 
 
+class W4A16Plan(NamedTuple):
+    """K13's launch for one shape, as the kernel takes it: blocks of
+    ``tile_m`` rows by 128 columns, ``split`` blocks per cluster, rank r
+    summing groups ``groups[r]`` (``range(g0, g1)``), grid ``(x, y)`` with
+    ``x = column tiles * split``."""
+
+    path: str  # "skinny" (M <= SKINNY_MAX_M: split K over a cluster) or "tile"
+    tile_m: int
+    split: int
+    groups: tuple
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def w4a16_plan(m: int, k: int, n: int) -> W4A16Plan:
+    """The launch K13 makes for a [m, k] x [k, n] product; raises on a shape
+    the kernel does not take (N not whole 32-column tiles, K not whole
+    groups).
+
+    Skinny path: the block holds all m rows (8, 16, 32 or 64, the fewest
+    that hold them) and 128 columns; the split is the smallest cluster (at
+    most 8 blocks, at most one per group) whose grid covers the 132 SMs, or
+    the largest where none does.  Tile path: 128 x 128 tiles over all of K."""
+    if n <= 0 or n % _TN4:
+        raise ValueError(f"w4a16_gemm: N={n} must be a positive multiple of {_TN4}")
+    if k <= 0 or k % GROUP:
+        raise ValueError(f"w4a16_gemm: K={k} must be a positive multiple of {GROUP}")
+    ng = k // GROUP
+    tiles = -(-n // _TILE)
+    if m > SKINNY_MAX_M:
+        return W4A16Plan("tile", _TILE, 1, ((0, ng),), (tiles, -(-m // _TILE)))
+    max_split = min(_MAX_CLUSTER, ng)
+    split = next((s for s in range(1, max_split + 1) if tiles * s >= _SMS), max_split)
+    groups = tuple((r * ng // split, (r + 1) * ng // split) for r in range(split))
+    rows = next(r for r in _SKINNY_ROWS if r >= m)
+    return W4A16Plan("skinny", rows, split, groups, (tiles * split, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _group_starts(groups: tuple) -> ctypes.Array:
+    """A plan's group ranges as the kernel takes them: rank r sums groups
+    ``[starts[r], starts[r + 1])``."""
+    starts = [g0 for g0, _ in groups] + [groups[-1][1]]
+    return (ctypes.c_int * len(starts))(*starts)
+
+
 @functools.cache
 def _kernel4():
     fn = _build.load("gemm_w4a16").atom_gemm_w4a16
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [ctypes.POINTER(ctypes.c_int)] + [_I] * 2 + [_P]
     fn.restype = _I
     return fn
 
@@ -111,6 +167,8 @@ def _activation_groups(a: torch.Tensor, wq: W4A16Weight, name: str) -> tuple[int
     ng = k // GROUP
     if wq.scale.shape[0] < ng:
         raise ValueError(f"{name}: the weight has {wq.scale.shape[0]} groups, the activation {ng}")
+    if wq.scale.shape[0] == ng:
+        return ng, wq
     return ng, W4A16Weight(wq.packed[: ng * HALF], wq.scale[:ng])
 
 
@@ -140,8 +198,7 @@ def w4a16_gemm(a: torch.Tensor, wq: W4A16Weight, out_dtype=torch.bfloat16) -> to
     m = a.shape[0]
     ng, wq = _activation_groups(a, wq, "w4a16_gemm")
     n = wq.packed.shape[1]
-    if n % _TN4:
-        raise ValueError(f"w4a16_gemm: N={n} must be a multiple of {_TN4}")
+    plan = w4a16_plan(m, ng * GROUP, n)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"w4a16_gemm: out_dtype {out_dtype} is neither bfloat16 nor float32")
     ab = a.to(torch.bfloat16).contiguous()
@@ -152,7 +209,8 @@ def w4a16_gemm(a: torch.Tensor, wq: W4A16Weight, out_dtype=torch.bfloat16) -> to
     if m:
         _build.check(
             _kernel4()(ab.data_ptr(), wq.packed.data_ptr(), wq.scale.data_ptr(), out.data_ptr(), m, n, ng,
-                       int(out_dtype == torch.bfloat16), _build.stream()),
+                       int(out_dtype == torch.bfloat16), plan.tile_m, plan.split, _group_starts(plan.groups),
+                       *plan.grid, _build.stream()),
             "w4a16_gemm",
         )
         w4a16_gemm.launches += 1

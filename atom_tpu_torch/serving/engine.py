@@ -17,8 +17,9 @@ prefill's (or a prompt's last chunk's) token before its time-to-first-token
 is stamped, on steps where a sequence finishes before ``finish_t`` is
 stamped, and once at the end.
 
-Not ported yet: LoRA serving and the native C++ scheduler; asking for them
-raises ``NotImplementedError``.
+Not ported yet: LoRA serving and the native C++ scheduler.  ``lora=True``
+and ``native=True`` raise ``NotImplementedError``; ``native="auto"`` ("use it
+if it builds", as in the JAX engine) takes the Python pool.
 """
 from __future__ import annotations
 
@@ -114,7 +115,11 @@ class TextGenEngine:
     ):
         if lora:
             raise NotImplementedError("LoRA serving (serving/lora.py) is a later slice of the port")
-        if native is not False:
+        # ``native``: True requires the C++ scheduler, "auto" uses it if it
+        # builds, anything false (False, None, 0) is the Python pool.  The port
+        # has no native scheduler yet, so "auto" takes the Python pool, which
+        # assigns pages in the same order and gives the same tables.
+        if native is True:
             raise NotImplementedError("the native C++ scheduler (atom_tpu/native) is a later slice of the port")
         self.cfg = cfg
         self.pool = pool

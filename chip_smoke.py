@@ -117,7 +117,10 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 class Timer:
     """Median CUDA-event time of one call, with the L2 cache flushed before
-    each timed call (the decode step finds every weight and page cold)."""
+    each timed call (the decode step finds every weight and page cold).
+    ``host_us`` keeps the median host time of the last timed function's call
+    (its wrapper's time to enqueue): where it passes the flush's time, the
+    event interval holds the excess."""
 
     def __init__(self, torch, dev):
         self.torch = torch
@@ -128,16 +131,19 @@ class Timer:
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
-        times = []
+        times, host = [], []
         for _ in range(n):
             self.l2.zero_()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
+            t = time.perf_counter()
             fn()
+            host.append(time.perf_counter() - t)
             e1.record()
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
+        self.host_us = statistics.median(host) * 1e6
         return statistics.median(times)
 
 
@@ -704,10 +710,12 @@ def check_slice4_kernels(torch, dev, timer, gen) -> dict:
 
     # --- K13 w4a16_gemm: within W4A16_RTOL of the largest output; the bf16 output is the float32 one rounded once
     def k13_case(m, shapes, out_dtype, time_it=True, library=False):
-        row = dict(max_abs_err=0.0, **(dict(ms=0.0, plain_ms=0.0) if time_it else {}))
+        row = dict(max_abs_err=0.0, **(dict(ms=0.0, host_us=0.0, plain_ms=0.0) if time_it else {}))
         if library:
-            row["library_ms"] = 0.0
+            row["library_ms"] = row["library_host_us"] = 0.0
         nbytes = ops = 0
+        plans = [gw.w4a16_plan(m, k, n) for k, n in shapes]
+        row["plan"] = sorted({f"{p.path} {p.tile_m}x128 split {p.split}" for p in plans})
         for k, n in shapes:
             a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             wq = gw.W4A16Weight(randint(-128, 128, (k // 2, n)), uniform(0.001, 0.02, (k // 128, n)))
@@ -719,12 +727,14 @@ def check_slice4_kernels(torch, dev, timer, gen) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if time_it:
                 row["ms"] += timer(lambda: gw.w4a16_gemm(a, wq, out_dtype=out_dtype), n=10 if m > 32 else 25)
+                row["host_us"] += timer.host_us
                 row["plain_ms"] += timer(lambda: gw.w4a16_gemm_plain(a, wq, out_dtype), n=3, warm=1)
             if library:
                 # no one PyTorch call multiplies bf16 by int4 with group scales: the bf16 product of the
                 # dequantized weight stands beside it for scale; it reads four times the weight bytes
                 wd = gw.dequantize_w4a16(wq).to(torch.bfloat16)
                 row["library_ms"] += timer(lambda: torch.mm(a, wd), n=10 if m > 32 else 25)
+                row["library_host_us"] += timer.host_us
                 del wd
             nbytes += 2 * a.numel() + wq.packed.numel() + 4 * wq.scale.numel() + m * n * (2 if out_dtype == torch.bfloat16 else 4)
             ops += 2 * m * n * k
@@ -739,13 +749,22 @@ def check_slice4_kernels(torch, dev, timer, gen) -> dict:
            "head_m32": k13_case(BATCH, [(HID, HEAD_N)], torch.float32, library=True),
            "head_m1": k13_case(1, [(HID, HEAD_N)], torch.float32),
            "m100_k384_n224": k13_case(100, [(384, 224)], torch.float32, time_it=False)}
+    # both paths and the switch between them (64 / 65 rows), every skinny block
+    # height (8, 16, 32, 64 rows), the largest prefill bucket, N off the 128-column tile
+    for m, k, n in ((1, HID, HID), (13, HID, HID), (64, HID, HID), (64, HID, inter_p), (65, HID, HID),
+                    (512, HID, inter_p), (48, 640, 160), (BATCH, 1024, HID + 32)):
+        k13[f"m{m}_k{k}_n{n}"] = k13_case(m, [(k, n)], torch.float32, time_it=False)
+    require(k13["m64_k4096_n4096"]["plan"][0].startswith("skinny") and k13["m65_k4096_n4096"]["plan"][0].startswith("tile"),
+            "w4a16_gemm: 64 and 65 rows must take different paths")
     log(f"w4a16_gemm checks: {k13}")
     first = k13.pop("decode_layer")
     res["w4a16_gemm"] = dict(
         first, shape="the W4A16 stack's layer at M=32: q/k/v/o [4096,4096] x4 + gate/up [4096,11264] x2 + down "
         "[11264,4096], bf16 out, times summed; prefill_1024: [1024,4096]x[4096,11264]; head_m32 / head_m1: [32 or 1, 4096] "
-        "x [4096,32256], f32 out; m100_k384_n224: rows and columns off the tiles",
+        "x [4096,32256], f32 out; m100_k384_n224: rows and columns off the tiles; m{M}_k{K}_n{N}: untimed checks of "
+        "both paths and their boundary (M 1, 13, 48, 64, 65, 512; N off the column tile)",
         library_note="torch.mm of the dequantized bf16 weight (four times the weight bytes); no one call does bf16 x int4",
+        host_note="host_us / library_host_us: the wrapper's / torch.mm's median host time to enqueue one call, summed as ms",
         tolerance=f"|diff| <= {gw.W4A16_RTOL} x max|out| (float32 sums in another order); bf16 out = float32 out rounded once",
         **{f"{case}_{k_}": v_ for case, r in k13.items() for k_, v_ in r.items()})
     torch.cuda.empty_cache()

@@ -201,7 +201,7 @@ def test_engine_error_paths(tiny_params):
         engine2.run(RequestSet(prompt_lens, output_lens, prompts))
 
     fns = tm.make_step_fns(tiny_params[1], TTINY, TSPEC)
-    for kwargs, what in ((dict(lora=True), "LoRA"), (dict(native=True), "native"), (dict(native="auto"), "native")):
+    for kwargs, what in ((dict(lora=True), "LoRA"), (dict(native=True), "native")):
         with pytest.raises(NotImplementedError, match=what):
             TextGenEngine(engine.cfg, pool, *fns, engine.state, **kwargs)
 
@@ -219,6 +219,44 @@ def test_engine_error_paths(tiny_params):
     assert res["requests"] == 2 and res["output_tokens"] == int(output_lens.sum())
     assert [c[0] for c in calls] == [0, 0] and [c[2] for c in calls] == [0, 1] and mixed.last_prefill_s == []
     assert res["mixed_steps"] == 1 and pool3.num_free_pages == 23
+
+
+def _serve_recording_tables(tparams, **kwargs):
+    """Serve the tiny workload; return the tokens, the prefills' table rows and
+    the decode steps' tables and lengths, and the pool's free pages after."""
+    pool = KvPool(TTINY.num_layers, 24, TTINY.num_kv_heads, PAGE, TTINY.head_dim)
+    state = tm.make_serving_state(TTINY.num_layers, 24, 2, TTINY.num_kv_heads, PAGE, TTINY.head_dim, device="cpu")
+    cfg = TextGenConfig(batch_size=2, page_size=PAGE, max_seq_len=512, prefill_buckets=(64, 128))
+    prefill, decode = tm.make_step_fns(tparams, TTINY, TSPEC)
+    tables = []
+
+    def rec_prefill(state, ids, table_row, true_len, slot):
+        tables.append(("prefill", slot, table_row.numpy().copy()))
+        return prefill(state, ids, table_row, true_len, slot)
+
+    def rec_decode(state, ids, page_table, seq_lens):
+        tables.append(("decode", page_table.numpy().copy(), seq_lens.numpy().copy()))
+        return decode(state, ids, page_table, seq_lens)
+
+    engine = TextGenEngine(cfg, pool, rec_prefill, rec_decode, state, **kwargs)
+    res = engine.run(RequestSet(*_workload(3, 4, TTINY.vocab_size)), record=True)
+    return res["tokens"], tables, pool.num_free_pages
+
+
+@pytest.mark.parametrize("native", ["auto", None, 0], ids=["auto", "None", "0"])
+def test_engine_native_auto_or_off_serves_through_python_pool(tiny_params, native):
+    """``native="auto"`` means "use the C++ scheduler if it builds"; the port
+    has none yet, so it serves through the Python pool, as ``None`` and ``0``
+    (false, as the JAX engine tests them) do: the same tokens, the same page
+    tables and lengths at every step, every page returned."""
+    want_tokens, want_tables, want_free = _serve_recording_tables(tiny_params[1], native=False)
+    got_tokens, got_tables, got_free = _serve_recording_tables(tiny_params[1], native=native)
+    assert got_tokens == want_tokens and got_free == want_free == 23
+    assert len(got_tables) == len(want_tables) and any(t[0] == "decode" for t in got_tables)
+    for got, want in zip(got_tables, want_tables):
+        assert got[0] == want[0]
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_late_joining_sequence_flush_correctness(tiny_params):
