@@ -13,6 +13,9 @@ the mixed prefill+decode step calls it for the decode rows and, with all of a
 prompt chunk's queries folded into the query-head axis, for the chunk's
 page-resident prefix.  All launch ``csrc/decode.cu`` on CUDA tensors and run
 their plain versions on CPU tensors.
+
+K3 runs one block per (sequence, kv head): an online softmax over the ring,
+then the sequence's pages, streamed through shared memory.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
 
 _NEG_INF = -1e30
 _GMAX = 8  # query heads per kv head the kernel takes
+_CHUNK_LANES = (16, 512)  # K3's page size and ring width: powers of two in this range
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -105,6 +109,24 @@ def paged_ring_decode_attention_plain(q, pages: KVPages, page_table, seq_lens, h
     return out.reshape(b, hq, d).to(torch.bfloat16)
 
 
+def _pow2_lanes(x: int) -> bool:
+    return _CHUNK_LANES[0] <= x <= _CHUNK_LANES[1] and x & (x - 1) == 0
+
+
+def check_ring_decode_shape(window: int, page_size: int, q_heads: int, kv_heads: int) -> None:
+    """Raises on a shape K3 does not take: page size and ring width powers of
+    two in [16, 512], at most 8 query heads per kv head."""
+    if not (_pow2_lanes(page_size) and _pow2_lanes(window)):
+        raise ValueError(
+            f"paged_ring_decode_attention: page size {page_size} and ring width {window} must be powers "
+            f"of two in [{_CHUNK_LANES[0]}, {_CHUNK_LANES[1]}]"
+        )
+    if kv_heads < 1 or q_heads % kv_heads or q_heads // kv_heads > _GMAX:
+        raise ValueError(
+            f"paged_ring_decode_attention: needs at most {_GMAX} query heads per kv head, got HQ={q_heads}, H={kv_heads}"
+        )
+
+
 def paged_ring_decode_attention(
     q: torch.Tensor,  # bf16 [B, HQ, D] — RoPE'd, kv-head-major
     pages: KVPages,  # K pages hold post-RoPE codes
@@ -120,18 +142,17 @@ def paged_ring_decode_attention(
         return paged_ring_decode_attention_plain(q, pages, page_table, seq_lens, hot, n_hot, row)
     b, hq, d = q.shape
     h, s, w = pages.kv_heads, pages.page_size, hot.window
-    if d != 128 or hq % h or hq // h > _GMAX or s % 2:
-        raise ValueError(
-            f"paged_ring_decode_attention: needs head_dim 128 and at most {_GMAX} query heads "
-            f"per kv head, got D={d}, HQ={hq}, H={h}"
-        )
+    if d != 128:
+        raise ValueError(f"paged_ring_decode_attention: needs head_dim 128, got D={d}")
+    max_pages = page_table.shape[1]
+    check_ring_decode_shape(w, s, hq, h)
     if not 0 <= row < w:
         raise ValueError(f"ring row {row} outside [0, {w})")
     check_kernel_input(q, "q", torch.bfloat16)
     check_kernel_input(pages.k_pages, "k_pages", torch.int8)
     check_kernel_input(pages.params, "params", torch.bfloat16)
     check_kernel_input(pages.v_pages, "v_pages", torch.int8)
-    check_kernel_input(page_table, "page_table", torch.int32)
+    check_kernel_input(page_table, "page_table", torch.int32, (b, max_pages))
     check_kernel_input(seq_lens, "seq_lens", torch.int32, (b,))
     check_kernel_input(hot.k_codes, "ring k", torch.int8, (b, h, d // 2, w))
     check_kernel_input(hot.prm, "ring prm", torch.bfloat16, (b, 4, h, w))
@@ -143,7 +164,7 @@ def paged_ring_decode_attention(
             q.data_ptr(), pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), hot.k_codes.data_ptr(), hot.prm.data_ptr(),
             hot.v_codes.data_ptr(), n_hot.data_ptr(), out.data_ptr(),
-            b, hq, h, s, w, page_table.shape[1], row, 1.0 / math.sqrt(d), _build.stream(),
+            b, hq, h, s, w, max_pages, row, 1.0 / math.sqrt(d), _build.stream(),
         ),
         "paged_ring_decode_attention",
     )

@@ -223,6 +223,11 @@ def check_kernels(torch, dev) -> dict:
     ids = randint(0, v, (BATCH,), torch.int32)
     got, want = misc.embed_gather(embed, ids), misc.embed_gather_plain(embed, ids)
     require(torch.equal(bits(got), bits(want)), "embed_gather differs from its plain version")
+    # the first and last rows and ids out of range, which clamp into [0, V)
+    edge = torch.tensor([0, v - 1, -1, -(2**31), v, v + 7, 2**31 - 1], dtype=torch.int32, device=dev)
+    edge_ids = torch.cat([edge, ids[: BATCH - edge.numel()]])
+    require(torch.equal(bits(misc.embed_gather(embed, edge_ids)), bits(misc.embed_gather_plain(embed, edge_ids))),
+            "embed_gather differs from its plain version on the first and last rows or the clamp")
     b_ms, b_by = bound(2 * BATCH * d * 2 + BATCH * 4, 0, PEAK_F32_OPS)
     res["embed_gather"] = dict(
         max_abs_err=0.0,
@@ -230,7 +235,12 @@ def check_kernels(torch, dev) -> dict:
         plain_ms=timer(lambda: misc.embed_gather_plain(embed, ids)),
         library_ms=timer(lambda: F.embedding(ids, embed)),
         bound_ms=b_ms, bound_by=b_by, shape="embed [32000, 4096] bf16, ids [32]",
+        checked="random ids; ids 0, V-1, -1, -2^31, V, V+7, 2^31-1 (clamped) beside random ones: bitwise",
     )
+    # a second reading beside ms / library_ms: kernel, library, library, kernel
+    res["embed_gather"]["ms_kernel_library_library_kernel"] = [
+        timer(lambda: misc.embed_gather(embed, ids)), timer(lambda: F.embedding(ids, embed)),
+        timer(lambda: F.embedding(ids, embed)), timer(lambda: misc.embed_gather(embed, ids))]
 
     # --- K1 packed_w4_gemm at o_proj, gate/up and down: same f32 order -> rtol 1e-5
     k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -398,7 +408,9 @@ def check_kernels(torch, dev) -> dict:
     torch.cuda.empty_cache()
 
     # --- K3 paged_ring_decode_attention: MHA at 7B, GQA (8 q heads per kv
-    # head), a ring-only and a pages-only case, within ATTN_TOL
+    # head), a ring-only and a pages-only case, idle rows, one long sequence,
+    # the engine's 1,024 tokens, the main shape in a wider table, within
+    # ATTN_TOL; each launched twice: bitwise
     n_hot = randint(1, w + 1, (BATCH,), torch.int32)
     flushed = (CTX - n_hot).to(torch.int32)  # last pages partly filled
     none = torch.zeros_like(n_hot)
@@ -410,6 +422,10 @@ def check_kernels(torch, dev) -> dict:
         "idle_rows": (h, h, torch.where(idle_slots(torch, dev), none, flushed), torch.where(idle_slots(torch, dev), none, n_hot)),
         # the engine's tail: one long sequence alive among idle slots (context 2048 over 8 pages)
         "lone_2048": (h, h, torch.where(first, 2048 - w, none), torch.where(first, w, none), 8),
+        # the engine cell's longest sequences: 1,024 tokens over 4 pages and the ring
+        "ctx_1024": (h, h, (4 * PAGE - n_hot).to(torch.int32), n_hot),
+        # the main shape in a table of 8 columns (the engine's default max_seq_len of 2048)
+        "mha_8_columns": (h, h, flushed, n_hot, 8),
     }
     k3 = {}
     for case, (hq, hkv, fl_, nh_, *pages_per_seq) in cases.items():
@@ -417,13 +433,16 @@ def check_kernels(torch, dev) -> dict:
         q, table = args[0], args[2]
         got, want = dec.paged_ring_decode_attention(*args), dec.paged_ring_decode_attention_plain(*args)
         torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL, msg=f"attention {case}")
+        # one launch, no atomics: a second launch on the same inputs is bitwise the first
+        require(torch.equal(bits(dec.paged_ring_decode_attention(*args)), bits(got)),
+                f"attention {case}: two launches on the same inputs differ")
         k3[case] = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                         mean_abs_out=want.float().abs().mean().item())
         if case == "idle_rows":
             idle = idle_slots(torch, dev)
             require(bool(torch.isfinite(got.float()).all()) and not bool(got[idle].any()),
                     "attention of idle rows is not a finite zero row")
-        if case in ("mha", "gqa_64q_8kv", "lone_2048"):
+        if case in ("mha", "gqa_64q_8kv", "lone_2048", "ctx_1024", "mha_8_columns"):
             tokens = (fl_ + nh_).sum().item()
             nbytes = tokens * hkv * (128 + 8) + 2 * q.numel() * 2 + table.numel() * 4 + 2 * BATCH * 4
             b_ms, b_by = bound(nbytes, 4 * hq * 128 * tokens, PEAK_BF16_OPS)
@@ -916,6 +935,10 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     require(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), "next ids out of range")
     require(bool(torch.isfinite(x.float()).all()), "hidden states not finite")
     require(bool((lens == CTX + 64).all()), "sequence lengths did not advance by 64")
+    steps = 2 * state.hot[0].window + 1
+    require(counts["paged_ring_decode_attention"] == steps * cfg.num_layers,
+            f"K3 launched {counts['paged_ring_decode_attention']} times in {steps} steps of {cfg.num_layers} layers, "
+            "not once per layer")
 
     def timed(p, n):
         nonlocal state, ids
@@ -951,12 +974,15 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     t_window = time.perf_counter() - t
-    device_ms, kernels = profile_decode(torch, qparams, state, ids, table, full, cfg, ATOM_W4A4, w, profile_file)
+    device_ms, kernels, k3_per_step = profile_decode(torch, qparams, state, ids, table, full, cfg, ATOM_W4A4, w,
+                                                     profile_file)
+    require(k3_per_step == cfg.num_layers, f"the profiler saw {k3_per_step} K3 kernels per step, not one per layer")
     first = stats[heads[0][0]]
     step_ms = first["step_ms"]
     first.update(
         host_enqueue_ms_per_step=t_enqueue / w * 1e3, window_ms_per_step=t_window / w * 1e3,
         device_ms_per_step_profiled=device_ms, device_busy_share=device_ms / step_ms, device_kernels_per_step=kernels,
+        k3_kernels_per_step=k3_per_step,
     )
     log(f"step {step_ms:.3f} ms ({heads[0][0]} head): host enqueue {t_enqueue / w * 1e3:.3f} ms, device {device_ms:.3f} ms "
         f"(busy share {device_ms / step_ms:.3f}), {kernels:.0f} kernels")
@@ -1431,9 +1457,12 @@ def w4a16_stack_vs_plain(torch, dev) -> dict:
     return res
 
 
-def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple[float, float]:
+K3_KERNEL = "paged_ring_stream_kernel"  # K3's CUDA kernel, as the profiler names it
+
+
+def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple[float, float, float]:
     """One profiled ring window: device time by kernel, written to
-    chiprun_out/``out_file``; returns device ms and kernels per decode step.  (The
+    chiprun_out/``out_file``; returns device ms, kernels and K3 kernels per decode step.  (The
     profiler's own host cost stretches the window's wall time, so the busy
     share is taken against the unprofiled step time.)"""
     from torch.profiler import ProfilerActivity, profile
@@ -1458,8 +1487,9 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
         f"one window of {w} steps: wall {wall_us:.0f} us (profiler on), device {dev_us:.0f} us, "
         f"{n_kernels} device kernels\n{table_txt}\n")
     require(dev_us > 0, "the profiler recorded no device time")
-    log(f"profiled window: {n_kernels / w:.0f} device kernels per step")
-    return dev_us / w / 1e3, n_kernels / w
+    k3 = sum(e.count for e in kernels if K3_KERNEL in e.key)
+    log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3")
+    return dev_us / w / 1e3, n_kernels / w, k3 / w
 
 
 @contextlib.contextmanager
