@@ -13,54 +13,108 @@
 // K7 replaces :792 packed_w4_gemm_qkv (_gemm_qkv_kernel :701) and K8 :1196
 // packed_w4_gemm_qkv_ring (_gemm_qkv_ring_kernel :1049).
 //
+// The float32 order (every kernel here, and the plain versions): each group's
+// int32 dot is exact; its term is fmul(fmul(float(dot), sa), sw).  Up to 112
+// body groups (KBLK_THRESHOLD, the TPU kernel's _KBLK_THRESHOLD) one chain per
+// output element adds the terms group by group from 0, the keeper's last.
+// Above it (the 30B / 70B MLP down projections) the TPU kernel's K-blocked
+// order: partial chains of 16 groups (KBLK_G), each added to the output in
+// turn, and at the last block the keeper's term before that block's partial.
+// The files build with --fmad=false and the float math uses _rn intrinsics,
+// so nothing is contracted and the results equal the plain versions bit for bit.
+//
 // What bounds them on the H100: at decode M = 32 the product is 32 x K x N int8
 // MACs against K*N/2 bytes of 4-bit weights, 64 MACs per weight byte, far below
 // the ~590 int8 ops per byte where the tensor cores become the limit: the
-// weight stream from HBM bounds every call.
+// weight stream from HBM (plus the weight scales, K/128 x N x 4 bytes) bounds
+// every decode call.  At prefill (M up to 1024) the int8 tensor-core rate does.
 //
-// Design.  A block owns a 32-row x 32-column output tile and walks all of K.
-// Its 8 warps take the 128-wide groups round-robin (warp w: groups w, w+8, ...)
-// so 8 groups' weight loads are in flight per block.  Each warp computes a
-// group's exact int32 dot with mma.sync m16n8k32 (s8 x s8 -> s32): a thread
-// loads 4 byte-rows x 4 columns of nibble planes as four 32-bit words,
-// transposes them with byte permutes so one register holds one column's
-// 4 consecutive K codes, and masks each nibble plane into the high nibble of
-// its byte (the byte then reads as 16 x the signed code; the int32 sum is
-// shifted back down by 4, exactly).  The low nibbles of a byte row are K
-// codes r, the high nibbles K codes r + 64 (formats.py nibble planes), so the
-// mma's K index j < 16 maps to code s*16 + j and j >= 16 to 64 + s*16 + j-16;
-// the A fragment is read with the same permutation.  The int32 group tiles go
-// through shared memory and the float accumulation then runs group by group
-// in order, acc += float(acc_g) * sa * sw, keeper last: the TPU kernel's f32
-// order, so the result matches the plain version bit for bit.  The file is
-// built with --fmad=false and the float math uses _rn intrinsics, so no
-// multiply-add is contracted.
+// The decode core (M <= 64; ops/gemm_packed.py::packed_w4_plan picks the
+// launch and the kernel takes it as it is).  A block owns tile_m (16, 32 or
+// 64) rows x tile_n (32, 64 or 128) columns and walks all of K: the float
+// chain forbids a split of K at <= 112 groups, so the parallelism is the
+// column tiles (64 columns: N 4096 gives 64) and, where those leave SMs idle,
+// row tiles of 16 that read the same weights (the second read mostly from L2).
+// Warp 0 is the producer: one lane keeps a ring of `stages` (4) group slots in
+// flight.  A slot holds a group's weight planes (one TMA box of 64 byte rows x
+// tile_n, with TMA's 64- or 128-byte swizzle at those widths), its activation
+// tile (tile_m x 128 int8, TMA with a 128-byte swizzle; rows past M read as
+// zeros) and its weight scale row (bulk copy), and completes on a `full`
+// mbarrier by its bytes; the consumers release it on an `empty` one.  The
+// keeper takes two slots (its 128 int8 rows), its activation tile in the
+// first.  While the ring fills, the consumers stage the block rows'
+// activation scales (at most 22 KB at M = 64 and 86 groups).
+//
+// The consumer warps each own 16 weight columns x the block's rows for the
+// whole of K and keep their float chains in registers: no merge through
+// shared memory and no block barrier per group.  A warp issues group j + 1's
+// loads and products before group j's float chain (software pipelining).  The
+// int32 dot runs on the tensor cores as mma.sync m16n8k32 s8 of
+// out^T = W^T . a^T: the weights are the A operand (the mma's 16 rows are the
+// warp's columns, 2*gid and 2*gid + 1 as its rows gid and gid + 8), the
+// activation rows the B operand (8 per mma), read with ldmatrix from the
+// swizzled tile in their natural order.  mma.sync rather than wgmma: a warp
+// owning its 16 columns keeps its accumulators, and its float chain, to itself
+// across every group, and at 64 MACs per weight byte the instruction's rate
+// does not bound the call.  The k-steps of a group follow the nibble planes:
+// byte row r holds code r in its low nibble and code r + 64 in its high one,
+// so 32 byte rows of one plane are 32 consecutive codes and the activation
+// chunk is read as it lies.  A lane reads its 2 columns (16 bits) from 4 byte
+// rows; the 4 lanes of a column read the rows in an order rotated by their
+// index, so each load of the warp hits 16 distinct banks (with the swizzle at
+// 64 and 128 columns), and two byte permutes with selectors that undo the
+// rotation give the 4 rows of each column as one word.  Low plane:
+// (x << 4) & 0xF0F0F0F0, high plane: x & 0xF0F0F0F0, each byte 16 x the
+// signed code; the 1/16 is folded into the staged activation scales of the
+// body groups (a power of two: the term's rounding is unchanged).  The
+// keeper's int8 rows go in unmasked.  float(dot) is two full-rate
+// instructions (small_int_to_float), exact below 2^22.
+//
+// Measured and left out (PERF.md section 6): activation tiles multicast over a
+// cluster of 2 or 4 column tiles (slower: the cluster's blocks wait on each
+// other's slots), cp.async copies by one or more producer warps, a 16-column
+// weight box per consumer warp, deeper rings (3 to 35 slots read within a
+// few per cent), and a split of K over a cluster of 2-8 blocks a column tile
+// whose float chain is handed on in order through distributed shared memory
+// (bitwise, but slower at every split: the extra blocks on an SM do not raise
+// its rate and each handoff adds latency).
+//
+// Known limits (later work): at N = 4096 the grid has ~one block an SM and
+// each block's ring delivers a slot every ~0.3-0.5 us whatever its depth or
+// width, so o_proj and down run at 5-6x their byte bound; the weight
+// fragments are rebuilt by every warp (8 loads, 8 permutes and 12 masks a
+// group per 16 columns) and each element's float chain is 5 instructions a
+// group; s4 x s4 mma on activations packed in the nibble-plane order would
+// halve the products and drop the masks.
+//
+// M > 64 (prefill, the mixed step) keeps the 32 x 32 tile kernel: a block
+// owns a 32-row x 32-column tile, its 8 warps take the groups round-robin and
+// compute each group's int32 tile with mma.sync (4 x 4 bytes of nibble planes
+// transposed per load, A the activations), the tiles go through shared memory
+// and the float chain runs over them 8 groups at a time.  Every 32-row tile
+// re-reads the weights (from L2 where they fit) and A from L2 with 4-byte
+// loads.  Redesigning it is later work (K7's).
 //
 // The int8 operand loads, the s8 mma and its byte transposes, the keeper's
 // int32 group dot and the per-head u4 quantizer live in int8_mma.cuh, shared
 // with the grouped int8 GEMMs (K14, gemm_int8.cu).
 //
-// Known limits (later work): every block re-reads A (32 x K bytes, from L2)
-// for its 32 columns, twice the bytes of its weight slice; there is no
-// shared-memory staging, cp.async or wgmma yet.
-//
-// K2 runs as three launches on one stream: the RMSNorm + dual-path
-// quantization prologue (one block per token row, since every output tile
-// needs the whole quantized row), the GEMM above into an f32 [M, N] scratch,
-// and the epilogue (one block per row and 128-column head: RoPE on q and k,
-// per-head asymmetric u4 quantization of post-RoPE K and of V, in-place ring
-// stores at column `row`).  The per-head reductions span 128 columns, wider
-// than a GEMM tile, hence the second pass.  K8 is K2 without its prologue: the
-// caller hands in the quantized activation.  K7 is the GEMM followed by an
-// epilogue with the same per-head arithmetic (one __device__ function serves
-// both epilogues) that writes one byte per code and float32 params, the layout
-// prefill appends to the pages from; at prefill M is the prompt bucket (up to
-// 1024 rows), every 32-row tile re-reads the weights (from L2 where they fit)
-// and the f32 [M, N] scratch is 50 MB at M 1024, N 12288: the product is then
-// bound by the int8 tensor-core rate, not bytes.  The TPU kernels pad M to
-// their tile; these guard row < M instead.  NaN note: the TPU kernel's bf16
-// rounding is integer bit math that turns a NaN into Inf; here
-// __float2bfloat16_rn keeps NaN.
+// K2 runs as two launches on one stream: the RMSNorm + dual-path quantization
+// prologue (every output tile needs the whole quantized row, so it finishes
+// before any GEMM block starts), then the core with the ring epilogue: a block
+// owns one 128-column head (tile_n 128, 8 consumer warps, at most 32 rows a
+// block), so the RoPE pairs (d, d +- 64) and the per-head max / min are in
+// its shared memory; its f32 tile goes there beside the rows' cos and sin
+// (staged while the ring fills), and a warp per row rotates q and k in f32,
+// quantizes post-RoPE K and V per head (asymmetric u4: ops/reference.py
+// quantize_kv_asym) and writes q in bf16 and ring column `row` in place.  K8
+// is the same kernel on the caller's quantized activation.  K7 is the tile
+// kernel into an f32 [M, N] scratch, then an epilogue with the same per-head
+// arithmetic (head_rope_quant, a block per row and head) that writes one byte
+// per code and float32 params, the layout prefill appends to the pages from.
+// The TPU kernels pad M to their tile; these guard row < M instead.  NaN note:
+// the TPU kernel's bf16 rounding is integer bit math that turns a NaN into
+// Inf; here __float2bfloat16_rn keeps NaN.
 //
 // K9 replaces :540 packed_w4_gemm_fused_in (_gemm_fused_in_kernel :494,
 // _quant_prologue :438): two launches, the prologue above (its norm optional;
@@ -82,9 +136,11 @@
 // scratch (2.8 MB at 7B), act codes and scales stay in L2 between launches.
 // SiLU is x / (1 + expf(-x)) with IEEE division, the formula of PyTorch's CUDA
 // silu, so the act codes equal the plain version's.  Bound: the two weight
-// streams (gate/up 45 MB + down 22.5 MB at 7B): memory.  Later work: fold
-// (3) into (2)'s epilogue with a 128-column tile.
+// streams (gate/up 45 MB + down 22.5 MB at 7B): memory.  K9's and K10's GEMMs
+// run on the core at M <= 64 and on the tile kernel above.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,11 +151,54 @@ namespace {
 
 constexpr int GROUP = 128;
 constexpr int HALF = 64;
-constexpr int TM = 32;     // output rows per block
-constexpr int TN = 32;     // output columns per block
-constexpr int NWARP = 8;   // warps per block
-constexpr int TS = TN + 1; // shared tile row stride (no bank conflicts)
-constexpr int HEAD = 128;  // head_dim of the qkv epilogue
+constexpr int TM = 32;     // tile kernel: output rows per block
+constexpr int TN = 32;     // tile kernel: output columns per block
+constexpr int NWARP = 8;   // tile kernel: warps per block
+constexpr int TS = TN + 1; // tile kernel: shared tile row stride (no bank conflicts)
+constexpr int HEAD = 128;  // head_dim of the qkv epilogues
+constexpr int KBLK_THRESHOLD = 112;  // body groups above which the sum is K-blocked
+constexpr int KBLK_G = 16;           // groups of a K-blocked partial
+constexpr int MAX_CONSUMERS = 8;     // core: consumer warps of a block
+constexpr int HT = HEAD + 4;         // core: row stride of the head epilogue's f32 tile
+
+// Epilogues of the GEMM: the f32 product (K1, the tile kernel's qkv scratch);
+// bf16(resid + bf16(acc)), resid optional (K9, K10); bf16(resid + row_scale *
+// acc) (K10 with a per-row output scale); the head ring epilogue (K2, K8: core only).
+enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3 };
+
+// One output element's running sum in the TPU kernel's order (see the note):
+// add(t) per body group, keeper(t) once at the end.
+struct Chain {
+  float out = 0.f, part = 0.f;
+  __device__ __forceinline__ void add(float t, bool kblk) {
+    if (kblk)
+      part = __fadd_rn(part, t);
+    else
+      out = __fadd_rn(out, t);
+  }
+  __device__ __forceinline__ void block_end() {  // a K-blocked partial that is not the last
+    out = __fadd_rn(out, part);
+    part = 0.f;
+  }
+  __device__ __forceinline__ void keeper(float t, bool kblk) {
+    out = __fadd_rn(out, t);
+    if (kblk) out = __fadd_rn(out, part);
+  }
+};
+
+__device__ __forceinline__ float group_term(int dot, float s_a, float s_w) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(dot), s_a), s_w);
+}
+
+__device__ __forceinline__ float epi_value(int epi, float acc, const __nv_bfloat16* resid,
+                                           const float* row_scale, size_t o, int row) {
+  if (epi == EPI_RESID) return resid != nullptr ? __fadd_rn(__bfloat162float(resid[o]), bf16_round(acc)) : acc;
+  return __fadd_rn(__bfloat162float(resid[o]), __fmul_rn(row_scale[row], acc));
+}
+
+// ---------------------------------------------------------------------------
+// The tile kernel (M > 64)
+// ---------------------------------------------------------------------------
 
 // One warp: 16 x (int32 dot) of nibble group g, rows [m0, m0+32), cols [n0, n0+32).
 __device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M, int m0,
@@ -136,12 +235,7 @@ __device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M
   }
 }
 
-// Epilogues of the GEMM: the f32 product (K1 and the qkv kernels' scratch);
-// bf16(resid + bf16(acc)), resid optional (K9, K10); bf16(resid + row_scale *
-// acc) (K10 with a per-row output scale).
-enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2 };
-
-template <int EPI>
+template <int EPI, bool KBLK>
 __global__ void __launch_bounds__(NWARP * 32)
 gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
                    const int8_t* __restrict__ wk, const float* __restrict__ sa,
@@ -157,7 +251,7 @@ gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
   // this thread's 4 output elements: row er, columns ec .. ec + 3
   const int er = threadIdx.x / (TN / 4), ec = (threadIdx.x % (TN / 4)) * 4;
   const int row = m0 + er;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  Chain acc[4];
 
   for (int base = 0; base < total; base += NWARP) {
     const int g = base + warp;
@@ -193,8 +287,15 @@ gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
       const float* s_w = sw + (size_t)gg * N + n0 + ec;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float t = __fmul_rn(__fmul_rn(__int2float_rn(tile[q][er * TS + ec + j]), s_a), s_w[j]);
-        acc[j] = __fadd_rn(acc[j], t);
+        const float t = group_term(tile[q][er * TS + ec + j], s_a, s_w[j]);
+        if (!KBLK) {
+          acc[j].out = __fadd_rn(acc[j].out, t);
+        } else if (gg == ng) {
+          acc[j].keeper(t, true);
+        } else {
+          acc[j].add(t, true);
+          if ((gg + 1) % KBLK_G == 0 && gg + 1 < ng) acc[j].block_end();
+        }
       }
     }
     __syncthreads();
@@ -202,21 +303,419 @@ gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
   if (row >= M) return;
   const size_t o = (size_t)row * N + n0 + ec;
   if (EPI == EPI_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+        make_float4(acc[0].out, acc[1].out, acc[2].out, acc[3].out);
     return;
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float v = acc[j];
-    if (EPI == EPI_RESID) {
-      if (resid != nullptr) v = __fadd_rn(__bfloat162float(resid[o + j]), bf16_round(v));
-    } else {
-      v = __fadd_rn(__bfloat162float(resid[o + j]), __fmul_rn(row_scale[row], v));
-    }
-    ob[j] = __float2bfloat16_rn(v);
+  for (int j = 0; j < 4; ++j) ob[j] = __float2bfloat16_rn(epi_value(EPI, acc[j].out, resid, row_scale, o + j, row));
+}
+
+// ---------------------------------------------------------------------------
+// The decode core (M <= 64, and the ring epilogue at any M)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of parity `phase`; traps after ~2^34 cycles (seconds)
+// rather than hang the card if a slot never completes.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  const unsigned a = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(phase) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
   }
 }
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// A 2D box of the tensor map at (x, y) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm, int x, int y, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+               ::"r"(smem_u32(dst)), "l"((uint64_t)tm), "r"(x), "r"(y), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// Columns c and c + 1 of 4 byte rows of a weight slot, each column's 4 rows
+// as one word in row order: u[i] is the 16-bit load at off[i], the row
+// 4*tig + ((i + tig) & 3) of a 4-row step (so the 4 lanes of a column hit 4
+// banks); sel0 / sel1 undo the rotation while they transpose.
+__device__ __forceinline__ void load_cols(const unsigned char* w, const uint32_t (&off)[4], uint32_t sel0,
+                                          uint32_t sel1, uint32_t& t0, uint32_t& t1) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u[i] = *reinterpret_cast<const uint16_t*>(w + off[i]);
+  const uint32_t x = __byte_perm(u[0], u[1], 0x5410), y = __byte_perm(u[2], u[3], 0x5410);
+  t0 = __byte_perm(x, y, sel0);
+  t1 = __byte_perm(x, y, sel1);
+}
+
+// float(d) for |d| < 2^22, exactly, in two full-rate instructions: the bits
+// of 1.5 * 2^23 + d, less 1.5 * 2^23.  Every int32 group dot here is below
+// 2^22 (16 x 128 x 8 x 128 for a nibble group, 128^3 for the keeper).
+__device__ __forceinline__ float small_int_to_float(int d) {
+  return __fsub_rn(__int_as_float(d + 0x4B400000), 12582912.f);
+}
+
+// The weight slot's layout: rows tile_n bytes apart, TMA's swizzle for that
+// width (none at 32 bytes, 64- or 128-byte at 64 or 128): bits [4, 4 + b) of
+// the offset take bits [7, 7 + b) by exclusive or.
+__device__ __forceinline__ uint32_t w_offset(int row, int col, int tile_n) {
+  const uint32_t off = row * tile_n + col;
+  const uint32_t mask = tile_n == 128 ? 7u : tile_n == 64 ? 3u : 0u;
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+// The launch's operands and geometry.
+struct CoreParams {
+  const float* sa;
+  const float* sw;
+  void* out;
+  const __nv_bfloat16* resid;
+  const float* row_scale;
+  const float* cosv;
+  const float* sinv;
+  __nv_bfloat16* q;
+  int8_t* ring_k;
+  __nv_bfloat16* ring_prm;
+  int8_t* ring_v;
+  int M, N, ng, tile_m, tile_n, stages;
+  int n_q, H, W, row;
+};
+
+// Dynamic shared memory of a core block (ops/gemm_packed.py::core_smem).
+__host__ __device__ constexpr int core_smem(int tile_m, int tile_n, int stages, int ng, bool head) {
+  return 1024 + stages * (tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16) + (ng + 1) * tile_m * 4 +
+         (head ? tile_m * (HT + 2 * HEAD) * 4 : 0);
+}
+
+// The ring epilogue of one row m of the block's head hb, by one warp: lane
+// holds channels d = lane + 32 i.  x, cs, sn: the row's product, cos and sin
+// in shared memory.  The arithmetic of head_rope_quant below.
+__device__ __forceinline__ void ring_row(const float* __restrict__ x, const float* __restrict__ cs,
+                                         const float* __restrict__ sn, const CoreParams& p, int m, int hb, int lane) {
+  const int nqh = p.n_q / HEAD;
+  const bool is_q = hb < nqh, is_k = !is_q && hb < nqh + p.H;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = x[lane + 32 * i];
+  if (is_q || is_k) {
+    float r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      const float rot = i < 2 ? -v[i + 2] : v[i - 2];
+      r[i] = __fadd_rn(__fmul_rn(v[i], cs[d]), __fmul_rn(rot, sn[d]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = r[i];
+  }
+  if (is_q) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p.q[(size_t)m * p.n_q + (size_t)hb * HEAD + lane + 32 * i] = __float2bfloat16_rn(v[i]);
+    return;
+  }
+  float mx = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  float mn = fmaxf(fmaxf(-v[0], -v[1]), fmaxf(-v[2], -v[3]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    mn = fmaxf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+  }
+  const KvQuant kq = kv_quant_params(mx, -mn);
+  int code[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) code[i] = kv_quant_code(v[i], kq);
+  const int h = is_k ? hb - nqh : hb - nqh - p.H;
+  if (is_k) {
+    int8_t* k = p.ring_k + (((size_t)m * p.H + h) * (HEAD / 2) + lane) * p.W + p.row;
+    k[0] = (int8_t)(code[0] | (code[2] << 4));
+    k[(size_t)32 * p.W] = (int8_t)(code[1] | (code[3] << 4));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p.ring_v[(((size_t)m * p.H + h) * p.W + p.row) * HEAD + lane + 32 * i] = (int8_t)code[i];
+  }
+  if (lane == 0) {
+    const int plane = is_k ? 0 : 2;
+    p.ring_prm[(((size_t)m * 4 + plane) * p.H + h) * p.W + p.row] = __float2bfloat16_rn(kq.scale);
+    p.ring_prm[(((size_t)m * 4 + plane + 1) * p.H + h) * p.W + p.row] = __float2bfloat16_rn(kq.zero_val);
+  }
+}
+
+// NT: n-tiles of 8 activation rows; a block's rows, tile_m = 8 * NT, are
+// every consumer warp's rows.  KBLK: the K-blocked order (ng > 112).
+template <int NT, int EPI, bool KBLK>
+__global__ void __launch_bounds__(32 * (1 + MAX_CONSUMERS), 1)
+gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+                 const __grid_constant__ CUtensorMap tmK, const CoreParams p) {
+  constexpr int BM = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const int S = p.stages, BN = p.tile_n, ng = p.ng;
+  const int consumers = BN / 16;
+  unsigned char* ringA = base;                                     // S x BM x 128, 128-byte swizzle
+  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x 64 rows x BN, swizzled (w_offset)
+  float* ringS = reinterpret_cast<float*>(ringW + S * BN * HALF);  // S x BN weight scales
+  float* sa_s = ringS + S * BN;                                    // (ng + 1) x BM activation scales
+  float* ht = sa_s + (ng + 1) * BM;                                // BM x HT (ring epilogue)
+  float* cos_s = ht + BM * HT;                                     // BM x 128 each (ring epilogue)
+  float* sin_s = cos_s + BM * HEAD;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ht + (EPI == EPI_RING ? BM * (HT + 2 * HEAD) : 0));
+  uint64_t* empty = full + S;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr bool kblk = KBLK;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, consumers);
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // producer: slot j < ng body group j, slot ng the keeper's rows 0-63 with
+    // its activation tile and scale row, slot ng + 1 its rows 64-127
+    if (lane == 0) {
+      for (int j = 0, s = 0, ph = 0; j < ng + 2; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
+        if (j >= S) mbar_wait(empty + s, ph ^ 1);
+        const bool act = j <= ng;
+        mbar_expect(full + s, BN * HALF + (act ? BM * GROUP + BN * 4 : 0));
+        tma_load(ringW + s * BN * HALF, j < ng ? &tmW : &tmK, n0, (j < ng ? j : j - ng) * HALF, full + s);
+        if (act) {
+          tma_load(ringA + s * BM * GROUP, &tmA, j * GROUP, m0, full + s);
+          bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, BN * 4, full + s);
+        }
+      }
+    }
+    return;
+  }
+  // while the ring fills, the consumers stage the block rows' activation
+  // scales, group-major, the body groups' times 1/16 (their codes enter the
+  // product as 16 x code), exactly; and for the ring epilogue the rows' RoPE
+  // tables.  Loads first, then stores, so their latencies overlap.
+  {
+    constexpr int PER = 8;
+    const int ct = tid - 32, nct = consumers * 32, total = BM * (ng + 1);
+    for (int i0 = ct; i0 < total; i0 += PER * nct) {
+      float v[PER];
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int i = i0 + u * nct, r = i / (ng + 1);
+        v[u] = i < total && m0 + r < p.M ? p.sa[(size_t)m0 * (ng + 1) + i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int i = i0 + u * nct, r = i / (ng + 1), g = i % (ng + 1);
+        if (i < total) sa_s[g * BM + r] = g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
+      }
+    }
+    if (EPI == EPI_RING)
+      for (int i0 = ct; i0 < BM * HEAD; i0 += PER * nct) {
+        float c[PER], sn[PER];
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+          const int i = i0 + u * nct;
+          const bool live = i < BM * HEAD && m0 + i / HEAD < p.M;
+          c[u] = live ? p.cosv[(size_t)m0 * HEAD + i] : 0.f;
+          sn[u] = live ? p.sinv[(size_t)m0 * HEAD + i] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+          const int i = i0 + u * nct;
+          if (i < BM * HEAD) {
+            cos_s[i] = c[u];
+            sin_s[i] = sn[u];
+          }
+        }
+      }
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nct) : "memory");
+  }
+  const int wc = warp - 1;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = wc * 16 + 2 * gid;  // this thread's weight columns in the tile: c0, c0 + 1
+  uint32_t sel0 = 0, sel1 = 0;       // see load_cols
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const uint32_t k = (jj - tig) & 3;
+    sel0 |= (2 * k) << (4 * jj);
+    sel1 |= (2 * k + 1) << (4 * jj);
+  }
+  // offsets of this thread's 16-bit weight loads in a slot: 4-row step q
+  // (rows 16q + 4tig + ..), load i
+  uint32_t woff[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) woff[q][i] = w_offset(16 * q + 4 * tig + ((i + tig) & 3), c0, BN);
+  // ldmatrix: lane l addresses row (l & 7) + 8 * (l >> 4) of its matrix pair,
+  // 16-byte chunk +((l >> 3) & 1): matrices (rows 0-7, chunk q), (rows 0-7,
+  // q + 1), (rows 8-15, q), (rows 8-15, q + 1) = b0, b1 of two n-tiles
+  const int lrow = (lane & 7) + ((lane >> 4) << 3), lchunk = (lane >> 3) & 1;
+  auto b_addr = [&](unsigned tile, int r, int chunk) {
+    return tile + r * GROUP + (((chunk + lchunk) ^ (r & 7)) << 4);
+  };
+
+  // slot j's int32 dots into d, its scales into w2 / s2, then the slot is
+  // released: body group j's k-step (plane, sh) takes weight rows sh*32..
+  // (4-row steps 2sh, 2sh + 1) and activation chunks plane*4 + sh*2, +1
+  int fs = 0, fph = 0;  // ring stage and phase of the next slot fetch reads
+  auto fetch = [&](int j, int (&d)[NT][4], float2& w2, float2 (&s2)[NT]) {
+    const int s = fs;
+    mbar_wait(full + s, fph);
+    if (++fs == S) {
+      fs = 0;
+      fph ^= 1;
+    }
+    const unsigned char* ws = ringW + s * BN * HALF;
+    const unsigned at = smem_u32(ringA + s * BM * GROUP);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[nt][e] = 0;
+#pragma unroll
+    for (int sh = 0; sh < 2; ++sh) {
+      uint32_t t[4];  // a0..a3 of the k-step: columns c0, c0 + 1 of rows 4tig.., then of rows 16 + 4tig..
+      load_cols(ws, woff[2 * sh], sel0, sel1, t[0], t[1]);
+      load_cols(ws, woff[2 * sh + 1], sel0, sel1, t[2], t[3]);
+#pragma unroll
+      for (int plane = 0; plane < 2; ++plane) {
+        uint32_t a[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[q] = plane ? (t[q] & 0xF0F0F0F0u) : ((t[q] << 4) & 0xF0F0F0F0u);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, b_addr(at, np * 16 + lrow, plane * 4 + sh * 2));
+          mma_s8(d[2 * np], a, b[0], b[1]);
+          mma_s8(d[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    w2 = *reinterpret_cast<const float2*>(ringS + s * BN + c0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s2[nt] = *reinterpret_cast<const float2*>(sa_s + j * BM + nt * 8 + 2 * tig);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  };
+  Chain acc[NT][4];
+  auto chain = [&](const int (&d)[NT][4], const float2& w2, const float2 (&s2)[NT], int j) {
+    const bool block_end = kblk && (j + 1) % KBLK_G == 0 && j + 1 < ng;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[nt][e].add(__fmul_rn(__fmul_rn(small_int_to_float(d[nt][e]), (e & 1) ? s2[nt].y : s2[nt].x),
+                                 (e & 2) ? w2.y : w2.x),
+                       kblk);
+        if (block_end) acc[nt][e].block_end();
+      }
+  };
+  // software pipeline: group j + 1's dots are issued before group j's float chain
+  int dA[NT][4], dB[NT][4];
+  float2 wA, wB, sA[NT], sB[NT];
+  fetch(0, dA, wA, sA);
+  for (int j = 0; j < ng; j += 2) {
+    if (j + 1 < ng) fetch(j + 1, dB, wB, sB);
+    chain(dA, wA, sA, j);
+    if (j + 1 >= ng) break;
+    if (j + 2 < ng) fetch(j + 2, dA, wA, sA);
+    chain(dB, wB, sB, j + 1);
+  }
+  {  // the keeper: int8 rows 0-63 in slot ng, 64-127 in slot ng + 1
+    const int s0 = fs, s1 = fs + 1 == S ? 0 : fs + 1;
+    mbar_wait(full + s0, fph);
+    mbar_wait(full + s1, fph ^ (s1 == 0));
+    const unsigned at = smem_u32(ringA + s0 * BM * GROUP);
+    int d[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[nt][e] = 0;
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      const unsigned char* ws = ringW + (st < 2 ? s0 : s1) * BN * HALF;
+      uint32_t a[4];
+      load_cols(ws, woff[2 * (st & 1)], sel0, sel1, a[0], a[1]);
+      load_cols(ws, woff[2 * (st & 1) + 1], sel0, sel1, a[2], a[3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_addr(at, np * 16 + lrow, 2 * st));
+        mma_s8(d[2 * np], a, b[0], b[1]);
+        mma_s8(d[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    const float2 w2 = *reinterpret_cast<const float2*>(ringS + s0 * BN + c0);
+    float2 s2[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s2[nt] = *reinterpret_cast<const float2*>(sa_s + ng * BM + nt * 8 + 2 * tig);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[nt][e].keeper(__fmul_rn(__fmul_rn(small_int_to_float(d[nt][e]), (e & 1) ? s2[nt].y : s2[nt].x),
+                                    (e & 2) ? w2.y : w2.x),
+                          kblk);
+  }
+  // element e of n-tile nt: activation row nt*8 + 2tig + (e & 1), weight column c0 + (e >> 1)
+  const int rows_here = min(BM, p.M - m0);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = nt * 8 + 2 * tig + h;
+      const float v0 = acc[nt][h].out, v1 = acc[nt][2 + h].out;
+      if (EPI == EPI_RING) {
+        ht[r * HT + c0] = v0;
+        ht[r * HT + c0 + 1] = v1;
+        continue;
+      }
+      if (r >= rows_here) continue;
+      const size_t o = (size_t)(m0 + r) * p.N + n0 + c0;
+      if (EPI == EPI_F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) = __floats2bfloat162_rn(
+            epi_value(EPI, v0, p.resid, p.row_scale, o, m0 + r), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, m0 + r));
+      }
+    }
+  if (EPI == EPI_RING) {
+    asm volatile("bar.sync 2, %0;\n" ::"r"(consumers * 32) : "memory");  // the consumers' tile is whole
+    for (int r = wc; r < rows_here; r += consumers)
+      ring_row(ht + r * HT, cos_s + r * HEAD, sin_s + r * HEAD, p, m0 + r, blockIdx.x, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Prologue, SiLU, the prefill epilogue
+// ---------------------------------------------------------------------------
 
 // One warp quantizes one 128-channel group of one row symmetrically (lane:
 // 4 consecutive channels): an INT8 keeper without clip, or abits with a_clip.
@@ -245,19 +744,19 @@ __device__ __forceinline__ void quant_group_store(const float (&v)[4], int lane,
   if (lane == 0) *scale_out = scale;
 }
 
-// Prologue of K2, K9 and K10: one block per token row m; warp w quantizes
-// groups w, w+8, ...  With a norm weight: xn = bf16(y * rstd); v = bf16(xn *
-// wg); without (wg null): v = y.  Then per 128-group symmetric quantization
-// (INT4 body with clip, the last group an INT8 keeper without clip).
+// Prologue of K2, K9 and K10: block (m, b) quantizes groups 8b .. 8b + 7 of
+// token row m, a warp each (all of a row's loads in flight at once).  With a
+// norm weight: xn = bf16(y * rstd); v = bf16(xn * wg); without (wg null):
+// v = y.  Then per 128-group symmetric quantization (INT4 body with clip, the
+// last group an INT8 keeper without clip).
 __global__ void __launch_bounds__(256)
 quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ wg,
                       const float* __restrict__ rstd, int8_t* __restrict__ a, float* __restrict__ sa,
                       int K, int ng, int abits, float a_clip) {
-  const int m = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x, g = blockIdx.y * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const bool norm = wg != nullptr;
   const float r = norm ? rstd[m] : 1.f;
-  for (int g = warp; g <= ng; g += 8) {
+  if (g <= ng) {
     const int k0 = g * GROUP + lane * 4;
     float v[4];
 #pragma unroll
@@ -276,14 +775,14 @@ quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* 
 // K10 phase 3: act = SiLU(gate) * up in f32 from the gate/up product
 // gu [M, 2*inter] (gate columns, then up), requantized per 128 channels into
 // the down GEMM's input layout; the last block of inter is the INT8 keeper.
+// Block (m, b) takes 128-channel blocks 8b .. 8b + 7 of row m, a warp each.
 __global__ void __launch_bounds__(256)
 silu_mul_quant_kernel(const float* __restrict__ gu, int8_t* __restrict__ a, float* __restrict__ sa,
                       int inter, int abits, float a_clip) {
-  const int m = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x, blk = blockIdx.y * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const int nblk = inter / GROUP;
   const float* row = gu + (size_t)m * 2 * inter;
-  for (int blk = warp; blk < nblk; blk += 8) {
+  if (blk < nblk) {
     const int c0 = blk * GROUP + lane * 4;
     const float4 g4 = *reinterpret_cast<const float4*>(row + c0);
     const float4 u4 = *reinterpret_cast<const float4*>(row + inter + c0);
@@ -308,14 +807,14 @@ __device__ __forceinline__ float block_max128(float v, float* sm) {
   return v;
 }
 
-// The per-head arithmetic shared by the ring epilogue (K2, K8) and the prefill
-// epilogue (K7), for block (m, head column block hb) with one thread per
-// channel d.  Column blocks [0, n_q/128) are q heads, then H k heads, then H v
-// heads.  q and k are rotated (RoPE) in float32; k (after RoPE) and v get the
-// per-head asymmetric u4 quantization of ops/reference.py quantize_kv_asym:
-// scale = bf16((max - min, at least 1e-5) / 15), zero = clamp(rint(-min /
-// scale), 0, 15), code = clamp(rint(x / scale) + zero, 0, 15), and the stored
-// zero value is bf16(-zero * scale).
+// The per-head arithmetic of the prefill epilogue (K7), for block (m, head
+// column block hb) with one thread per channel d (ring_row is the same
+// arithmetic a warp per row).  Column blocks [0, n_q/128) are q heads, then H
+// k heads, then H v heads.  q and k are rotated (RoPE) in float32; k (after
+// RoPE) and v get the per-head asymmetric u4 quantization of
+// ops/reference.py quantize_kv_asym: scale = bf16((max - min, at least 1e-5) /
+// 15), zero = clamp(rint(-min / scale), 0, 15), code = clamp(rint(x / scale) +
+// zero, 0, 15), and the stored zero value is bf16(-zero * scale).
 struct HeadValue {
   float v;      // the (rotated) value; all a q head needs
   float scale;  // k / v heads only
@@ -344,42 +843,6 @@ __device__ __forceinline__ HeadValue head_rope_quant(const float* __restrict__ x
   r.code = kv_quant_code(r.v, kq);
   r.zero_val = kq.zero_val;
   return r;
-}
-
-// Ring epilogue (K2, K8): q out; K/V codes and params into ring column `row`.
-__global__ void __launch_bounds__(HEAD)
-qkv_ring_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict__ cosv,
-                         const float* __restrict__ sinv, __nv_bfloat16* __restrict__ q,
-                         int8_t* __restrict__ ring_k, __nv_bfloat16* __restrict__ ring_prm,
-                         int8_t* __restrict__ ring_v, int n_q, int H, int W, int row) {
-  __shared__ float red[4];
-  __shared__ int codes[HEAD];
-  const int m = blockIdx.x, hb = blockIdx.y, d = threadIdx.x;
-  const int N = n_q + 2 * H * HEAD;
-  const int nqh = n_q / HEAD;
-  const bool is_q = hb < nqh;
-  const bool is_k = !is_q && hb < nqh + H;
-  const HeadValue hv = head_rope_quant(qkv + (size_t)m * N + (size_t)hb * HEAD, cosv, sinv, m, d,
-                                       is_q || is_k, !is_q, red);
-  if (is_q) {
-    q[(size_t)m * n_q + (size_t)hb * HEAD + d] = __float2bfloat16_rn(hv.v);
-    return;
-  }
-  const int h = is_k ? hb - nqh : hb - nqh - H;
-  if (d == 0) {
-    const int plane = is_k ? 0 : 2;
-    ring_prm[(((size_t)m * 4 + plane) * H + h) * W + row] = __float2bfloat16_rn(hv.scale);
-    ring_prm[(((size_t)m * 4 + plane + 1) * H + h) * W + row] = __float2bfloat16_rn(hv.zero_val);
-  }
-  if (is_k) {
-    codes[d] = hv.code;
-    __syncthreads();
-    if (d < HEAD / 2)
-      ring_k[(((size_t)m * H + h) * (HEAD / 2) + d) * W + row] =
-          (int8_t)(codes[d] | (codes[d + HEAD / 2] << 4));
-  } else {
-    ring_v[(((size_t)m * H + h) * W + row) * HEAD + d] = (int8_t)hv.code;
-  }
 }
 
 // Prefill epilogue (K7): q out; K/V as one byte per code [M, H, 128] and
@@ -411,86 +874,180 @@ qkv_codes_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+// The launch plan of ops/gemm_packed.py::PackedW4Plan.args(): core or tile
+// kernel, block rows and columns, ring stages.
+struct Plan {
+  int core, tile_m, tile_n, stages;
+};
+
+Plan plan_of(const int* v) { return Plan{v[0], v[1], v[2], v[3]}; }
+
+// A 2D int8 tensor map over [outer, inner] (row stride `inner` bytes), boxes
+// of box_outer x box_inner; rows past `outer` read as zeros.
+int encode_map(CUtensorMap* tm, const void* ptr, int inner, int outer, int box_inner, int box_outer,
+               CUtensorMapSwizzle swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) return (int)cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer}, elem[2] = {1, 1};
+  const CUresult r = encode(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NT, int EPI>
+int launch_core_nt(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CoreParams& p,
+                   const Plan& pl, int smem, cudaStream_t st) {
+  const bool kblk = p.ng > KBLK_THRESHOLD;
+  auto kernel = kblk ? gemm_core_kernel<NT, EPI, true> : gemm_core_kernel<NT, EPI, false>;
+  static bool ready[2] = {false, false};
+  if (!ready[kblk]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return (int)err;
+    ready[kblk] = true;
+  }
+  const dim3 grid(p.N / pl.tile_n, (p.M + pl.tile_m - 1) / pl.tile_m, 1);
+  kernel<<<grid, 32 * (1 + pl.tile_n / 16), smem, st>>>(ta, tw, tk, p);
+  return (int)cudaGetLastError();
+}
+
+// The core on a [M, (ng + 1) * 128] int8 activation, with the epilogue's
+// operands in p (its inputs and geometry filled here).  A plan the kernel
+// cannot run is refused.
 template <int EPI>
-cudaError_t launch_gemm_epi(const void* a, const void* wp, const void* wk, const void* sa,
-                            const void* sw, void* out, const void* resid, const void* row_scale,
-                            int M, int N, int ng, cudaStream_t st) {
+int launch_core(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, CoreParams p,
+                int M, int N, int ng, const Plan& pl, cudaStream_t st) {
+  const bool shape_ok = ng >= 1 && (pl.tile_m == 16 || pl.tile_m == 32 || pl.tile_m == 64) &&
+                        (pl.tile_n == 32 || pl.tile_n == 64 || pl.tile_n == 128) && N % pl.tile_n == 0 &&
+                        pl.stages >= 3 && (EPI != EPI_RING || (pl.tile_n == HEAD && pl.tile_m <= 32));
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, EPI == EPI_RING);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tw, tk;
+  const CUtensorMapSwizzle wsw = pl.tile_n == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : pl.tile_n == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  int e = encode_map(&ta, a, (ng + 1) * GROUP, M, GROUP, pl.tile_m, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!e) e = encode_map(&tw, wp, N, ng * HALF, pl.tile_n, HALF, wsw);
+  if (!e) e = encode_map(&tk, wk, N, GROUP, pl.tile_n, HALF, wsw);
+  if (e) return e;
+  p.sa = (const float*)sa;
+  p.sw = (const float*)sw;
+  p.M = M;
+  p.N = N;
+  p.ng = ng;
+  p.tile_m = pl.tile_m;
+  p.tile_n = pl.tile_n;
+  p.stages = pl.stages;
+  switch (pl.tile_m) {
+    case 16: return launch_core_nt<2, EPI>(ta, tw, tk, p, pl, smem, st);
+    case 32: return launch_core_nt<4, EPI>(ta, tw, tk, p, pl, smem, st);
+  }
+  return launch_core_nt<8, EPI>(ta, tw, tk, p, pl, smem, st);
+}
+
+template <int EPI>
+cudaError_t launch_tile(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, void* out,
+                        const void* resid, const void* row_scale, int M, int N, int ng, cudaStream_t st) {
   const dim3 grid(N / TN, (M + TM - 1) / TM);
-  gemm_packed_kernel<EPI><<<grid, NWARP * 32, 0, st>>>(
-      (const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa, (const float*)sw,
-      out, (const __nv_bfloat16*)resid, (const float*)row_scale, M, N, ng);
+  auto kernel = ng > KBLK_THRESHOLD ? gemm_packed_kernel<EPI, true> : gemm_packed_kernel<EPI, false>;
+  kernel<<<grid, NWARP * 32, 0, st>>>((const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa,
+                                      (const float*)sw, out, (const __nv_bfloat16*)resid, (const float*)row_scale, M,
+                                      N, ng);
   return cudaGetLastError();
 }
 
-cudaError_t launch_gemm(const void* a, const void* wp, const void* wk, const void* sa,
-                        const void* sw, void* out, int M, int N, int ng, cudaStream_t st) {
-  return launch_gemm_epi<EPI_F32>(a, wp, wk, sa, sw, out, nullptr, nullptr, M, N, ng, st);
+// The GEMM with an F32 / RESID / ROW_SCALE epilogue on the plan's kernel.
+template <int EPI>
+int launch_gemm(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, void* out,
+                const void* resid, const void* row_scale, int M, int N, int ng, const Plan& pl, cudaStream_t st) {
+  if (!pl.core) return (int)launch_tile<EPI>(a, wp, wk, sa, sw, out, resid, row_scale, M, N, ng, st);
+  CoreParams p = {};
+  p.out = out;
+  p.resid = (const __nv_bfloat16*)resid;
+  p.row_scale = (const float*)row_scale;
+  return launch_core<EPI>(a, wp, wk, sa, sw, p, M, N, ng, pl, st);
+}
+
+// The qkv GEMM with the ring epilogue (K2's second launch, K8).
+int launch_ring(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, const void* cosv,
+                const void* sinv, void* q, void* ring_k, void* ring_prm, void* ring_v, int M, int ng, int n_q, int H,
+                int W, int row, const Plan& pl, cudaStream_t st) {
+  if (!pl.core) return (int)cudaErrorInvalidValue;
+  CoreParams p = {};
+  p.cosv = (const float*)cosv;
+  p.sinv = (const float*)sinv;
+  p.q = (__nv_bfloat16*)q;
+  p.ring_k = (int8_t*)ring_k;
+  p.ring_prm = (__nv_bfloat16*)ring_prm;
+  p.ring_v = (int8_t*)ring_v;
+  p.n_q = n_q;
+  p.H = H;
+  p.W = W;
+  p.row = row;
+  return launch_core<EPI_RING>(a, wp, wk, sa, sw, p, M, n_q + 2 * H * HEAD, ng, pl, st);
 }
 
 cudaError_t launch_prologue(const void* y, const void* wg, const void* rstd, void* a, void* sa,
                             int M, int K, int abits, float a_clip, cudaStream_t st) {
-  quant_prologue_kernel<<<M, 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
+  quant_prologue_kernel<<<dim3(M, (K / GROUP + 7) / 8), 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
                                            (const float*)rstd, (int8_t*)a, (float*)sa, K,
                                            K / GROUP - 1, abits, a_clip);
   return cudaGetLastError();
 }
 
-cudaError_t launch_ring_epilogue(const void* qkv, const void* cosv, const void* sinv, void* q,
-                                 void* ring_k, void* ring_prm, void* ring_v, int M, int n_q, int H,
-                                 int W, int row, cudaStream_t st) {
-  const int N = n_q + 2 * H * HEAD;
-  qkv_ring_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
-      (const float*)qkv, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
-      (int8_t*)ring_k, (__nv_bfloat16*)ring_prm, (int8_t*)ring_v, n_q, H, W, row);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
+// Every entry point takes the launch plan(s) of ops/gemm_packed.py as four
+// ints each (PackedW4Plan.args()) and returns a CUDA error code.
+
+// K1: out f32 [M, N].
 extern "C" int atom_gemm_packed(const void* a, const void* wp, const void* wk, const void* sa,
-                                const void* sw, void* out, int M, int N, int ng, void* stream) {
-  return (int)launch_gemm(a, wp, wk, sa, sw, out, M, N, ng, (cudaStream_t)stream);
+                                const void* sw, void* out, int M, int N, int ng, const int* plan, void* stream) {
+  return launch_gemm<EPI_F32>(a, wp, wk, sa, sw, out, nullptr, nullptr, M, N, ng, plan_of(plan), (cudaStream_t)stream);
 }
 
-// K2: prologue (norm + activation quantization), GEMM, ring epilogue.
+// K2: prologue (norm + activation quantization), then the core with the ring epilogue.
 extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rstd, const void* wp,
                                    const void* wk, const void* sw, const void* cosv,
-                                   const void* sinv, void* a_scratch, void* sa_scratch,
-                                   void* qkv_scratch, void* q, void* ring_k, void* ring_prm,
-                                   void* ring_v, int M, int K, int n_q, int H, int W, int row,
-                                   int abits, float a_clip, void* stream) {
+                                   const void* sinv, void* a_scratch, void* sa_scratch, void* q,
+                                   void* ring_k, void* ring_prm, void* ring_v, int M, int K, int n_q, int H,
+                                   int W, int row, int abits, float a_clip, const int* plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int ng = K / GROUP - 1;
-  const int N = n_q + 2 * H * HEAD;
-  cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
+  const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(a_scratch, wp, wk, sa_scratch, sw, qkv_scratch, M, N, ng, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_ring_epilogue(qkv_scratch, cosv, sinv, q, ring_k, ring_prm, ring_v, M, n_q, H,
-                                   W, row, st);
+  return launch_ring(a_scratch, wp, wk, sa_scratch, sw, cosv, sinv, q, ring_k, ring_prm, ring_v, M, K / GROUP - 1,
+                     n_q, H, W, row, plan_of(plan), st);
 }
 
-// K8: GEMM on the caller's quantized activation, ring epilogue.
+// K8: the core with the ring epilogue on the caller's quantized activation.
 extern "C" int atom_qkv_ring(const void* a, const void* wp, const void* wk, const void* sa,
-                             const void* sw, const void* cosv, const void* sinv, void* qkv_scratch,
-                             void* q, void* ring_k, void* ring_prm, void* ring_v, int M, int ng,
-                             int n_q, int H, int W, int row, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int N = n_q + 2 * H * HEAD;
-  const cudaError_t err = launch_gemm(a, wp, wk, sa, sw, qkv_scratch, M, N, ng, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_ring_epilogue(qkv_scratch, cosv, sinv, q, ring_k, ring_prm, ring_v, M, n_q, H,
-                                   W, row, st);
+                             const void* sw, const void* cosv, const void* sinv, void* q, void* ring_k,
+                             void* ring_prm, void* ring_v, int M, int ng, int n_q, int H, int W, int row,
+                             const int* plan, void* stream) {
+  return launch_ring(a, wp, wk, sa, sw, cosv, sinv, q, ring_k, ring_prm, ring_v, M, ng, n_q, H, W, row,
+                     plan_of(plan), (cudaStream_t)stream);
 }
 
-// K7: GEMM, then q / K codes / V codes / params in the prefill layout.
+// K7: the tile kernel, then q / K codes / V codes / params in the prefill layout.
 extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, const void* sa,
                               const void* sw, const void* cosv, const void* sinv, void* qkv_scratch,
                               void* q, void* k_codes, void* k_prm, void* v_codes, void* v_prm,
                               int M, int ng, int n_q, int H, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int N = n_q + 2 * H * HEAD;
-  const cudaError_t err = launch_gemm(a, wp, wk, sa, sw, qkv_scratch, M, N, ng, st);
+  const cudaError_t err = launch_tile<EPI_F32>(a, wp, wk, sa, sw, qkv_scratch, nullptr, nullptr, M, N, ng, st);
   if (err != cudaSuccess) return (int)err;
   qkv_codes_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
       (const float*)qkv_scratch, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
@@ -504,14 +1061,15 @@ extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, con
 extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rstd, const void* wp,
                                   const void* wk, const void* sw, const void* resid,
                                   void* a_scratch, void* sa_scratch, void* out, int M, int K, int N,
-                                  int abits, int out_f32, float a_clip, void* stream) {
+                                  int abits, int out_f32, float a_clip, const int* plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int ng = K / GROUP - 1;
+  const Plan pl = plan_of(plan);
   const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
-  if (out_f32) return (int)launch_gemm(a_scratch, wp, wk, sa_scratch, sw, out, M, N, ng, st);
-  return (int)launch_gemm_epi<EPI_RESID>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N,
-                                         ng, st);
+  if (out_f32)
+    return launch_gemm<EPI_F32>(a_scratch, wp, wk, sa_scratch, sw, out, nullptr, nullptr, M, N, ng, pl, st);
+  return launch_gemm<EPI_RESID>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N, ng, pl, st);
 }
 
 // K10: prologue, gate/up GEMM, SiLU * up + requantization, down GEMM with the
@@ -521,21 +1079,22 @@ extern "C" int atom_fused_mlp(const void* y, const void* wg, const void* rstd, c
                               const void* dn_wk, const void* dn_sw, const void* resid,
                               const void* row_scale, void* a_scratch, void* sa_scratch,
                               void* gu_scratch, void* act, void* act_scales, void* out, int M, int D,
-                              int inter, int abits, float a_clip, void* stream) {
+                              int inter, int abits, float a_clip, const int* gu_plan, const int* dn_plan,
+                              void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, D, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, gu_scratch, M, 2 * inter,
-                    D / GROUP - 1, st);
-  if (err != cudaSuccess) return (int)err;
-  silu_mul_quant_kernel<<<M, 256, 0, st>>>((const float*)gu_scratch, (int8_t*)act,
+  int e = launch_gemm<EPI_F32>(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, gu_scratch, nullptr, nullptr, M,
+                               2 * inter, D / GROUP - 1, plan_of(gu_plan), st);
+  if (e) return e;
+  silu_mul_quant_kernel<<<dim3(M, (inter / GROUP + 7) / 8), 256, 0, st>>>((const float*)gu_scratch, (int8_t*)act,
                                            (float*)act_scales, inter, abits, a_clip);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nga = inter / GROUP - 1;
   if (row_scale != nullptr)
-    return (int)launch_gemm_epi<EPI_ROW_SCALE>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid,
-                                               row_scale, M, D, nga, st);
-  return (int)launch_gemm_epi<EPI_RESID>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M,
-                                         D, nga, st);
+    return launch_gemm<EPI_ROW_SCALE>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, row_scale, M, D, nga,
+                                      plan_of(dn_plan), st);
+  return launch_gemm<EPI_RESID>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M, D, nga,
+                                plan_of(dn_plan), st);
 }

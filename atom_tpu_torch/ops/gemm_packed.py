@@ -28,11 +28,20 @@ versions (``*_plain``) on CPU tensors.  The plain versions compute each
 group's integer dot as a float32 matmul, exact because every partial sum is
 an integer below 2**24 (|sum| <= 128 * 127 * 127); on the card that needs
 ``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default.
+
+The order of the float32 sum is the TPU kernel's: up to ``KBLK_THRESHOLD``
+body groups one chain per output element over the groups, the keeper last;
+above it partial sums of ``KBLK_G`` groups, each added to the output in turn,
+the keeper's term before the last partial.  :func:`packed_w4_plan` picks
+the CUDA launch for a shape: up to ``CORE_MAX_M`` rows the pipelined decode
+core (column tiles, a ring of TMA copies a block, a warp per 16 columns
+keeping its float chains in registers), above it the 32 x 32 tile kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,27 +54,113 @@ from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
 
 GROUP = 128
 HALF = GROUP // 2
-_TN = 32  # output columns per CUDA block
+_TN = 32  # N is whole 32-column tiles
+KBLK_THRESHOLD = 112  # body groups above which the sum is K-blocked (pallas_gemm_packed.py:174)
+KBLK_G = 16  # groups of a K-blocked partial sum
+CORE_MAX_M = 64  # rows up to which the decode core runs; the 32 x 32 tile kernel above
+HEAD = 128  # columns of a head: the ring epilogue's block owns one
+_CORE_ROWS = (16, 32, 64)  # block rows of the core (tile_m)
+_CORE_COLS = (32, 64, 128)  # block columns of the core (tile_n): a consumer warp per 16
+_STAGES = 8  # ring slots of the core (3 to 35 measured within a few per cent on the H100; 8 the best or equal)
+_SMS = 132  # the H100's SMs
+_SMEM_BLOCK = 232448  # the most shared memory one block may take
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PLAN = ctypes.POINTER(ctypes.c_int)
+
+
+class PackedW4Plan(NamedTuple):
+    """The launch of a K1-family GEMM, as the CUDA entry points take it.
+
+    ``path`` "core": blocks of ``tile_m`` rows x ``tile_n`` columns, one
+    producer warp and a consumer warp per 16 columns (over all the block's
+    rows), a ring of ``stages`` group slots, ``smem`` bytes of dynamic shared
+    memory, grid ``(N / tile_n, ceil(M / tile_m))``.  ``path`` "tile": the
+    32 x 32 tile kernel, grid ``(N / 32, ceil(M / 32))`` (the other fields 0)."""
+
+    path: str
+    tile_m: int
+    tile_n: int
+    stages: int
+    smem: int
+    grid: tuple
+
+    def args(self) -> list:
+        """The plan as the C entry points' four ints."""
+        return [int(self.path == "core"), self.tile_m, self.tile_n, self.stages]
+
+
+def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool) -> int:
+    """Dynamic shared memory of a core block (``gemm_packed.cu::core_smem``):
+    per ring stage the activation tile, the weight slot (64 byte rows), the
+    scale row and two barriers; the activation scales of all groups; the
+    head epilogue's f32 tile and its rows' cos and sin; 1 KB to align the ring."""
+    stage = tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16
+    return 1024 + stages * stage + (ng + 1) * tile_m * 4 + (tile_m * (3 * HEAD + 4) * 4 if head else 0)
+
+
+@functools.lru_cache(maxsize=512)
+def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | None = None,
+                   tile_m: int | None = None, stages: int | None = None) -> PackedW4Plan:
+    """The launch for an [m, k] x [k, n] product (k = body groups * 128 +
+    the 128 keeper rows); raises on a shape the kernels do not take (N not
+    whole 32-column tiles, K not whole groups).  ``head``: the ring epilogue,
+    whose block owns a 128-column head (at most 32 rows a block, any M).
+    ``tile_n``, ``tile_m`` and ``stages`` override the defaults (for
+    measuring other layouts).
+
+    Core (M <= 64 with a body group, or ``head``): 64 columns a block where
+    N allows (rows of 64 bytes a weight copy), else 32; the fewest of 16, 32
+    or 64 rows that hold M, halved down to 16 while the grid has fewer blocks
+    than SMs (at M <= 64 there is no split of K to fill the card with: the
+    column tiles, and row tiles that read the same weights, are the
+    parallelism; not for ``head``, whose 96 blocks of 32 rows measured
+    faster than 192 of 16); a ring of 8 group slots."""
+    if n <= 0 or n % _TN:
+        raise ValueError(f"packed_w4_gemm: N={n} must be a positive multiple of {_TN}")
+    if k < GROUP or k % GROUP:
+        raise ValueError(f"packed_w4_gemm: K={k} must be a positive multiple of {GROUP}")
+    ng = k // GROUP - 1
+    if not head and (m > CORE_MAX_M or ng == 0):
+        return PackedW4Plan("tile", 0, 0, 0, 0, (n // _TN, -(-m // _TN)))
+    if head and n % HEAD:
+        raise ValueError(f"packed_w4_gemm: N={n} must be whole {HEAD}-column heads")
+    tn = HEAD if head else (tile_n or (2 * _TN if n % (2 * _TN) == 0 else _TN))
+    rows = tile_m
+    if rows is None:
+        rows = next(r for r in _CORE_ROWS if r >= min(m, 32 if head else CORE_MAX_M))
+        while not head and rows > _CORE_ROWS[0] and n // tn * -(-m // rows) < _SMS:
+            rows //= 2
+    if rows not in _CORE_ROWS or (head and rows > 32) or tn not in _CORE_COLS or n % tn:
+        raise ValueError(f"packed_w4_gemm: N={n} in {rows} x {tn} blocks is not a core layout")
+    stages = stages or min(ng + 2, _STAGES)
+    smem = core_smem(rows, tn, stages, ng, head)
+    if stages < 3 or smem > _SMEM_BLOCK:
+        raise ValueError(f"packed_w4_gemm: K={k} at {rows} x {tn} leaves no room for a ring of {stages} stages")
+    return PackedW4Plan("core", rows, tn, stages, smem, (n // tn, -(-m // rows)))
 
 
 @functools.cache
 def _lib():
     lib = _build.load("gemm_packed")
-    lib.atom_gemm_packed.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.atom_gemm_packed.argtypes = [_P] * 6 + [_I] * 3 + [_PLAN, _P]
     lib.atom_gemm_packed.restype = _I
-    lib.atom_qkv_ring_fused.argtypes = [_P] * 15 + [_I] * 7 + [_F, _P]
+    lib.atom_qkv_ring_fused.argtypes = [_P] * 14 + [_I] * 7 + [_F, _PLAN, _P]
     lib.atom_qkv_ring_fused.restype = _I
-    lib.atom_qkv_ring.argtypes = [_P] * 12 + [_I] * 6 + [_P]
+    lib.atom_qkv_ring.argtypes = [_P] * 11 + [_I] * 6 + [_PLAN, _P]
     lib.atom_qkv_ring.restype = _I
     lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_P]
     lib.atom_qkv_codes.restype = _I
-    lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _P]
+    lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _PLAN, _P]
     lib.atom_gemm_fused_in.restype = _I
-    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 4 + [_F, _P]
+    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 4 + [_F, _PLAN, _PLAN, _P]
     lib.atom_fused_mlp.restype = _I
     return lib
+
+
+def plan_arg(plan: PackedW4Plan):
+    """A plan as the C entry points take it (four ints)."""
+    return (ctypes.c_int * 4)(*plan.args())
 
 
 def unpack_nibble_planes(wp: torch.Tensor) -> torch.Tensor:
@@ -78,17 +173,33 @@ def unpack_nibble_planes(wp: torch.Tensor) -> torch.Tensor:
 
 
 def packed_w4_gemm_plain(a, wp, wk, sa, sw) -> torch.Tensor:
-    """Plain version of K1 (same f32 accumulation order as the kernel)."""
+    """Plain version of K1, in the TPU kernel's f32 order: one chain over the
+    groups and the keeper last up to ``KBLK_THRESHOLD`` body groups; above it
+    partial sums of ``KBLK_G`` groups added to the output block by block,
+    the keeper's term before the last block's partial."""
     m, ktot = a.shape
     ng = ktot // GROUP - 1
     codes = unpack_nibble_planes(wp).to(torch.float32)  # [ng, 128, N]
     ag = a[:, : ng * GROUP].reshape(m, ng, GROUP).transpose(0, 1).to(torch.float32)
     acc_g = torch.bmm(ag, codes)  # [ng, M, N] integer-valued, exact
-    acc = torch.zeros((m, wp.shape[1]), dtype=torch.float32, device=a.device)
-    for g in range(ng):
-        acc = acc + acc_g[g] * sa[:, g : g + 1] * sw[g : g + 1, :]
     acc_k = a[:, ng * GROUP :].to(torch.float32) @ wk.to(torch.float32)
-    return acc + acc_k * sa[:, ng : ng + 1] * sw[ng : ng + 1, :]
+    keeper = acc_k * sa[:, ng : ng + 1] * sw[ng : ng + 1, :]
+
+    def chain(g0, g1):
+        acc = torch.zeros((m, wp.shape[1]), dtype=torch.float32, device=a.device)
+        for g in range(g0, g1):
+            acc = acc + acc_g[g] * sa[:, g : g + 1] * sw[g : g + 1, :]
+        return acc
+
+    if ng <= KBLK_THRESHOLD:
+        return chain(0, ng) + keeper
+    out = torch.zeros((m, wp.shape[1]), dtype=torch.float32, device=a.device)
+    for g0 in range(0, ng, KBLK_G):
+        part = chain(g0, min(g0 + KBLK_G, ng))
+        if g0 + KBLK_G >= ng:
+            out = out + keeper
+        out = out + part
+    return out
 
 
 def packed_w4_gemm(
@@ -102,6 +213,17 @@ def packed_w4_gemm(
     if on_cpu(a, wp, wk, sa, sw):
         return packed_w4_gemm_plain(a, wp, wk, sa, sw)
     m, ktot = a.shape
+    out = packed_w4_gemm_with_plan(a, wp, wk, sa, sw, packed_w4_plan(m, ktot, wp.shape[1]))
+    if m:
+        packed_w4_gemm.launches += 1
+    return out
+
+
+def packed_w4_gemm_with_plan(a, wp, wk, sa, sw, plan: PackedW4Plan) -> torch.Tensor:
+    """K1's CUDA launch under a given plan (CUDA tensors only; counts no
+    launch): what :func:`packed_w4_gemm` runs with ``packed_w4_plan``'s
+    choice, and what a measurement of other layouts calls."""
+    m, ktot = a.shape
     n = wp.shape[1]
     ng = ktot // GROUP - 1
     if ktot % GROUP or n % _TN:
@@ -112,14 +234,14 @@ def packed_w4_gemm(
     check_kernel_input(sa, "sa", torch.float32, (m, ng + 1))
     check_kernel_input(sw, "sw", torch.float32, (ng + 1, n))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _build.check(
-        _lib().atom_gemm_packed(
-            a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), m, n, ng, _build.stream(),
-        ),
-        "packed_w4_gemm",
-    )
-    packed_w4_gemm.launches += 1
+    if m:
+        _build.check(
+            _lib().atom_gemm_packed(
+                a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(),
+                out.data_ptr(), m, n, ng, plan_arg(plan), _build.stream(),
+            ),
+            "packed_w4_gemm",
+        )
     return out
 
 
@@ -243,14 +365,13 @@ def packed_w4_gemm_qkv_ring_fused(
     dev = y.device
     a = torch.empty((m, k), dtype=torch.int8, device=dev)
     sa = torch.empty((m, ng + 1), dtype=torch.float32, device=dev)
-    qkv = torch.empty((m, n), dtype=torch.float32, device=dev)
     q = torch.empty((m, n_q), dtype=torch.bfloat16, device=dev)
     _build.check(
         _lib().atom_qkv_ring_fused(
             y.data_ptr(), norm_w.data_ptr(), rstd.data_ptr(), wp.data_ptr(), wk.data_ptr(),
             sw.data_ptr(), cos.data_ptr(), sin.data_ptr(), a.data_ptr(), sa.data_ptr(),
-            qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(), v_codes.data_ptr(),
-            m, k, n_q, h, w, row, abits, a_clip, _build.stream(),
+            q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(), v_codes.data_ptr(),
+            m, k, n_q, h, w, row, abits, a_clip, plan_arg(packed_w4_plan(m, k, n, head=True)), _build.stream(),
         ),
         "packed_w4_gemm_qkv_ring_fused",
     )
@@ -366,13 +487,12 @@ def packed_w4_gemm_qkv_ring(
     check_kernel_input(k_codes, "k_codes", torch.int8, (m, h, head_dim // 2, w))
     check_kernel_input(prm, "prm", torch.bfloat16, (m, 4, h, w))
     check_kernel_input(v_codes, "v_codes", torch.int8, (m, h, w, head_dim))
-    qkv = torch.empty((m, n), dtype=torch.float32, device=a.device)
     q = torch.empty((m, n_q), dtype=torch.bfloat16, device=a.device)
     _build.check(
         _lib().atom_qkv_ring(
             a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(),
-            v_codes.data_ptr(), m, ng, n_q, h, w, row, _build.stream(),
+            sin.data_ptr(), q.data_ptr(), k_codes.data_ptr(), prm.data_ptr(), v_codes.data_ptr(),
+            m, ng, n_q, h, w, row, plan_arg(packed_w4_plan(m, a.shape[1], n, head=True)), _build.stream(),
         ),
         "packed_w4_gemm_qkv_ring",
     )
@@ -468,7 +588,8 @@ def packed_w4_gemm_fused_in(
             _lib().atom_gemm_fused_in(
                 y.data_ptr(), ptr(norm_w), ptr(rstd), kw.body_packed.data_ptr(), kw.keeper.data_ptr(),
                 kw.scales.data_ptr(), ptr(resid), a.data_ptr(), sa.data_ptr(), out.data_ptr(),
-                m, k, n, abits, int(out_dtype == torch.float32), a_clip, _build.stream(),
+                m, k, n, abits, int(out_dtype == torch.float32), a_clip, plan_arg(packed_w4_plan(m, k, n)),
+                _build.stream(),
             ),
             "packed_w4_gemm_fused_in",
         )

@@ -25,6 +25,8 @@ from atom_tpu_torch.ops.gemm_packed import (
     _lib,
     check_fused_in_inputs,
     packed_w4_gemm_plain,
+    packed_w4_plan,
+    plan_arg,
     quant_prologue_plain,
     resid_epilogue_plain,
 )
@@ -105,7 +107,8 @@ def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=
                 y.data_ptr(), ptr(norm_w), ptr(rstd), gu.body_packed.data_ptr(), gu.keeper.data_ptr(),
                 gu.scales.data_ptr(), dn.body_packed.data_ptr(), dn.keeper.data_ptr(), dn.scales.data_ptr(),
                 resid.data_ptr(), ptr(row_scale), a.data_ptr(), sa.data_ptr(), prod.data_ptr(), act.data_ptr(),
-                act_scales.data_ptr(), out.data_ptr(), m, d, inter, abits, a_clip, _build.stream(),
+                act_scales.data_ptr(), out.data_ptr(), m, d, inter, abits, a_clip,
+                plan_arg(packed_w4_plan(m, d, 2 * inter)), plan_arg(packed_w4_plan(m, inter, d)), _build.stream(),
             ),
             "fused_mlp_packed",
         )

@@ -12,7 +12,9 @@ Phases, each fatal on failure:
      W4A16 stack (K13 at its layer's seven GEMMs, at 1024 rows and at the head)
      and of the int8-carrier GEMMs (K14a at 32 and 1024 rows, N 4096 and 11008;
      K14b at N 4096), and time kernel, plain version and, where one PyTorch call
-     computes the same function, that call;
+     computes the same function, that call; K1's decode core bit for bit at
+     o_proj, gate/up, down, qkv and the 70B down projection's depth (K-blocked
+     order), each shape timed on its own and under other layouts of the core;
   3. drive the W4A4 decode path at full width (32 layers, hidden 4096,
      ATOM_W4A4, random weights from a seed): ``decode_burst`` over 2 ring
      windows, which flush, with every kernel's launch count read; then decode
@@ -58,6 +60,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -242,25 +245,62 @@ def check_kernels(torch, dev) -> dict:
         timer(lambda: misc.embed_gather(embed, ids)), timer(lambda: F.embedding(ids, embed)),
         timer(lambda: F.embedding(ids, embed)), timer(lambda: misc.embed_gather(embed, ids))]
 
-    # --- K1 packed_w4_gemm at o_proj, gate/up and down: same f32 order -> rtol 1e-5
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    k1_bytes = k1_ops = 0
-    for ktot, n in ((HID, HID), (HID, 2 * INTER), (INTER, HID)):
+    # --- K1 packed_w4_gemm on the decode core at M = 32: o_proj, gate/up, down (summed: the kernels
+    # line's ms) and qkv, then the 70B down projection's depth (223 groups, the K-blocked order), each
+    # timed on its own, and other layouts of the core at the four decode shapes: all bit for bit
+    def k1_inputs(m, ktot, n):
         ng = ktot // 128 - 1
-        a = torch.cat([randint(-8, 8, (BATCH, ng * 128)), randint(-127, 128, (BATCH, 128))], dim=1)
+        a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
         wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
-        sa, sw = uniform(0.01, 0.2, (BATCH, ng + 1)), uniform(0.001, 0.02, (ng + 1, n))
-        got, want = gp.packed_w4_gemm(a, wp, wk, sa, sw), gp.packed_w4_gemm_plain(a, wp, wk, sa, sw)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        k1["max_abs_err"] = max(k1["max_abs_err"], (got - want).abs().max().item())
-        k1["ms"] += timer(lambda: gp.packed_w4_gemm(a, wp, wk, sa, sw))
-        k1["plain_ms"] += timer(lambda: gp.packed_w4_gemm_plain(a, wp, wk, sa, sw), n=5)
-        nbytes = a.numel() + wp.numel() + wk.numel() + 4 * (sa.numel() + sw.numel()) + 4 * BATCH * n
-        k1_bytes, k1_ops = k1_bytes + nbytes, k1_ops + 2 * BATCH * n * ktot
+        sa, sw = uniform(0.01, 0.2, (m, ng + 1)), uniform(0.001, 0.02, (ng + 1, n))
+        return a, wp, wk, sa, sw
+
+    def k1_bound(m, ktot, n):
+        ng = ktot // 128 - 1
+        nbytes = m * ktot + ng * 64 * n + 128 * n + 4 * (m * (ng + 1) + (ng + 1) * n) + 4 * m * n
+        return nbytes, 2 * m * n * ktot
+
+    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ms_by_shape={}, bound_ms_by_shape={}, plan_by_shape={},
+              layouts={})
+    k1_bytes = k1_ops = 0
+    k1_shapes = (("o_proj", HID, HID), ("gate_up", HID, 2 * INTER), ("down", INTER, HID), ("qkv", HID, 3 * HID),
+                 ("down_70b_depth", 28672, 1024))
+    for tag, ktot, n in k1_shapes:
+        args = k1_inputs(BATCH, ktot, n)
+        got, want = gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)
+        require(torch.equal(got, want), f"packed_w4_gemm at M={BATCH}, K={ktot}, N={n} ({tag}) is not bitwise its plain version")
+        plan = gp.packed_w4_plan(BATCH, ktot, n)
+        ms = timer(lambda: gp.packed_w4_gemm(*args))
+        nbytes, ops = k1_bound(BATCH, ktot, n)
+        k1["ms_by_shape"][tag] = ms
+        k1["bound_ms_by_shape"][tag] = bound(nbytes, ops, PEAK_INT8_OPS)[0]
+        k1["plan_by_shape"][tag] = plan._asdict()
+        if tag in ("o_proj", "gate_up", "down"):
+            k1["ms"] += ms
+            k1["plain_ms"] += timer(lambda: gp.packed_w4_gemm_plain(*args), n=5)
+            k1_bytes, k1_ops = k1_bytes + nbytes, k1_ops + ops
+        if tag != "down_70b_depth":  # other layouts of the core: (tile_n, tile_m, stages)
+            for tn, tm, st in ((32, 32, None), (32, 16, None), (64, 32, None), (64, 16, None), (128, 32, None),
+                               (128, 16, None), (64, 16, 8), (64, 32, 8)):
+                alt = gp.packed_w4_plan(BATCH, ktot, n, tile_n=tn, tile_m=tm, stages=st)
+                require(torch.equal(gp.packed_w4_gemm_with_plan(*args, alt), want),
+                        f"packed_w4_gemm ({tag}) under the layout {alt} is not bitwise its plain version")
+                k1["layouts"][f"{tag} tn{tn} tm{tm} st{alt.stages}"] = timer(lambda: gp.packed_w4_gemm_with_plan(*args, alt))
+        del got, want, args
+        log(f"K1 {tag} (M={BATCH}, K={ktot}, N={n}): {ms:.4f} ms under {plan}")
+    # the core's other row counts (16, 32 and 64-row blocks, rows past M): bitwise
+    for m in (1, 8, 17, 48, 64):
+        for ktot, n in ((HID, HID), (INTER, HID)):
+            args = k1_inputs(m, ktot, n)
+            require(torch.equal(gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)),
+                    f"packed_w4_gemm at M={m}, K={ktot}, N={n} is not bitwise its plain version")
     b_ms, b_by = bound(k1_bytes, k1_ops, PEAK_INT8_OPS)
     res["packed_w4_gemm"] = dict(
         k1, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        shape="M=32; (K,N) = o_proj (4096,4096) + gate/up (4096,22016) + down (11008,4096), times summed",
+        shape="M=32; (K,N) = o_proj (4096,4096) + gate/up (4096,22016) + down (11008,4096), times summed; "
+              "ms_by_shape also qkv (4096,12288) and the 70B down depth (28672,1024)",
+        checked="bitwise at M=32 (the five shapes, every layout), M=1, 8, 17, 48, 64; tile kernel: M=288 bitwise, "
+                "M=1024 and 100 rtol 1e-5",
     )
     # K1 at prefill's M (the largest bucket, 1024 rows), at the mixed step's
     # (MIXED_M = 288 rows: nine 32-row tiles, held bit for bit) and at an M that
@@ -307,14 +347,22 @@ def check_kernels(torch, dev) -> dict:
     qk = gp.packed_w4_gemm_qkv_ring_fused(y, norm_w, wp, wk, sw, cos, sin, *rk, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd)
     qp = gp.packed_w4_gemm_qkv_ring_fused_plain(y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd)
     qd = (qk.float() - qp.float()).abs()
-    beyond = (qd > qp.float().abs() * 2**-7 + 1e-6).float().mean().item()
-    require(beyond <= 1e-3, f"qkv_ring_fused: {beyond:.4%} of q beyond 1 bf16 ulp")
+    require(torch.equal(bits(qk), bits(qp)), "qkv_ring_fused: q differs from its plain version")
     others = torch.tensor([c for c in range(w) if c != row], device=dev)
     for i, (a_, b_, r0, axis) in enumerate(zip(rk, rp_, ring0, (3, 3, 2))):
-        flips = bits(a_).select(axis, row).ne(bits(b_).select(axis, row)).float().mean().item()
-        require(flips <= 1e-3, f"qkv_ring_fused: ring {i} column {row} differs in {flips:.4%}")
+        require(torch.equal(bits(a_), bits(b_)), f"qkv_ring_fused: ring {i} differs from its plain version")
         require(torch.equal(bits(a_).index_select(axis, others), bits(r0).index_select(axis, others)),
                 f"qkv_ring_fused: ring {i} written outside column {row}")
+    # other batch sizes: 16-row blocks (M = 8) and two 32-row tiles (M = 64): bitwise
+    for m_ in (8, 64):
+        y_, cs_ = normal((m_, hid), 1.0, torch.bfloat16), rope_tables(randint(0, 2048, (m_,), torch.int32), 128, 10000.0)
+        r_ = (randint(-128, 128, (m_, h, 64, w)), uniform(0.01, 0.1, (m_, 4, h, w), torch.bfloat16),
+              randint(0, 16, (m_, h, w, 128)))
+        rk_, rp2 = [r.clone() for r in r_], [r.clone() for r in r_]
+        a_q = gp.packed_w4_gemm_qkv_ring_fused(y_, norm_w, wp, wk, sw, *cs_, *rk_, row, n_q, n_q, abits=4, a_clip=0.9)
+        b_q = gp.packed_w4_gemm_qkv_ring_fused_plain(y_, norm_w, wp, wk, sw, *cs_, *rp2, row, n_q, n_q, abits=4, a_clip=0.9)
+        require(torch.equal(bits(a_q), bits(b_q)) and all(torch.equal(bits(x_), bits(z_)) for x_, z_ in zip(rk_, rp2)),
+                f"qkv_ring_fused at M={m_} differs from its plain version")
     ring_bytes = BATCH * h * (64 + 8 + 128)
     nbytes = (y.numel() * 2 + hid * 2 + BATCH * 4 + wp.numel() + wk.numel() + 4 * sw.numel()
               + 2 * 4 * BATCH * 128 + BATCH * n_q * 2 + ring_bytes)
@@ -324,6 +372,8 @@ def check_kernels(torch, dev) -> dict:
         ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused(y, norm_w, wp, wk, sw, cos, sin, *rk, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd)),
         plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused_plain(y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd), n=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape="y [32,4096] bf16, N=12288, ring [32,32,64,32]",
+        plan=gp.packed_w4_plan(BATCH, hid, n, head=True)._asdict(),
+        checked="q and the whole ring bitwise at M=32, 8 and 64",
     )
 
     # --- K7 packed_w4_gemm_qkv at the largest and the smallest prefill bucket and at the mixed step's rows: bitwise
@@ -974,15 +1024,15 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     t_window = time.perf_counter() - t
-    device_ms, kernels, k3_per_step = profile_decode(torch, qparams, state, ids, table, full, cfg, ATOM_W4A4, w,
-                                                     profile_file)
+    device_ms, kernels, k3_per_step, gemm = profile_decode(torch, qparams, state, ids, table, full, cfg, ATOM_W4A4, w,
+                                                           profile_file)
     require(k3_per_step == cfg.num_layers, f"the profiler saw {k3_per_step} K3 kernels per step, not one per layer")
     first = stats[heads[0][0]]
     step_ms = first["step_ms"]
     first.update(
         host_enqueue_ms_per_step=t_enqueue / w * 1e3, window_ms_per_step=t_window / w * 1e3,
         device_ms_per_step_profiled=device_ms, device_busy_share=device_ms / step_ms, device_kernels_per_step=kernels,
-        k3_kernels_per_step=k3_per_step,
+        k3_kernels_per_step=k3_per_step, k1_family_kernels_per_step=gemm,
     )
     log(f"step {step_ms:.3f} ms ({heads[0][0]} head): host enqueue {t_enqueue / w * 1e3:.3f} ms, device {device_ms:.3f} ms "
         f"(busy share {device_ms / step_ms:.3f}), {kernels:.0f} kernels")
@@ -1458,11 +1508,13 @@ def w4a16_stack_vs_plain(torch, dev) -> dict:
 
 
 K3_KERNEL = "paged_ring_stream_kernel"  # K3's CUDA kernel, as the profiler names it
+CORE_EPILOGUES = ("f32", "resid", "row_scale", "ring")  # gemm_core_kernel's EPI template argument, in order
 
 
-def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple[float, float, float]:
+def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple:
     """One profiled ring window: device time by kernel, written to
-    chiprun_out/``out_file``; returns device ms, kernels and K3 kernels per decode step.  (The
+    ``OUT / out_file``; returns device ms, kernels and K3 kernels per
+    decode step and the K1 family's kernels' ms and launches per step.  (The
     profiler's own host cost stretches the window's wall time, so the busy
     share is taken against the unprofiled step time.)"""
     from torch.profiler import ProfilerActivity, profile
@@ -1488,8 +1540,19 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
         f"{n_kernels} device kernels\n{table_txt}\n")
     require(dev_us > 0, "the profiler recorded no device time")
     k3 = sum(e.count for e in kernels if K3_KERNEL in e.key)
-    log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3")
-    return dev_us / w / 1e3, n_kernels / w, k3 / w
+    # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the tile
+    # kernel, the activation prologue (K2's second launch; also K9's and K10's first), SiLU (K10)
+    gemm = {}
+    for e in kernels:
+        core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)>", e.key)
+        name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
+                next((n for n in ("gemm_packed_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None))
+        if name:
+            ms, cnt = gemm.get(name, (0.0, 0.0))
+            gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
+    gemm = {k: dict(ms_per_step=v[0], launches_per_step=v[1]) for k, v in gemm.items()}
+    log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3; K1 family {gemm}")
+    return dev_us / w / 1e3, n_kernels / w, k3 / w, gemm
 
 
 @contextlib.contextmanager
