@@ -15,10 +15,10 @@
 // the ~590 int8 operations per byte where the tensor cores become the limit;
 // at M = 1024 the int8 tensor cores.
 //
-// Design.  K1's GEMM with every group read as int8 codes: a block owns a
-// 32-row x 32-column tile and walks all of K, its 8 warps take the groups
-// round-robin and compute each group's exact int32 dot with mma.sync
-// m16n8k32 (dot_int8_group, shared with K1's keeper path in int8_mma.cuh); the
+// Design.  A GEMM of K1's float order with every group read as int8 codes: a
+// block owns a 32-row x 32-column tile and walks all of K, its 8 warps take
+// the groups round-robin and compute each group's exact int32 dot with
+// mma.sync m16n8k32 (dot_int8_group in int8_mma.cuh); the
 // int32 group tiles go through shared memory and the float accumulation runs
 // group by group in order, acc += float(acc_g) * sa * sw: the TPU kernel's
 // f32 order, so K14a equals its plain version, and K1 on the same codes, bit

@@ -27,7 +27,8 @@
 // MACs against K*N/2 bytes of 4-bit weights, 64 MACs per weight byte, far below
 // the ~590 int8 ops per byte where the tensor cores become the limit: the
 // weight stream from HBM (plus the weight scales, K/128 x N x 4 bytes) bounds
-// every decode call.  At prefill (M up to 1024) the int8 tensor-core rate does.
+// every decode call.  At prefill (M up to 1024) the int8 tensor-core rate does
+// (and the float chain: see the prefill GEMM below).
 //
 // The decode core (M <= 64; ops/gemm_packed.py::packed_w4_plan picks the
 // launch and the kernel takes it as it is).  A block owns tile_m (16, 32 or
@@ -87,17 +88,46 @@
 // group; s4 x s4 mma on activations packed in the nibble-plane order would
 // halve the products and drop the masks.
 //
-// M > 64 (prefill, the mixed step) keeps the 32 x 32 tile kernel: a block
-// owns a 32-row x 32-column tile, its 8 warps take the groups round-robin and
-// compute each group's int32 tile with mma.sync (4 x 4 bytes of nibble planes
-// transposed per load, A the activations), the tiles go through shared memory
-// and the float chain runs over them 8 groups at a time.  Every 32-row tile
-// re-reads the weights (from L2 where they fit) and A from L2 with 4-byte
-// loads.  Redesigning it is later work (K7's).
+// The prefill GEMM (M > 64: prefill, the mixed step; and every K7 launch):
+// gemm_prefill_kernel, on the same ring and the same weight fragments, with
+// the int8 tensor cores' wgmma.  At M = 1024 the product is 1024 MACs per
+// weight byte against the ~590 ops per byte where the tensor cores become the
+// limit: the int8 operations bound it, and the float chain the TPU order
+// forces (5 instructions per output element and group, 4 of them on the
+// FP32 pipe) costs about as much as the tensor cores' own time, so the fold
+// of one unit must run while the tensor cores work on the next.  A block
+// owns tile_n (64 or 128) weight columns x tile_m (64 or 128) activation rows
+// and walks all of K; ops/gemm_packed.py::packed_w4_plan picks the tiles.
+// One consumer warpgroup per 64 columns computes out^T = W^T . a^T with
+// wgmma.mma_async m64n64k32 s8: A, the weights, from registers (a warp's 16
+// columns are its 16 rows of the warpgroup's 64, built from the nibble
+// planes exactly as the decode core builds its mma.sync fragments: 8-bit
+// wgmma takes K-major operands only, and the planes are N-major, so the
+// transpose happens in the byte permutes), B, the activations, from the
+// ring's 128-byte-swizzled tile by a shared-memory descriptor (K-major, 8-row
+// atoms 1024 bytes apart, the k-step's 32 bytes by the start address).  A
+// unit is one group's 4 k-steps over 64 activation rows (one or two a
+// group); its int32 products go into one of two accumulator sets, and the
+// warpgroup issues unit u + 1 (commit, wait_group 1) before it folds unit u
+// into its float chains, so the fold overlaps the tensor cores.  The weights
+// are read once per tile_m rows, the activations once per tile_n columns.
+// Two row tiles of the K-blocked order (70B depth) would hold 64 more chain
+// registers than a thread has: it runs 64-row blocks.  Columns past N (the
+// last tile of an N not a multiple of tile_n) read zeros by TMA and are not
+// stored; rows past M likewise.
 //
-// The int8 operand loads, the s8 mma and its byte transposes, the keeper's
-// int32 group dot and the per-head u4 quantizer live in int8_mma.cuh, shared
-// with the grouped int8 GEMMs (K14, gemm_int8.cu).
+// Measured and left out (PERF.md section 6): setmaxnreg to lift a
+// two-warpgroup block's consumers above ptxas's 168 registers (ptxas then
+// serialized the wgmmas and the launches failed on the card; the 128 x 128
+// block spills 40-150 bytes instead), and a pipeline whose last group was a
+// run-time branch inside the loop (ptxas injected waits there).  Known
+// limits: a unit takes ~0.6 us of a block's time, several times its
+// instruction issue, and at 1,024 rows the blocks re-read the activations
+// from L2 once per column tile.
+//
+// The int8 operand loads, the s8 mma and its byte transposes and the per-head
+// u4 quantizer live in int8_mma.cuh, shared with the grouped int8 GEMMs (K14,
+// gemm_int8.cu).
 //
 // K2 runs as two launches on one stream: the RMSNorm + dual-path quantization
 // prologue (every output tile needs the whole quantized row, so it finishes
@@ -108,8 +138,8 @@
 // (staged while the ring fills), and a warp per row rotates q and k in f32,
 // quantizes post-RoPE K and V per head (asymmetric u4: ops/reference.py
 // quantize_kv_asym) and writes q in bf16 and ring column `row` in place.  K8
-// is the same kernel on the caller's quantized activation.  K7 is the tile
-// kernel into an f32 [M, N] scratch, then an epilogue with the same per-head
+// is the same kernel on the caller's quantized activation.  K7 is the prefill
+// GEMM into an f32 [M, N] scratch, then an epilogue with the same per-head
 // arithmetic (head_rope_quant, a block per row and head) that writes one byte
 // per code and float32 params, the layout prefill appends to the pages from.
 // The TPU kernels pad M to their tile; these guard row < M instead.  NaN note:
@@ -137,7 +167,7 @@
 // SiLU is x / (1 + expf(-x)) with IEEE division, the formula of PyTorch's CUDA
 // silu, so the act codes equal the plain version's.  Bound: the two weight
 // streams (gate/up 45 MB + down 22.5 MB at 7B): memory.  K9's and K10's GEMMs
-// run on the core at M <= 64 and on the tile kernel above.
+// run on the core at M <= 64 and on the prefill GEMM above.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -151,17 +181,13 @@ namespace {
 
 constexpr int GROUP = 128;
 constexpr int HALF = 64;
-constexpr int TM = 32;     // tile kernel: output rows per block
-constexpr int TN = 32;     // tile kernel: output columns per block
-constexpr int NWARP = 8;   // tile kernel: warps per block
-constexpr int TS = TN + 1; // tile kernel: shared tile row stride (no bank conflicts)
 constexpr int HEAD = 128;  // head_dim of the qkv epilogues
 constexpr int KBLK_THRESHOLD = 112;  // body groups above which the sum is K-blocked
 constexpr int KBLK_G = 16;           // groups of a K-blocked partial
 constexpr int MAX_CONSUMERS = 8;     // core: consumer warps of a block
 constexpr int HT = HEAD + 4;         // core: row stride of the head epilogue's f32 tile
 
-// Epilogues of the GEMM: the f32 product (K1, the tile kernel's qkv scratch);
+// Epilogues of the GEMM: the f32 product (K1, K7's qkv scratch);
 // bf16(resid + bf16(acc)), resid optional (K9, K10); bf16(resid + row_scale *
 // acc) (K10 with a per-row output scale); the head ring epilogue (K2, K8: core only).
 enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3 };
@@ -186,130 +212,10 @@ struct Chain {
   }
 };
 
-__device__ __forceinline__ float group_term(int dot, float s_a, float s_w) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(dot), s_a), s_w);
-}
-
 __device__ __forceinline__ float epi_value(int epi, float acc, const __nv_bfloat16* resid,
                                            const float* row_scale, size_t o, int row) {
   if (epi == EPI_RESID) return resid != nullptr ? __fadd_rn(__bfloat162float(resid[o]), bf16_round(acc)) : acc;
   return __fadd_rn(__bfloat162float(resid[o]), __fmul_rn(row_scale[row], acc));
-}
-
-// ---------------------------------------------------------------------------
-// The tile kernel (M > 64)
-// ---------------------------------------------------------------------------
-
-// One warp: 16 x (int32 dot) of nibble group g, rows [m0, m0+32), cols [n0, n0+32).
-__device__ __forceinline__ void dot_nibble_group(const int8_t* A, int lda, int M, int m0,
-                                                 const int8_t* wp, int N, int n0, int g,
-                                                 int lane, int (&acc)[2][4][4]) {
-  const int gid = lane >> 2, tig = lane & 3;
-  const int8_t* wrow = wp + (size_t)(g * HALF + tig * 4) * N + n0 + 4 * gid;
-  uint32_t w[4][4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[s][i] = ld_u32(wrow + (size_t)(s * 16 + i) * N);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    uint32_t t[4];
-    transpose4(w[s], t);
-    const int k = g * GROUP + s * 16 + tig * 4;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = m0 + mt * 16 + gid;
-      a[mt][0] = ld_a(A, lda, M, r, k);
-      a[mt][1] = ld_a(A, lda, M, r + 8, k);
-      a[mt][2] = ld_a(A, lda, M, r, k + HALF);
-      a[mt][3] = ld_a(A, lda, M, r + 8, k + HALF);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t lo = (t[c] << 4) & 0xF0F0F0F0u;  // 16 x code r
-      const uint32_t hi = t[c] & 0xF0F0F0F0u;         // 16 x code r + 64
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][c], a[mt], lo, hi);
-    }
-  }
-}
-
-template <int EPI, bool KBLK>
-__global__ void __launch_bounds__(NWARP * 32)
-gemm_packed_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ wp,
-                   const int8_t* __restrict__ wk, const float* __restrict__ sa,
-                   const float* __restrict__ sw, void* __restrict__ out,
-                   const __nv_bfloat16* __restrict__ resid, const float* __restrict__ row_scale,
-                   int M, int N, int ng) {
-  __shared__ int tile[NWARP][TM * TS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
-  const int total = ng + 1;  // body groups + keeper
-  const int lda = total * GROUP;
-  // this thread's 4 output elements: row er, columns ec .. ec + 3
-  const int er = threadIdx.x / (TN / 4), ec = (threadIdx.x % (TN / 4)) * 4;
-  const int row = m0 + er;
-  Chain acc[4];
-
-  for (int base = 0; base < total; base += NWARP) {
-    const int g = base + warp;
-    if (g < total) {
-      int ia[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ia[mt][c][j] = 0;
-      if (g < ng)
-        dot_nibble_group(A, lda, M, m0, wp, N, n0, g, lane, ia);
-      else
-        dot_int8_group(A, lda, M, m0, wk, N, n0, ng * GROUP, lane, ia);
-      const int shift = g < ng ? 4 : 0;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = mt * 16 + gid + (j >> 1) * 8;
-            const int col = 4 * (tig * 2 + (j & 1)) + c;
-            tile[warp][r * TS + col] = ia[mt][c][j] >> shift;
-          }
-    }
-    __syncthreads();
-    const int n_here = min(NWARP, total - base);
-    for (int q = 0; q < n_here; ++q) {
-      const int gg = base + q;
-      const float s_a = row < M ? sa[(size_t)row * total + gg] : 0.f;
-      const float* s_w = sw + (size_t)gg * N + n0 + ec;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float t = group_term(tile[q][er * TS + ec + j], s_a, s_w[j]);
-        if (!KBLK) {
-          acc[j].out = __fadd_rn(acc[j].out, t);
-        } else if (gg == ng) {
-          acc[j].keeper(t, true);
-        } else {
-          acc[j].add(t, true);
-          if ((gg + 1) % KBLK_G == 0 && gg + 1 < ng) acc[j].block_end();
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (row >= M) return;
-  const size_t o = (size_t)row * N + n0 + ec;
-  if (EPI == EPI_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
-        make_float4(acc[0].out, acc[1].out, acc[2].out, acc[3].out);
-    return;
-  }
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ob[j] = __float2bfloat16_rn(epi_value(EPI, acc[j].out, resid, row_scale, o + j, row));
 }
 
 // ---------------------------------------------------------------------------
@@ -714,6 +620,315 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
+// The prefill GEMM (M > 64, and K7)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of these registers across a
+// wgmma fence or wait (the wgmmas in flight read or write them)
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) asm volatile("" : "+r"(d[j])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(a[k][q])::"memory");
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t swizzle128_desc(const void* smem) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] (+)= a[64 x 32] (registers, s8) x b[32 x 64] (shared memory, s8, descriptor), int32
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// One group's A operand for a consumer thread: k-step j's four registers
+// (its columns c0 and c0 + 1 as rows gid and gid + 8 of its warp's 16), the
+// group's weight scales of those columns and the ring stage of its activation tile.
+struct Frag {
+  uint32_t a[4][4];
+  float2 w2;
+  int s;
+};
+
+// H: 64-row halves of a block (tile_m = 64 H); NWG: consumer warpgroups, one
+// per 64 columns (tile_n = 64 NWG); KBLK: the K-blocked order (ng > 112).
+// Warps 0 .. 4 NWG - 1 consume, warp 4 NWG is the producer (a warpgroup's
+// warps must be 4 aligned ones).  Unit (g, h): group g (ng the keeper) on rows
+// 64h .. 64h + 63 of the block; the units run in order g-major.
+template <int H, int NWG, int EPI, bool KBLK>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+                    const __grid_constant__ CUtensorMap tmK, const CoreParams p) {
+  constexpr int BM = 64 * H, BN = 64 * NWG, CW = 4 * NWG;
+  static_assert(!(KBLK && H > 1), "the K-blocked order's partial chains fit registers at 64 rows");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const int S = p.stages, ng = p.ng;
+  unsigned char* ringA = base;                                     // S x BM x 128, 128-byte swizzle
+  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x 64 rows x BN, swizzled (w_offset)
+  float* ringS = reinterpret_cast<float*>(ringW + S * BN * HALF);  // S x BN weight scales
+  float* sa_s = ringS + S * BN;                                    // (ng + 1) x BM activation scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(sa_s + (ng + 1) * BM);
+  uint64_t* empty = full + S;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CW);
+    }
+  }
+  __syncthreads();
+
+  if (warp == CW) {
+    // producer: slot j < ng body group j, slot ng the keeper's rows 0-63 with
+    // its activation tile and scale row, slot ng + 1 its rows 64-127
+    if (lane == 0) {
+      const int sw_bytes = min(BN, p.N - n0) * 4;
+      for (int j = 0, s = 0, ph = 0; j < ng + 2; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
+        if (j >= S) mbar_wait(empty + s, ph ^ 1);
+        const bool act = j <= ng;
+        mbar_expect(full + s, BN * HALF + (act ? BM * GROUP + sw_bytes : 0));
+        tma_load(ringW + s * BN * HALF, j < ng ? &tmW : &tmK, n0, (j < ng ? j : j - ng) * HALF, full + s);
+        if (act) {
+          tma_load(ringA + s * BM * GROUP, &tmA, j * GROUP, m0, full + s);
+          bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, sw_bytes, full + s);
+        }
+      }
+    }
+    return;
+  }
+  // while the ring fills, the consumers stage the block rows' activation
+  // scales, group-major, the body groups' times 1/16 (as the decode core)
+  {
+    constexpr int PER = 8, nct = CW * 32;
+    const int total = BM * (ng + 1);
+    for (int i0 = tid; i0 < total; i0 += PER * nct) {
+      float v[PER];
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int i = i0 + u * nct, r = i / (ng + 1);
+        v[u] = i < total && m0 + r < p.M ? p.sa[(size_t)m0 * (ng + 1) + i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int i = i0 + u * nct, r = i / (ng + 1), g = i % (ng + 1);
+        if (i < total) sa_s[g * BM + r] = g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nct) : "memory");
+  }
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = warp * 16 + 2 * gid;  // this thread's weight columns in the tile: c0, c0 + 1
+  uint32_t sel0 = 0, sel1 = 0;         // see load_cols
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const uint32_t k = (jj - tig) & 3;
+    sel0 |= (2 * k) << (4 * jj);
+    sel1 |= (2 * k + 1) << (4 * jj);
+  }
+  // offsets of this thread's 16-bit weight loads in the 4-row step 0 (rows
+  // 4tig + ..); step q adds q * 16 rows (the swizzle repeats every 8 rows)
+  uint32_t wb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wb[i] = w_offset(4 * tig + ((i + tig) & 3), c0, BN);
+  auto woff = [&](int q, uint32_t (&o)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = wb[i] + q * 16 * BN;
+  };
+
+  int fs = 0, fph = 0;  // ring stage and phase of the next slot to wait for
+  auto next_full = [&]() {
+    const int s = fs;
+    mbar_wait(full + s, fph);
+    if (++fs == S) {
+      fs = 0;
+      fph ^= 1;
+    }
+    return s;
+  };
+  // group g's fragments from its slot (the keeper's from its two): body k-step
+  // j = 2 plane + sh takes weight rows 32 sh .. (4-row steps 2sh, 2sh + 1) in
+  // the plane's nibble and activation bytes 32 j ..; the keeper's k-step st
+  // its rows 32 st .. (slot st / 2)
+  auto build = [&](int g, Frag& F) {
+    const int s = next_full();
+    F.s = s;
+    uint32_t o0[4], o1[4];
+    if (g < ng) {
+      const unsigned char* ws = ringW + s * BN * HALF;
+#pragma unroll
+      for (int sh = 0; sh < 2; ++sh) {
+        uint32_t t[4];
+        woff(2 * sh, o0);
+        woff(2 * sh + 1, o1);
+        load_cols(ws, o0, sel0, sel1, t[0], t[1]);
+        load_cols(ws, o1, sel0, sel1, t[2], t[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          F.a[sh][q] = (t[q] << 4) & 0xF0F0F0F0u;  // 16 x code r
+          F.a[2 + sh][q] = t[q] & 0xF0F0F0F0u;     // 16 x code r + 64
+        }
+      }
+    } else {
+      const int s1 = next_full();
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const unsigned char* ws = ringW + (st < 2 ? s : s1) * BN * HALF;
+        woff(2 * (st & 1), o0);
+        woff(2 * (st & 1) + 1, o1);
+        load_cols(ws, o0, sel0, sel1, F.a[st][0], F.a[st][1]);
+        load_cols(ws, o1, sel0, sel1, F.a[st][2], F.a[st][3]);
+      }
+    }
+    F.w2 = *reinterpret_cast<const float2*>(ringS + s * BN + c0);
+  };
+  int rs = 0;  // ring stage of the next slot to release
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + rs);
+    if (++rs == S) rs = 0;
+  };
+  const uint64_t desc0 = swizzle128_desc(ringA);
+  auto issue = [&](const Frag& F, int h, int (&d)[32]) {
+    const uint64_t desc = desc0 + (uint64_t)((F.s * BM * GROUP + h * 64 * GROUP) >> 4);
+    wgmma_fence();
+    fence_regs(d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_s8_n64(d, F.a[j], desc + 2 * j, j);  // k-step j: 32 bytes on
+    wgmma_commit();
+  };
+  // element j of a unit: activation row 8 (j >> 2) + 2 tig + (j & 1) of its
+  // 64, weight column c0 + ((j >> 1) & 1)
+  Chain ch[H][32];
+  auto fold = [&](const int (&d)[32], int g, int h, float2 w2, bool keeper) {
+    const bool block_end = KBLK && !keeper && (g + 1) % KBLK_G == 0 && g + 1 < ng;
+    const float* sas = sa_s + g * BM + h * 64 + 2 * tig;
+    float2 s2[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s2[i] = *reinterpret_cast<const float2*>(sas + 8 * i);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float t = __fmul_rn(__fmul_rn(small_int_to_float(d[j]), (j & 1) ? s2[j >> 2].y : s2[j >> 2].x),
+                                (j & 2) ? w2.y : w2.x);
+      if (keeper) {
+        ch[h][j].keeper(t, KBLK);
+      } else {
+        ch[h][j].add(t, KBLK);
+        if (block_end) ch[h][j].block_end();
+      }
+    }
+  };
+  // unit (g, h) of the group whose fragments are F is in flight into d: issue
+  // the next unit into dn (the group's next half, or group g + 1's first, its
+  // fragments built into Fn), wait for (g, h) and fold it; a body group's slot
+  // is released after its last unit.  Straight-line from the issue to the
+  // fold, so that ptxas sees which accumulator set the wait has finished.
+  auto step = [&](int g, int h, int (&d)[32], int (&dn)[32], Frag& F, Frag& Fn) {
+    if (h + 1 < H) {
+      issue(F, h + 1, dn);
+    } else {
+      build(g + 1, Fn);
+      issue(Fn, 0, dn);
+    }
+    wgmma_wait<1>();
+    fence_regs(d);
+    if (h + 1 == H) {
+      fence_regs(F.a);  // the finished wgmmas read these until the wait
+      release();
+    }
+    fold(d, g, h, F.w2, false);
+  };
+  // the keeper's units, the last ones: (ng, 0) is in flight into d
+  auto last = [&](int (&d)[32], int (&dn)[32], Frag& F) {
+    if constexpr (H == 2) {
+      issue(F, 1, dn);
+      wgmma_wait<1>();
+      fence_regs(d);
+      fold(d, ng, 0, F.w2, true);
+      wgmma_wait<0>();
+      fence_regs(dn);
+      fold(dn, ng, 1, F.w2, true);
+    } else {
+      wgmma_wait<0>();
+      fence_regs(d);
+      fold(d, ng, 0, F.w2, true);
+    }
+  };
+  int dA[32], dB[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) dA[j] = dB[j] = 0;
+  Frag F0, F1;
+  build(0, F0);
+  issue(F0, 0, dA);
+  int g = 0;
+  for (; g + 2 <= ng; g += 2) {  // two body groups, a third group after them
+    if constexpr (H == 2) {
+      step(g, 0, dA, dB, F0, F1);
+      step(g, 1, dB, dA, F0, F1);
+      step(g + 1, 0, dA, dB, F1, F0);
+      step(g + 1, 1, dB, dA, F1, F0);
+    } else {
+      step(g, 0, dA, dB, F0, F1);
+      step(g + 1, 0, dB, dA, F1, F0);
+    }
+  }
+  if (g < ng) {  // the last body group, then the keeper
+    if constexpr (H == 2) {
+      step(g, 0, dA, dB, F0, F1);
+      step(g, 1, dB, dA, F0, F1);
+      last(dA, dB, F1);
+    } else {
+      step(g, 0, dA, dB, F0, F1);
+      last(dB, dA, F1);
+    }
+  } else {
+    last(dA, dB, F0);
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j & 2) continue;  // j and j + 2: columns c0 and c0 + 1 of one row
+      const int row = m0 + h * 64 + 8 * (j >> 2) + 2 * tig + (j & 1);
+      if (row >= p.M || n0 + c0 >= p.N) continue;
+      const float v0 = ch[h][j].out, v1 = ch[h][j + 2].out;
+      const size_t o = (size_t)row * p.N + n0 + c0;
+      if (EPI == EPI_F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) = __floats2bfloat162_rn(
+            epi_value(EPI, v0, p.resid, p.row_scale, o, row), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, row));
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Prologue, SiLU, the prefill epilogue
 // ---------------------------------------------------------------------------
 
@@ -878,8 +1093,8 @@ qkv_codes_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict
 // Launches
 // ---------------------------------------------------------------------------
 
-// The launch plan of ops/gemm_packed.py::PackedW4Plan.args(): core or tile
-// kernel, block rows and columns, ring stages.
+// The launch plan of ops/gemm_packed.py::PackedW4Plan.args(): the decode core
+// (1) or the prefill GEMM (0), block rows and columns, ring stages.
 struct Plan {
   int core, tile_m, tile_n, stages;
 };
@@ -957,26 +1172,71 @@ int launch_core(const void* a, const void* wp, const void* wk, const void* sa, c
   return launch_core_nt<8, EPI>(ta, tw, tk, p, pl, smem, st);
 }
 
+template <int H, int NWG, int EPI, bool KBLK>
+int launch_prefill_k(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CoreParams& p,
+                     int smem, cudaStream_t st) {
+  auto kernel = gemm_prefill_kernel<H, NWG, EPI, KBLK>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const dim3 grid((p.M + 64 * H - 1) / (64 * H), (p.N + 64 * NWG - 1) / (64 * NWG), 1);
+  kernel<<<grid, 128 * NWG + 32, smem, st>>>(ta, tw, tk, p);
+  return (int)cudaGetLastError();
+}
+
+template <int H, int NWG, int EPI>
+int launch_prefill_hn(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CoreParams& p,
+                      int smem, cudaStream_t st) {
+  if (p.ng <= KBLK_THRESHOLD) return launch_prefill_k<H, NWG, EPI, false>(ta, tw, tk, p, smem, st);
+  if constexpr (H == 1) return launch_prefill_k<1, NWG, EPI, true>(ta, tw, tk, p, smem, st);
+  return (int)cudaErrorInvalidValue;  // the K-blocked order runs 64-row blocks
+}
+
+// The prefill GEMM on a [M, (ng + 1) * 128] int8 activation, with the
+// epilogue's operands in p (its inputs and geometry filled here).  A plan the
+// kernel cannot run is refused.
 template <int EPI>
-cudaError_t launch_tile(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, void* out,
-                        const void* resid, const void* row_scale, int M, int N, int ng, cudaStream_t st) {
-  const dim3 grid(N / TN, (M + TM - 1) / TM);
-  auto kernel = ng > KBLK_THRESHOLD ? gemm_packed_kernel<EPI, true> : gemm_packed_kernel<EPI, false>;
-  kernel<<<grid, NWARP * 32, 0, st>>>((const int8_t*)a, (const int8_t*)wp, (const int8_t*)wk, (const float*)sa,
-                                      (const float*)sw, out, (const __nv_bfloat16*)resid, (const float*)row_scale, M,
-                                      N, ng);
-  return cudaGetLastError();
+int launch_prefill(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, CoreParams p,
+                   int M, int N, int ng, const Plan& pl, cudaStream_t st) {
+  const bool shape_ok = ng >= 0 && (pl.tile_m == 64 || pl.tile_m == 128) && (pl.tile_n == 64 || pl.tile_n == 128) &&
+                        N % 32 == 0 && pl.stages >= 3 && (ng <= KBLK_THRESHOLD || pl.tile_m == 64);
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, false);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tw, tk;
+  const CUtensorMapSwizzle wsw = pl.tile_n == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  int e = encode_map(&ta, a, (ng + 1) * GROUP, M, GROUP, pl.tile_m, CU_TENSOR_MAP_SWIZZLE_128B);
+  // no body group (K = 128): the body map is never read; it maps the keeper
+  if (!e) e = ng ? encode_map(&tw, wp, N, ng * HALF, pl.tile_n, HALF, wsw) : encode_map(&tw, wk, N, GROUP, pl.tile_n, HALF, wsw);
+  if (!e) e = encode_map(&tk, wk, N, GROUP, pl.tile_n, HALF, wsw);
+  if (e) return e;
+  p.sa = (const float*)sa;
+  p.sw = (const float*)sw;
+  p.M = M;
+  p.N = N;
+  p.ng = ng;
+  p.tile_m = pl.tile_m;
+  p.tile_n = pl.tile_n;
+  p.stages = pl.stages;
+  if (pl.tile_m == 64)
+    return pl.tile_n == 64 ? launch_prefill_hn<1, 1, EPI>(ta, tw, tk, p, smem, st)
+                           : launch_prefill_hn<1, 2, EPI>(ta, tw, tk, p, smem, st);
+  return pl.tile_n == 64 ? launch_prefill_hn<2, 1, EPI>(ta, tw, tk, p, smem, st)
+                         : launch_prefill_hn<2, 2, EPI>(ta, tw, tk, p, smem, st);
 }
 
 // The GEMM with an F32 / RESID / ROW_SCALE epilogue on the plan's kernel.
 template <int EPI>
 int launch_gemm(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, void* out,
                 const void* resid, const void* row_scale, int M, int N, int ng, const Plan& pl, cudaStream_t st) {
-  if (!pl.core) return (int)launch_tile<EPI>(a, wp, wk, sa, sw, out, resid, row_scale, M, N, ng, st);
   CoreParams p = {};
   p.out = out;
   p.resid = (const __nv_bfloat16*)resid;
   p.row_scale = (const float*)row_scale;
+  if (!pl.core) return launch_prefill<EPI>(a, wp, wk, sa, sw, p, M, N, ng, pl, st);
   return launch_core<EPI>(a, wp, wk, sa, sw, p, M, N, ng, pl, st);
 }
 
@@ -1040,15 +1300,15 @@ extern "C" int atom_qkv_ring(const void* a, const void* wp, const void* wk, cons
                      plan_of(plan), (cudaStream_t)stream);
 }
 
-// K7: the tile kernel, then q / K codes / V codes / params in the prefill layout.
+// K7: the prefill GEMM (its plan), then q / K codes / V codes / params in the prefill layout.
 extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, const void* sa,
                               const void* sw, const void* cosv, const void* sinv, void* qkv_scratch,
                               void* q, void* k_codes, void* k_prm, void* v_codes, void* v_prm,
-                              int M, int ng, int n_q, int H, void* stream) {
+                              int M, int ng, int n_q, int H, const int* plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int N = n_q + 2 * H * HEAD;
-  const cudaError_t err = launch_tile<EPI_F32>(a, wp, wk, sa, sw, qkv_scratch, nullptr, nullptr, M, N, ng, st);
-  if (err != cudaSuccess) return (int)err;
+  const int e = launch_gemm<EPI_F32>(a, wp, wk, sa, sw, qkv_scratch, nullptr, nullptr, M, N, ng, plan_of(plan), st);
+  if (e) return e;
   qkv_codes_epilogue_kernel<<<dim3(M, N / HEAD), HEAD, 0, st>>>(
       (const float*)qkv_scratch, (const float*)cosv, (const float*)sinv, (__nv_bfloat16*)q,
       (int8_t*)k_codes, (float*)k_prm, (int8_t*)v_codes, (float*)v_prm, n_q, H);

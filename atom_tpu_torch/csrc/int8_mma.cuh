@@ -1,8 +1,8 @@
 // Building blocks shared by the integer GEMMs: K1's family (gemm_packed.cu) and
 // the grouped int8 GEMMs K14 (gemm_int8.cu).  Device functions only, included
 // by each source: int8 operand loads, the mma.sync m16n8k32 s8 product and its
-// byte transposes, the int32 dot of one 128-row group of int8 codes, and the
-// per-head asymmetric u4 quantizer of ops/reference.py quantize_kv_asym.
+// byte transposes, the int32 dot of one 128-row group of int8 codes (K14), and
+// the per-head asymmetric u4 quantizer of ops/reference.py quantize_kv_asym.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -35,7 +35,10 @@ above it partial sums of ``KBLK_G`` groups, each added to the output in turn,
 the keeper's term before the last partial.  :func:`packed_w4_plan` picks
 the CUDA launch for a shape: up to ``CORE_MAX_M`` rows the pipelined decode
 core (column tiles, a ring of TMA copies a block, a warp per 16 columns
-keeping its float chains in registers), above it the 32 x 32 tile kernel.
+keeping its float chains in registers), above it the prefill GEMM (blocks of
+64 or 128 rows x 64 or 128 columns on the same ring, a warpgroup per 64
+columns on the int8 ``wgmma``, the fold of one 64-row unit overlapping the
+next unit's products).  K7 always runs the prefill GEMM.
 """
 from __future__ import annotations
 
@@ -57,11 +60,18 @@ HALF = GROUP // 2
 _TN = 32  # N is whole 32-column tiles
 KBLK_THRESHOLD = 112  # body groups above which the sum is K-blocked (pallas_gemm_packed.py:174)
 KBLK_G = 16  # groups of a K-blocked partial sum
-CORE_MAX_M = 64  # rows up to which the decode core runs; the 32 x 32 tile kernel above
+CORE_MAX_M = 64  # rows up to which the decode core runs; the prefill GEMM above
 HEAD = 128  # columns of a head: the ring epilogue's block owns one
 _CORE_ROWS = (16, 32, 64)  # block rows of the core (tile_m)
 _CORE_COLS = (32, 64, 128)  # block columns of the core (tile_n): a consumer warp per 16
 _STAGES = 8  # ring slots of the core (3 to 35 measured within a few per cent on the H100; 8 the best or equal)
+_PREFILL_ROWS = (64, 128)  # block rows of the prefill GEMM: one or two 64-row wgmma units a group
+_PREFILL_COLS = (64, 128)  # block columns of the prefill GEMM: a consumer warpgroup per 64
+_PREFILL_STAGES = 6  # ring slots of the prefill GEMM, fewer where shared memory holds fewer
+# A prefill block's time per group (us) by (tile_m, tile_n), and its blocks per SM: NVIDIA H100 80GB
+# HBM3, 700 W, scripts/torch_prefill_gemm.py --crossover (one wave of blocks, 32-1,024 rows)
+_PREFILL_GROUP_US = {(64, 64): 0.66, (64, 128): 0.84, (128, 64): 0.90, (128, 128): 1.2}
+_PREFILL_BLOCKS_PER_SM = {(64, 64): 2, (64, 128): 1, (128, 64): 1, (128, 128): 1}
 _SMS = 132  # the H100's SMs
 _SMEM_BLOCK = 232448  # the most shared memory one block may take
 
@@ -75,8 +85,11 @@ class PackedW4Plan(NamedTuple):
     ``path`` "core": blocks of ``tile_m`` rows x ``tile_n`` columns, one
     producer warp and a consumer warp per 16 columns (over all the block's
     rows), a ring of ``stages`` group slots, ``smem`` bytes of dynamic shared
-    memory, grid ``(N / tile_n, ceil(M / tile_m))``.  ``path`` "tile": the
-    32 x 32 tile kernel, grid ``(N / 32, ceil(M / 32))`` (the other fields 0)."""
+    memory, grid ``(N / tile_n, ceil(M / tile_m))``.  ``path`` "prefill":
+    blocks of ``tile_m`` rows x ``tile_n`` columns, a consumer warpgroup per
+    64 columns and a producer warp, the same ring and shared memory, grid
+    ``(ceil(M / tile_m), ceil(N / tile_n))`` (row tiles first, so that the
+    blocks in flight share their column tiles' weights in L2)."""
 
     path: str
     tile_m: int
@@ -91,23 +104,24 @@ class PackedW4Plan(NamedTuple):
 
 
 def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool) -> int:
-    """Dynamic shared memory of a core block (``gemm_packed.cu::core_smem``):
-    per ring stage the activation tile, the weight slot (64 byte rows), the
-    scale row and two barriers; the activation scales of all groups; the
-    head epilogue's f32 tile and its rows' cos and sin; 1 KB to align the ring."""
+    """Dynamic shared memory of a core or prefill block
+    (``gemm_packed.cu::core_smem``): per ring stage the activation tile, the
+    weight slot (64 byte rows), the scale row and two barriers; the
+    activation scales of all groups; the head epilogue's f32 tile and its
+    rows' cos and sin; 1 KB to align the ring."""
     stage = tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16
     return 1024 + stages * stage + (ng + 1) * tile_m * 4 + (tile_m * (3 * HEAD + 4) * 4 if head else 0)
 
 
 @functools.lru_cache(maxsize=512)
 def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | None = None,
-                   tile_m: int | None = None, stages: int | None = None) -> PackedW4Plan:
+                   tile_m: int | None = None, stages: int | None = None, path: str | None = None) -> PackedW4Plan:
     """The launch for an [m, k] x [k, n] product (k = body groups * 128 +
     the 128 keeper rows); raises on a shape the kernels do not take (N not
     whole 32-column tiles, K not whole groups).  ``head``: the ring epilogue,
     whose block owns a 128-column head (at most 32 rows a block, any M).
-    ``tile_n``, ``tile_m`` and ``stages`` override the defaults (for
-    measuring other layouts).
+    ``path`` ("core" or "prefill"), ``tile_n``, ``tile_m`` and ``stages``
+    override the defaults (for measuring other layouts).
 
     Core (M <= 64 with a body group, or ``head``): 64 columns a block where
     N allows (rows of 64 bytes a weight copy), else 32; the fewest of 16, 32
@@ -115,14 +129,19 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     than SMs (at M <= 64 there is no split of K to fill the card with: the
     column tiles, and row tiles that read the same weights, are the
     parallelism; not for ``head``, whose 96 blocks of 32 rows measured
-    faster than 192 of 16); a ring of 8 group slots."""
+    faster than 192 of 16); a ring of 8 group slots.  Prefill (above 64
+    rows, or no body group): see :func:`_prefill_plan`."""
     if n <= 0 or n % _TN:
         raise ValueError(f"packed_w4_gemm: N={n} must be a positive multiple of {_TN}")
     if k < GROUP or k % GROUP:
         raise ValueError(f"packed_w4_gemm: K={k} must be a positive multiple of {GROUP}")
     ng = k // GROUP - 1
-    if not head and (m > CORE_MAX_M or ng == 0):
-        return PackedW4Plan("tile", 0, 0, 0, 0, (n // _TN, -(-m // _TN)))
+    if path is None:
+        path = "core" if head or (m <= CORE_MAX_M and ng > 0) else "prefill"
+    if path == "prefill" and not head:
+        return _prefill_plan(m, ng, n, tile_m, tile_n, stages)
+    if path != "core" or ng == 0:
+        raise ValueError(f"packed_w4_gemm: no {path} launch for K={k}{' with the ring epilogue' if head else ''}")
     if head and n % HEAD:
         raise ValueError(f"packed_w4_gemm: N={n} must be whole {HEAD}-column heads")
     tn = HEAD if head else (tile_n or (2 * _TN if n % (2 * _TN) == 0 else _TN))
@@ -140,6 +159,40 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     return PackedW4Plan("core", rows, tn, stages, smem, (n // tn, -(-m // rows)))
 
 
+def _prefill_plan(m: int, ng: int, n: int, tile_m: int | None = None, tile_n: int | None = None,
+                  stages: int | None = None) -> PackedW4Plan:
+    """The prefill GEMM's launch for M rows, ``ng`` body groups and N
+    columns: of the blocks of 64 or 128 rows x 64 or 128 columns (a last
+    tile past M or N reads zeros and stores nothing), the one whose waves
+    of blocks (``_PREFILL_BLOCKS_PER_SM`` a SM) take the least time at the
+    measured time per group of a block (``_PREFILL_GROUP_US``): bigger
+    blocks read the weights and activations fewer times but take longer a
+    group, so small grids take small blocks; 64 rows above
+    ``KBLK_THRESHOLD`` groups (the K-blocked order's partial chains would
+    not fit a thread's registers at 128); a ring of ``_PREFILL_STAGES``
+    group slots, or as many as shared memory holds (at least 3)."""
+    kblk = ng > KBLK_THRESHOLD
+
+    def cost(layout):
+        rows, cols = layout
+        blocks = -(-m // rows) * -(-n // cols)
+        return -(-blocks // (_SMS * _PREFILL_BLOCKS_PER_SM[layout])) * _PREFILL_GROUP_US[layout]
+
+    layouts = [(r, c) for r in _PREFILL_ROWS for c in _PREFILL_COLS
+               if r == (tile_m or r) and c == (tile_n or c) and not (kblk and r > _PREFILL_ROWS[0])]
+    if not layouts:
+        raise ValueError(f"packed_w4_gemm: {tile_m} x {tile_n} blocks at {ng} groups is not a prefill layout")
+    tm, tn = min(layouts, key=lambda lay: (cost(lay), -lay[0] * lay[1]))
+    if stages is None:
+        stages = max(3, min(ng + 2, _PREFILL_STAGES))
+        while stages > 3 and core_smem(tm, tn, stages, ng, False) > _SMEM_BLOCK:
+            stages -= 1
+    smem = core_smem(tm, tn, stages, ng, False)
+    if stages < 3 or smem > _SMEM_BLOCK:
+        raise ValueError(f"packed_w4_gemm: {ng} groups at {tm} x {tn} leave no room for a ring of {stages} stages")
+    return PackedW4Plan("prefill", tm, tn, stages, smem, (-(-m // tm), -(-n // tn)))
+
+
 @functools.cache
 def _lib():
     lib = _build.load("gemm_packed")
@@ -149,7 +202,7 @@ def _lib():
     lib.atom_qkv_ring_fused.restype = _I
     lib.atom_qkv_ring.argtypes = [_P] * 11 + [_I] * 6 + [_PLAN, _P]
     lib.atom_qkv_ring.restype = _I
-    lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_P]
+    lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_PLAN, _P]
     lib.atom_qkv_codes.restype = _I
     lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _PLAN, _P]
     lib.atom_gemm_fused_in.restype = _I
@@ -166,7 +219,7 @@ def plan_arg(plan: PackedW4Plan):
 def unpack_nibble_planes(wp: torch.Tensor) -> torch.Tensor:
     """Nibble-plane bytes [ng * 64, N] -> signed int4 codes int32 [ng, 128, N]."""
     ng = wp.shape[0] // HALF
-    u = wp.reshape(ng, HALF, -1).to(torch.int32) & 0xFF
+    u = wp.reshape(ng, HALF, wp.shape[1]).to(torch.int32) & 0xFF
     lo = ((u & 0x0F) ^ 8) - 8
     hi = ((u >> 4) ^ 8) - 8
     return torch.cat([lo, hi], dim=1)
@@ -213,9 +266,11 @@ def packed_w4_gemm(
     if on_cpu(a, wp, wk, sa, sw):
         return packed_w4_gemm_plain(a, wp, wk, sa, sw)
     m, ktot = a.shape
-    out = packed_w4_gemm_with_plan(a, wp, wk, sa, sw, packed_w4_plan(m, ktot, wp.shape[1]))
+    plan = packed_w4_plan(m, ktot, wp.shape[1])
+    out = packed_w4_gemm_with_plan(a, wp, wk, sa, sw, plan)
     if m:
         packed_w4_gemm.launches += 1
+        packed_w4_gemm.launches_by_path[plan.path] += 1
     return out
 
 
@@ -246,6 +301,7 @@ def packed_w4_gemm_with_plan(a, wp, wk, sa, sw, plan: PackedW4Plan) -> torch.Ten
 
 
 packed_w4_gemm.launches = 0
+packed_w4_gemm.launches_by_path = {"core": 0, "prefill": 0}
 
 
 def quant_gemm_packed(
@@ -440,7 +496,8 @@ def packed_w4_gemm_qkv(
             _lib().atom_qkv_codes(
                 a.data_ptr(), wp.data_ptr(), wk.data_ptr(), sa.data_ptr(), sw.data_ptr(),
                 cos.data_ptr(), sin.data_ptr(), qkv.data_ptr(), q.data_ptr(), k_codes.data_ptr(),
-                k_prm.data_ptr(), v_codes.data_ptr(), v_prm.data_ptr(), m, ng, n_q, h, _build.stream(),
+                k_prm.data_ptr(), v_codes.data_ptr(), v_prm.data_ptr(), m, ng, n_q, h,
+                plan_arg(packed_w4_plan(m, a.shape[1], n, path="prefill")), _build.stream(),
             ),
             "packed_w4_gemm_qkv",
         )

@@ -6,15 +6,18 @@ Phases, each fatal on failure:
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel K1-K14 against its plain PyTorch version at the
      Llama-2-7B shapes of the decode step (batch 32, context 512), of prefill
-     (K7, K1 and K12 at 1024 and 128 rows), of the head (K5 at 32 rows and 1),
-     of the mixed step (K1 and K7 at its 288 rows, K11 on the decode rows and
-     on a chunk's prefix), of the fused post-attention half (K9, K10), of the
+     (K1 and K7 at the engine's buckets 128, 256 and 512 rows and at 1024, K12
+     at 1024 and 128), of the head (K5 at 32 rows and 1), of the mixed step (K1
+     and K7 at its 288 rows, K11 on the decode rows and on a chunk's prefix),
+     of the fused post-attention half (K9, K10; also at 288 rows), of the
      W4A16 stack (K13 at its layer's seven GEMMs, at 1024 rows and at the head)
      and of the int8-carrier GEMMs (K14a at 32 and 1024 rows, N 4096 and 11008;
      K14b at N 4096), and time kernel, plain version and, where one PyTorch call
      computes the same function, that call; K1's decode core bit for bit at
      o_proj, gate/up, down, qkv and the 70B down projection's depth (K-blocked
      order), each shape timed on its own and under other layouts of the core;
+     K1's prefill GEMM bit for bit at o_proj, gate/up and down from 100 to
+     1024 rows and at the 70B depth at 288 rows, K7 at every prefill row count;
   3. drive the W4A4 decode path at full width (32 layers, hidden 4096,
      ATOM_W4A4, random weights from a seed): ``decode_burst`` over 2 ring
      windows, which flush, with every kernel's launch count read; then decode
@@ -83,6 +86,9 @@ BATCH, CTX, PAGE, MAX_PAGES = 32, 512, 256, 4
 HID, INTER, VOCAB, HEAD_N = 4096, 11008, 32000, 32256
 PREFILL_MS = (1024, 128)
 MIXED_M = BATCH + PAGE  # rows of a mixed step: the decode batch and one page-size chunk
+# K1 and K7 on the prefill GEMM: the engine's buckets, the largest, the mixed
+# step's rows, and (K1) an M that is not a multiple of the row tile
+PREFILL_GEMM_MS = (128, 256, 512, 1024, MIXED_M, 100)
 
 
 class SmokeError(RuntimeError):
@@ -299,36 +305,38 @@ def check_kernels(torch, dev) -> dict:
         k1, library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape="M=32; (K,N) = o_proj (4096,4096) + gate/up (4096,22016) + down (11008,4096), times summed; "
               "ms_by_shape also qkv (4096,12288) and the 70B down depth (28672,1024)",
-        checked="bitwise at M=32 (the five shapes, every layout), M=1, 8, 17, 48, 64; tile kernel: M=288 bitwise, "
-                "M=1024 and 100 rtol 1e-5",
+        checked="decode core bitwise at M=32 (the five shapes, every layout), M=1, 8, 17, 48, 64; prefill GEMM "
+                "bitwise at M=100, 128, 256, 288, 512, 1024 (o_proj, gate/up, down) and the 70B depth at M=288",
     )
-    # K1 at prefill's M (the largest bucket, 1024 rows), at the mixed step's
-    # (MIXED_M = 288 rows: nine 32-row tiles, held bit for bit) and at an M that
-    # is not a multiple of the 32-row tile (100); same f32 order -> rtol 1e-5
-    for m in (PREFILL_MS[0], MIXED_M, 100):
-        tag = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    # K1 above 64 rows, on the prefill GEMM: o_proj, gate/up and down (summed) at every row count of
+    # PREFILL_GEMM_MS, and the 70B down projection's depth (223 groups, the K-blocked order) at the mixed
+    # step's rows: bit for bit, each timed beside its bound
+    for m in PREFILL_GEMM_MS:
+        row = dict(ms=0.0, plain_ms=0.0, plans=[])
         m_bytes = m_ops = 0
         for ktot, n in ((HID, HID), (HID, 2 * INTER), (INTER, HID)):
-            ng = ktot // 128 - 1
-            a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
-            wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
-            sa, sw = uniform(0.01, 0.2, (m, ng + 1)), uniform(0.001, 0.02, (ng + 1, n))
-            got, want = gp.packed_w4_gemm(a, wp, wk, sa, sw), gp.packed_w4_gemm_plain(a, wp, wk, sa, sw)
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=f"packed_w4_gemm at M={m}, K={ktot}, N={n}")
-            require(m != MIXED_M or torch.equal(got, want), f"packed_w4_gemm at M={m}, K={ktot}, N={n} is not bitwise its plain version")
-            tag["max_abs_err"] = max(tag["max_abs_err"], (got - want).abs().max().item())
+            args = k1_inputs(m, ktot, n)
+            got, want = gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)
+            require(torch.equal(got, want), f"packed_w4_gemm at M={m}, K={ktot}, N={n} is not bitwise its plain version")
             del got, want
-            if m != 100:
-                tag["ms"] += timer(lambda: gp.packed_w4_gemm(a, wp, wk, sa, sw), n=10)
-                tag["plain_ms"] += timer(lambda: gp.packed_w4_gemm_plain(a, wp, wk, sa, sw), n=3, warm=1)
-            m_bytes += a.numel() + wp.numel() + wk.numel() + 4 * (sa.numel() + sw.numel()) + 4 * m * n
-            m_ops += 2 * m * n * ktot
-        if m != 100:
-            b_ms, b_by = bound(m_bytes, m_ops, PEAK_INT8_OPS)
-            res["packed_w4_gemm"].update({f"m{m}_ms": tag["ms"], f"m{m}_plain_ms": tag["plain_ms"], f"m{m}_bound_ms": b_ms,
-                                          f"m{m}_bound_by": b_by, f"m{m}_max_abs_err": tag["max_abs_err"]})
-        else:
-            res["packed_w4_gemm"].update(m100_max_abs_err=tag["max_abs_err"])
+            row["ms"] += timer(lambda: gp.packed_w4_gemm(*args), n=10)
+            row["plain_ms"] += timer(lambda: gp.packed_w4_gemm_plain(*args), n=3, warm=1)
+            plan = gp.packed_w4_plan(m, ktot, n)
+            row["plans"].append(f"{plan.path} {plan.tile_m}x{plan.tile_n} st{plan.stages}")
+            nbytes, ops = k1_bound(m, ktot, n)
+            m_bytes, m_ops = m_bytes + nbytes, m_ops + ops
+            del args
+        b_ms, b_by = bound(m_bytes, m_ops, PEAK_INT8_OPS)
+        res["packed_w4_gemm"].update({f"m{m}_ms": row["ms"], f"m{m}_plain_ms": row["plain_ms"], f"m{m}_bound_ms": b_ms,
+                                      f"m{m}_bound_by": b_by, f"m{m}_plans": row["plans"]})
+        log(f"K1 at M={m} (o_proj + gate/up + down): {row['ms']:.4f} ms, bound {b_ms:.4f} ({b_by}), {row['plans']}")
+    args = k1_inputs(MIXED_M, 28672, 1024)
+    require(torch.equal(gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)),
+            f"packed_w4_gemm at M={MIXED_M}, K=28672, N=1024 (K-blocked) is not bitwise its plain version")
+    b_ms, b_by = bound(*k1_bound(MIXED_M, 28672, 1024), PEAK_INT8_OPS)
+    res["packed_w4_gemm"].update({f"m{MIXED_M}_down_70b_depth_ms": timer(lambda: gp.packed_w4_gemm(*args), n=10),
+                                  f"m{MIXED_M}_down_70b_depth_bound_ms": b_ms, f"m{MIXED_M}_down_70b_depth_bound_by": b_by})
+    del args
     torch.cuda.empty_cache()
 
     # --- K2 packed_w4_gemm_qkv_ring_fused at the 7B qkv
@@ -376,7 +384,7 @@ def check_kernels(torch, dev) -> dict:
         checked="q and the whole ring bitwise at M=32, 8 and 64",
     )
 
-    # --- K7 packed_w4_gemm_qkv at the largest and the smallest prefill bucket and at the mixed step's rows: bitwise
+    # --- K7 packed_w4_gemm_qkv at every prefill bucket, the largest and the mixed step's rows: bitwise
     def qkv_inputs(m):
         a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
         sa = uniform(0.01, 0.2, (m, ng + 1))
@@ -384,7 +392,7 @@ def check_kernels(torch, dev) -> dict:
         return a, sa, c, s_
 
     k7 = {}
-    for m in PREFILL_MS + (MIXED_M,):
+    for m in PREFILL_GEMM_MS[:-1]:
         a, sa, c7, s7 = qkv_inputs(m)
         got = gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, c7, s7, n_q, n_q)
         want = gp.packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, c7, s7, n_q, n_q)
@@ -397,13 +405,14 @@ def check_kernels(torch, dev) -> dict:
             max_abs_err=0.0,
             ms=timer(lambda: gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, c7, s7, n_q, n_q), n=10),
             plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, c7, s7, n_q, n_q), n=3, warm=1),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, plan=gp.packed_w4_plan(m, hid, n, path="prefill")._asdict(),
         )
         del got, want
     res["packed_w4_gemm_qkv"] = dict(
         k7[PREFILL_MS[0]], library_ms=None,
-        shape="a int8 [1024,4096], N=12288, cos/sin [1024,128]; m128_*: the 128-row bucket; m288_*: the mixed step's rows",
-        **{f"m{m}_{k_}": v_ for m in (PREFILL_MS[1], MIXED_M) for k_, v_ in k7[m].items()},
+        shape="a int8 [1024,4096], N=12288, cos/sin [1024,128]; m128_*, m256_*, m512_*: the engine's buckets; "
+              "m288_*: the mixed step's rows",
+        **{f"m{m}_{k_}": v_ for m in PREFILL_GEMM_MS[:-1] if m != PREFILL_MS[0] for k_, v_ in k7[m].items()},
     )
 
     # --- K8 packed_w4_gemm_qkv_ring at the decode batch: q and the written ring column bitwise
@@ -662,9 +671,20 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     chain = resid + gp.quant_gemm_packed(quantize_activation_packed(y, spec), wo)
     require(torch.equal(bits(chain), bits(gp.packed_w4_gemm_fused_in(y, wo, resid=resid, abits=spec.abits, a_clip=spec.a_clip_ratio))),
             "packed_w4_gemm_fused_in differs from the unfused chain x + quant_gemm_packed(quantize(y))")
+    # above 64 rows the GEMM runs on the prefill GEMM (its RESID epilogue, and F32): bitwise at the mixed step's rows
+    y_big, resid_big = normal((MIXED_M, HID), 1.0, torch.bfloat16), normal((MIXED_M, HID), 1.0, torch.bfloat16)
+    rstd_big = rms_rstd(y_big)
+    for tag, kwargs in (("resid", dict(resid=resid_big)), ("norm_resid", dict(norm_w=norm_w, rstd=rstd_big, resid=resid_big)),
+                        ("f32_out", dict(out_dtype=torch.float32))):
+        kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
+        got, want = gp.packed_w4_gemm_fused_in(y_big, wo, **kwargs), gp.packed_w4_gemm_fused_in_plain(y_big, wo, **kwargs)
+        require(got.dtype == want.dtype and torch.equal(bits(got), bits(want)),
+                f"packed_w4_gemm_fused_in ({tag}) at M={MIXED_M} differs from its plain version")
     res["packed_w4_gemm_fused_in"] = dict(
         k9["resid"], max_abs_err=0.0, library_ms=None,
         shape="y bf16 [32,4096], wo K 4096 -> N 4096, resid bf16 [32,4096]; norm_*: with the RMSNorm in front",
+        checked=f"bitwise at M=32 (resid, norm + resid, norm, f32 out; the unfused chain) and at M={MIXED_M} "
+                "(resid, norm + resid, f32 out: the prefill GEMM)",
         **{f"norm_{k_}": v_ for k_, v_ in k9["norm_resid"].items()})
 
     # --- K10 fused_mlp_packed at the 7B MLP, in two parts: the act codes after
@@ -690,6 +710,21 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         whole = mlp.fused_mlp_packed_plain(y, resid, gu, dn, **kwargs)
         k10[tag] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
                         max_abs_err=(out.float() - whole.float()).abs().max().item())
+    # above 64 rows both GEMMs run on the prefill GEMM (F32 for gate/up, RESID or ROW_SCALE for down)
+    row_scale_big = uniform(0.1, 1.0, (MIXED_M,))
+    for tag, kwargs in (("norm", dict(norm_w=norm_w, rstd=rstd_big)),
+                        ("row_scale", dict(norm_w=norm_w, rstd=rstd_big, row_scale=row_scale_big))):
+        kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
+        out, act, act_s = mlp.fused_mlp_packed_stages(y_big, resid_big, gu, dn, **kwargs)
+        act_p, act_sp = mlp.fused_mlp_act_plain(y_big, gu, **{k_: v_ for k_, v_ in kwargs.items() if k_ != "row_scale"})
+        flips, scale_flips = act.ne(act_p).float().mean().item(), act_s.ne(act_sp).float().mean().item()
+        require(flips <= 1e-3 and scale_flips <= 1e-3,
+                f"fused_mlp_packed ({tag}) at M={MIXED_M}: {flips:.4%} of act codes and {scale_flips:.4%} of act scales differ")
+        down = mlp.fused_mlp_down_plain(act, act_s, resid_big, dn, kwargs.get("row_scale"))
+        require(torch.equal(bits(out), bits(down)), f"fused_mlp_packed ({tag}) at M={MIXED_M}: down half differs from its plain version")
+        whole = mlp.fused_mlp_packed_plain(y_big, resid_big, gu, dn, **kwargs)
+        k10[f"m{MIXED_M}_{tag}"] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
+                                        max_abs_err=(out.float() - whole.float()).abs().max().item())
     nbytes = (2 * y.numel() + 2 * 2 * resid.numel() + 2 * HID + 4 * BATCH
               + sum(t.numel() * t.element_size() for t in (*gu, *dn)))
     b_ms, b_by = bound(nbytes, 2 * BATCH * HID * 3 * INTER, PEAK_INT8_OPS)
@@ -924,10 +959,15 @@ def counters():
 def zero_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    """Each kernel's launches, and K1's split by path (decode core, prefill GEMM)."""
+    counts = {name: fn.launches for name, fn in counters().items()}
+    counts["packed_w4_gemm_by_path"] = dict(counters()["packed_w4_gemm"].launches_by_path)
+    return counts
 
 
 # kernels each driven path must launch
@@ -1540,13 +1580,13 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
         f"{n_kernels} device kernels\n{table_txt}\n")
     require(dev_us > 0, "the profiler recorded no device time")
     k3 = sum(e.count for e in kernels if K3_KERNEL in e.key)
-    # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the tile
-    # kernel, the activation prologue (K2's second launch; also K9's and K10's first), SiLU (K10)
+    # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the prefill
+    # GEMM, the activation prologue (K2's second launch; also K9's and K10's first), SiLU (K10)
     gemm = {}
     for e in kernels:
         core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)>", e.key)
         name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
-                next((n for n in ("gemm_packed_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None))
+                next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None))
         if name:
             ms, cnt = gemm.get(name, (0.0, 0.0))
             gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
@@ -2039,6 +2079,12 @@ def main() -> int:
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=launches, launches_on=path,
                          launches_by_phase={k_: v_ for k_, v_ in by_phase.items() if v_}, **k))
+        if name == "packed_w4_gemm":  # K1's launches by kernel: the decode core (M <= 64), the prefill GEMM above
+            rows[-1]["launches_by_path"] = dict(engine=engine_counts["packed_w4_gemm_by_path"],
+                                                decode_burst=decode_counts["packed_w4_gemm_by_path"],
+                                                mixed_engine=mixed_counts["packed_w4_gemm_by_path"])
+            require(engine_counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the engine's prefills did not run the prefill GEMM")
+            require(decode_counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the decode burst ran the prefill GEMM")
     require(len(rows) == 15, "the kernels line must list K1-K14 (K14's two functions)")
     print(json.dumps({"kernels": rows}), flush=True)
     engine_config = ("batch 32, page 256, max_seq_len 1024, buckets (128, 256, 512), pool 144 pages, "

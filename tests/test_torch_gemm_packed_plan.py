@@ -1,13 +1,15 @@
-"""K1's launch plan and the decode core's arithmetic, on the CPU.
+"""K1's launch plans and the arithmetic of its two GEMM kernels, on the CPU.
 
 ``ops/gemm_packed.py::packed_w4_plan`` picks the CUDA launch of the K1
-family (the decode core up to 64 rows, the 32 x 32 tile kernel above); the
-kernel takes it as it is, so the plans checked here are the launches.  The
-core itself runs only on the card, where ``chip_smoke.py`` holds it bit for
-bit against the plain version; here numpy emulations of its index math (the
-weight loads, the byte permutes, the nibble masks, the ldmatrix addresses on
-the swizzled activation tile and the mma fragment layout) and of its order of
-float32 additions are held against ``unpack_nibble_planes`` and
+family (the decode core up to 64 rows, the prefill GEMM above); the kernels
+take it as it is, so the plans checked here are the launches.  The kernels
+run only on the card, where ``chip_smoke.py`` holds them bit for bit against
+the plain version; here numpy emulations of their index math (the weight
+loads, the byte permutes, the nibble masks, the ldmatrix addresses and the
+mma fragment layout of the core; the wgmma register fragments, the
+shared-memory descriptor's reads of the swizzled activation tile and the
+accumulator layout of the prefill GEMM) and of their order of float32
+additions are held against ``unpack_nibble_planes`` and
 ``packed_w4_gemm_plain``.
 """
 import numpy as np
@@ -32,37 +34,59 @@ def _ids(shapes):
     return [f"m{m}_k{k}_n{n}" for m, k, n in shapes]
 
 
+def _prefill_layouts(k):
+    """The prefill GEMM's (tile_m, tile_n) at K: 64 rows only when K-blocked."""
+    kblk = k // gp.GROUP - 1 > gp.KBLK_THRESHOLD
+    return [(r, c) for r in (64, 128) for c in (64, 128) if not (kblk and r == 128)]
+
+
+def _prefill_cost(m, n, layout):
+    """Waves of blocks x a block's measured time per group (packed_w4_plan's estimate)."""
+    rows, cols = (layout.tile_m, layout.tile_n) if hasattr(layout, "tile_m") else layout
+    blocks = -(-m // rows) * -(-n // cols)
+    per_sm = gp._PREFILL_BLOCKS_PER_SM[(rows, cols)]
+    return -(-blocks // (132 * per_sm)) * gp._PREFILL_GROUP_US[(rows, cols)]
+
+
 def _covered_once(plan, m, n):
-    """Every output element of [m, n] lies in exactly one block and, in a
-    core block, in exactly one consumer warp's 16 columns (over all the
-    block's rows)."""
-    count = np.zeros((plan.grid[1] * max(plan.tile_m, 32), n), np.int64)
-    tm, tn, warp_cols = (32, 32, 32) if plan.path == "tile" else (plan.tile_m, plan.tile_n, 16)
+    """Every output element of [m, n] lies in exactly one block and in
+    exactly one consumer warp's 16 columns (over all the block's rows: the
+    core's warps and the prefill GEMM's, whose warpgroup of 4 takes 64).  The
+    core's grid is (column tiles, row tiles), the prefill GEMM's (row tiles,
+    column tiles); its last column tile may pass N (zeros in, nothing out)."""
+    tm, tn = plan.tile_m, plan.tile_n
+    rows, cols = -(-m // tm), -(-n // tn)
+    count = np.zeros((rows * tm, cols * tn), np.int64)
     for bx in range(plan.grid[0]):
         for by in range(plan.grid[1]):
-            for c0 in range(bx * tn, (bx + 1) * tn, warp_cols):
-                count[by * tm : (by + 1) * tm, c0 : c0 + warp_cols] += 1
-    return (count[:m] == 1).all() and (count[m:] <= 1).all() and plan.grid == (n // tn, -(-m // tm))
+            r, c = (by, bx) if plan.path == "core" else (bx, by)
+            for c0 in range(c * tn, (c + 1) * tn, 16):
+                count[r * tm : (r + 1) * tm, c0 : c0 + 16] += 1
+    grid = (cols, rows) if plan.path == "core" else (rows, cols)
+    return (count[:m, :n] == 1).all() and (count <= 1).all() and plan.grid == grid
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES, ids=_ids(SHAPES))
 def test_plan_covers_every_column_tile_once(m, k, n):
     """The grid's column tiles cover N once and its row tiles M; inside a
-    core block the consumer warps (at most 8) cover the tile once."""
+    block the consumer warps (at most 8) cover the tile once."""
     plan = gp.packed_w4_plan(m, k, n)
     assert _covered_once(plan, m, n)
     if plan.path == "core":
         assert plan.tile_n in (32, 64, 128) and plan.tile_n // 16 <= 8
+    else:
+        assert plan.tile_n in (64, 128) and plan.tile_m in (64, 128)
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES, ids=_ids(SHAPES))
 def test_plan_switches_at_64_rows(m, k, n):
     """Up to 64 rows (with a body group) the core, in the fewest of 16, 32
     or 64 rows that hold M unless that leaves SMs without a block; above 64
-    rows the tile kernel."""
+    rows the prefill GEMM, in the layout of least estimated time."""
     plan = gp.packed_w4_plan(m, k, n)
     if m > gp.CORE_MAX_M or k == gp.GROUP:
-        assert plan.path == "tile" and plan.args() == [0, 0, 0, 0]
+        assert plan.path == "prefill" and plan.args() == [0, plan.tile_m, plan.tile_n, plan.stages]
+        assert _prefill_cost(m, n, plan) == min(_prefill_cost(m, n, lay) for lay in _prefill_layouts(k))
         return
     fewest = min(r for r in (16, 32, 64) if r >= m)
     assert plan.path == "core" and plan.args()[0] == 1 and plan.tile_m <= fewest
@@ -76,9 +100,11 @@ def test_plan_ring_fits_shared_memory(m, k, n):
     block's shared memory is core_smem's, within what a block may take."""
     for head in (False, True) if n % 128 == 0 else (False,):
         plan = gp.packed_w4_plan(m, k, n, head=head)
-        if plan.path == "tile":
-            continue
         ng = k // 128 - 1
+        if plan.path == "prefill":
+            assert not head and 3 <= plan.stages <= max(3, ng + 2)
+            assert plan.smem == gp.core_smem(plan.tile_m, plan.tile_n, plan.stages, ng, False) <= SMEM_BLOCK
+            continue
         assert plan.tile_n in (32, 64, 128) and n % plan.tile_n == 0
         assert 3 <= plan.stages <= ng + 2
         assert plan.smem == gp.core_smem(plan.tile_m, plan.tile_n, plan.stages, ng, head) <= SMEM_BLOCK
@@ -325,3 +351,229 @@ def test_core_float_order_equals_plain_bitwise(ktot):
     sw = rng.uniform(0.001, 0.02, (ng + 1, n)).astype(np.float32)
     want = gp.packed_w4_gemm_plain(*(torch.from_numpy(x) for x in (a, wp, wk, sa, sw))).numpy()
     np.testing.assert_array_equal(_core_order(a, wp, wk, sa, sw).view(np.int32), want.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The prefill GEMM: plans, and an emulation of its fragments, wgmma operands
+# and order of float32 additions
+# ---------------------------------------------------------------------------
+
+# (m, k, n): the engine's prefill buckets and the mixed step at Llama-2-7B's
+# o_proj, gate/up, down and qkv, the 70B down depth, and K7's decode fallback
+PREFILL_SHAPES = [
+    (128, HID, HID), (128, HID, 2 * INTER), (128, INTER, HID), (128, HID, 3 * HID), (256, HID, HID),
+    (256, INTER, HID), (512, HID, 2 * INTER), (288, HID, 3 * HID), (288, 28672, 1024), (1024, INTER, HID),
+    (1024, HID, 3 * HID), (8, HID, 3 * HID), (65, HID, HID),
+]
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES, ids=_ids(PREFILL_SHAPES))
+def test_prefill_plan_takes_the_fastest_layout_within_shared_memory(m, k, n):
+    """The prefill plan (K7's at any M, K1's above 64 rows) covers every
+    output once, fits a block's shared memory with a ring of 3 to 6 slots,
+    and takes the layout of least estimated time (the largest block among
+    equals); 128-row blocks only where the sum is not K-blocked."""
+    plan = gp.packed_w4_plan(m, k, n, path="prefill")
+    ng = k // gp.GROUP - 1
+    assert plan.path == "prefill" and _covered_once(plan, m, n)
+    assert 3 <= plan.stages <= 6 and plan.smem == gp.core_smem(plan.tile_m, plan.tile_n, plan.stages, ng, False)
+    assert plan.smem <= SMEM_BLOCK
+    if ng > gp.KBLK_THRESHOLD:
+        assert plan.tile_m == 64
+    costs = {lay: _prefill_cost(m, n, lay) for lay in _prefill_layouts(k)}
+    assert costs[(plan.tile_m, plan.tile_n)] == min(costs.values())
+    assert all(lay[0] * lay[1] <= plan.tile_m * plan.tile_n for lay, c in costs.items() if c == min(costs.values()))
+    if m > gp.CORE_MAX_M:
+        assert gp.packed_w4_plan(m, k, n) == plan
+
+
+def test_prefill_plan_takes_overrides_and_refuses_bad_layouts():
+    """Other tiles plan as asked (for measuring), and the core can be asked
+    for above 64 rows; 128-row blocks of a K-blocked sum, widths the kernel
+    has no warpgroups for, the ring epilogue on the prefill GEMM and the
+    core without a body group raise."""
+    plan = gp.packed_w4_plan(1024, HID, HID, path="prefill", tile_m=64, tile_n=128, stages=4)
+    assert (plan.tile_m, plan.tile_n, plan.stages, plan.grid) == (64, 128, 4, (16, 32))
+    plan = gp.packed_w4_plan(1024, HID, HID, tile_n=64)  # the other dimension still chosen
+    assert plan.tile_n == 64 and plan.tile_m in (64, 128)
+    core = gp.packed_w4_plan(128, HID, HID, path="core")
+    assert core.path == "core" and core.tile_m in (16, 32, 64) and _covered_once(core, 128, HID)
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(288, 28672, 1024, tile_m=128)
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(128, HID, HID, path="prefill", tile_n=32)
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(128, HID, HID, path="prefill", tile_m=256)
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(128, HID, 3 * HID, head=True, path="prefill")
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(128, 128, HID, path="core")
+    with pytest.raises(ValueError):
+        gp.packed_w4_plan(128, HID, HID, path="tile")
+
+
+def _byte_perm_v(x, y, sel):
+    """__byte_perm on arrays (per-element selectors)."""
+    b = np.stack([(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)], -1)
+    sel = np.broadcast_to(sel, x.shape)
+    out = np.zeros(x.shape, np.int64)
+    for j in range(4):
+        out |= np.take_along_axis(b, ((sel >> (4 * j)) & 7)[..., None], -1)[..., 0] << (8 * j)
+    return out
+
+
+def _s8(word):
+    """The 4 signed bytes of each int32 word -> [..., 4]."""
+    b = np.stack([(word >> (8 * i)) & 0xFF for i in range(4)], -1)
+    return b - 256 * (b >= 128)
+
+
+def _prefill_frags(slots, keeper, tile_n):
+    """gemm_prefill_kernel's build() for every consumer thread of a block:
+    A registers [k-step j, register q, warp, lane] from a group's weight
+    slot (the keeper's two), each [64 rows, tile_n] as TMA lays it out."""
+    warp = np.arange(tile_n // 16)[:, None]
+    lane = np.arange(32)[None, :]
+    gid, tig = lane >> 2, lane & 3
+    c0 = warp * 16 + 2 * gid
+    sels = [_selectors(t) for t in range(4)]
+    sel0, sel1 = np.array([s[0] for s in sels])[tig], np.array([s[1] for s in sels])[tig]
+    mask = {64: 3, 128: 7}[tile_n]
+
+    def load_cols(slot, q):
+        u = []
+        for i in range(4):
+            off = (16 * q + 4 * tig + ((i + tig) & 3)) * tile_n + c0
+            off = off ^ (((off >> 7) & mask) << 4)
+            u.append(slot[off].astype(np.int64) | slot[off + 1].astype(np.int64) << 8)
+        x, y = _byte_perm_v(u[0], u[1], 0x5410), _byte_perm_v(u[2], u[3], 0x5410)
+        return _byte_perm_v(x, y, sel0), _byte_perm_v(x, y, sel1)
+
+    a = np.zeros((4, 4) + c0.shape, np.int64)
+    for st in range(4):
+        if keeper:  # k-step st: keeper rows 32 st.., slot st // 2
+            a[st, 0], a[st, 1] = load_cols(slots[st // 2], 2 * (st & 1))
+            a[st, 2], a[st, 3] = load_cols(slots[st // 2], 2 * (st & 1) + 1)
+        elif st < 2:  # k-steps sh (low nibbles) and 2 + sh (high) from rows 32 sh..
+            t = load_cols(slots[0], 2 * st) + load_cols(slots[0], 2 * st + 1)
+            for q in range(4):
+                a[st, q] = (t[q] << 4) & 0xF0F0F0F0
+                a[2 + st, q] = t[q] & 0xF0F0F0F0
+    return a
+
+
+def _wgmma_unit(a, flat, h, wg):
+    """The 4 k-steps of wgmma m64n64k32 s8 for warpgroup wg on rows 64h.. of
+    the activation tile `flat` (swizzled, 128-byte rows): A from the
+    registers of warps 4wg..4wg + 3 (lane (gid, tig) of warp w gives A rows
+    16w + gid and + 8, k bytes 4tig.. and 16 + 4tig..), B read through the
+    shared-memory descriptor (start 8192 h + 32 j, 8-row atoms 1024 bytes
+    apart, 128-byte rows, the 128-byte swizzle on the address) -> the
+    accumulator D [64, 64] as int64."""
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    n = np.arange(64)
+    d = np.zeros((64, 64), np.int64)
+    for j in range(4):
+        A = np.zeros((64, 32), np.int64)
+        for w in range(4):
+            regs = _s8(a[j, :, 4 * wg + w, :])  # [4 regs, 32 lanes, 4 bytes]
+            for q in range(4):
+                rows = 16 * w + gid + 8 * (q & 1)
+                for b in range(4):
+                    A[rows, 16 * (q >> 1) + 4 * tig + b] = regs[q, :, b]
+        addr = 8192 * h + 32 * j + (n // 8)[None, :] * 1024 + (n % 8)[None, :] * 128 + np.arange(32)[:, None]
+        addr = addr ^ (((addr >> 7) & 7) << 4)
+        B = flat[addr].astype(np.int64)
+        d += A @ (B - 256 * (B >= 128))
+    return d
+
+
+def _prefill_emulated(a, wp, wk, sa, sw, tile_m, tile_n):
+    """gemm_prefill_kernel in numpy, block by block: the ring's slots as TMA
+    fills them (zeros past M and N), the staged activation scales (body
+    groups times 1/16), the fragments, the wgmma units, the accumulator
+    layout (thread (w, gid, tig)'s element e of a unit: activation row
+    8 (e >> 2) + 2 tig + (e & 1), weight column 16 w + 2 gid + ((e >> 1) & 1)),
+    and each element's chain in group order (K-blocked above 112 groups),
+    stored where row < M and column < N."""
+    f = np.float32
+    m, ktot = a.shape
+    n = wp.shape[1]
+    ng = ktot // 128 - 1
+    kblk = ng > gp.KBLK_THRESHOLD
+    mp, np_ = -(-m // tile_m) * tile_m, -(-n // tile_n) * tile_n
+    ap = np.zeros((mp, ktot), np.int8)
+    ap[:m] = a
+    wpp, wkp = np.zeros((ng * 64, np_), np.int8), np.zeros((128, np_), np.int8)
+    wpp[:, :n], wkp[:, :n] = wp, wk
+    swp = np.zeros((ng + 1, np_), f)
+    swp[:, :n] = sw
+    sa_s = np.zeros((ng + 1, mp), f)
+    sa_s[:, :m] = sa.T
+    sa_s[:ng] *= f(0.0625)
+    out = np.zeros((m, n), f)
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    e = np.arange(32)
+    for c in range(np_ // tile_n):
+        cols = slice(c * tile_n, (c + 1) * tile_n)
+        frags = [_prefill_frags([_slot(wpp[g * 64 : g * 64 + 64, cols].view(np.uint8), tile_n)], False, tile_n)
+                 for g in range(ng)]
+        frags.append(_prefill_frags([_slot(wkp[h * 64 : h * 64 + 64, cols].view(np.uint8), tile_n) for h in range(2)],
+                                    True, tile_n))
+        for r in range(mp // tile_m):
+            rows = slice(r * tile_m, (r + 1) * tile_m)
+            acc = np.zeros((tile_m, tile_n), f)
+            part = np.zeros_like(acc)
+            for g in range(ng + 1):
+                flat = _swizzled(ap[rows, g * 128 : (g + 1) * 128].view(np.uint8))
+                dot = np.zeros((tile_m, tile_n), np.int64)
+                for wg in range(tile_n // 64):
+                    for h in range(tile_m // 64):
+                        d = _wgmma_unit(frags[g], flat, h, wg)
+                        for w in range(4):  # thread (w, lane)'s 32 elements, as the kernel's fold indexes them
+                            drow = 16 * w + gid[:, None] + 8 * ((e[None, :] >> 1) & 1)
+                            dcol = 8 * (e[None, :] >> 2) + 2 * tig[:, None] + (e[None, :] & 1)
+                            arow = 64 * h + dcol
+                            wcol = 64 * wg + 16 * w + 2 * gid[:, None] + ((e[None, :] >> 1) & 1)
+                            dot[arow, wcol] = d[drow, dcol]
+                term = (dot.astype(f) * sa_s[g, rows][:, None]) * swp[g, cols][None, :]
+                if g == ng:
+                    acc = acc + term
+                    if kblk:
+                        acc = acc + part
+                elif kblk:
+                    part = part + term
+                    if (g + 1) % gp.KBLK_G == 0 and g + 1 < ng:
+                        acc, part = acc + part, np.zeros_like(part)
+                else:
+                    acc = acc + term
+            r0, c0 = r * tile_m, c * tile_n
+            out[r0 : min(m, r0 + tile_m), c0 : min(n, c0 + tile_n)] = acc[: m - r0, : n - c0]
+    return out
+
+
+@pytest.mark.parametrize("m,ktot,n,tile_m,tile_n", [
+    (100, 640, 192, 64, 64), (100, 640, 192, 64, 128), (100, 640, 192, 128, 64), (100, 640, 192, 128, 128),
+    (160, 1152, 256, 128, 128), (65, 15488, 128, 64, 128), (70, 128, 64, 128, 64),
+], ids=["m100_t64x64", "m100_t64x128", "m100_t128x64", "m100_t128x128", "m160_t128x128", "m65_kblk_t64x128",
+        "m70_keeper_only"])
+def test_prefill_emulation_equals_plain_bitwise(m, ktot, n, tile_m, tile_n):
+    """The prefill GEMM's fragments (the decode core's loads and permutes,
+    one warpgroup per 64 columns), wgmma operands (register A, descriptor B
+    on the swizzled tile, 64-row units) and accumulator layout give each
+    group's exact int32 dot, and its chain (1/16 folded into the staged
+    scales, the keeper last, K-blocked above 112 groups) equals
+    ``packed_w4_gemm_plain`` bit for bit: M not a multiple of the row tile,
+    the last column tile past N, 120 body groups, no body group at all."""
+    rng = np.random.default_rng(m + ktot + n + tile_m + tile_n)
+    ng = ktot // 128 - 1
+    a = np.concatenate([rng.integers(-8, 8, (m, ng * 128)), rng.integers(-127, 128, (m, 128))], 1).astype(np.int8)
+    wp = rng.integers(-128, 128, (ng * 64, n)).astype(np.int8)
+    wk = rng.integers(-127, 128, (128, n)).astype(np.int8)
+    sa = rng.uniform(0.01, 0.2, (m, ng + 1)).astype(np.float32)
+    sw = rng.uniform(0.001, 0.02, (ng + 1, n)).astype(np.float32)
+    want = gp.packed_w4_gemm_plain(*(torch.from_numpy(x) for x in (a, wp, wk, sa, sw))).numpy()
+    got = _prefill_emulated(a, wp, wk, sa, sw, tile_m, tile_n)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

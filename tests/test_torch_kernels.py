@@ -57,16 +57,22 @@ def _gemm_inputs(rng, m, ktot, n):
     return a, wp, wk, sa, sw
 
 
-@pytest.mark.parametrize("ktot,n", [(256, 384), (640, 256), (1152, 640), (15488, 256)])
-def test_packed_w4_gemm_matches_pallas(ktot, n):
+@pytest.mark.parametrize(
+    "m,ktot,n",
+    [(32, 256, 384), (32, 640, 256), (32, 1152, 640), (32, 15488, 256), (160, 640, 256)],
+    ids=["256-384", "640-256", "1152-640", "15488-256", "m160-640-256"],
+)
+def test_packed_w4_gemm_matches_pallas(m, ktot, n):
     """K1 at M=32 with ng from 1 to 8 and N not a multiple of 512, and at
     ng = 120, past the 112 groups above which the TPU kernel sums K-blocked
     (partials of 16 groups, the keeper before the last; one serial chain
-    puts 5 of these outputs outside the tolerance).  rtol 1e-5: both sum the
-    f32 group terms in the same order; only XLA's choice to fuse a
-    multiply-add could move the last bit."""
-    rng = np.random.default_rng(ktot + n)
-    args = _gemm_inputs(rng, 32, ktot, n)
+    puts 5 of these outputs outside the tolerance); and at a prefill M of
+    160 rows, where the TPU kernel takes its scratch body (M > 64) and the
+    port its prefill GEMM.
+    rtol 1e-5: both sum the f32 group terms in the same order; only XLA's
+    choice to fuse a multiply-add could move the last bit."""
+    rng = np.random.default_rng(ktot + n + m - 32)
+    args = _gemm_inputs(rng, m, ktot, n)
     want = np.asarray(j_gemm(*(jnp.asarray(x) for x in args), interpret=True))
     got = t_gemm(*(_t(x) for x in args)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
