@@ -129,8 +129,12 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     than SMs (at M <= 64 there is no split of K to fill the card with: the
     column tiles, and row tiles that read the same weights, are the
     parallelism; not for ``head``, whose 96 blocks of 32 rows measured
-    faster than 192 of 16); a ring of 8 group slots.  Prefill (above 64
-    rows, or no body group): see :func:`_prefill_plan`."""
+    faster than 192 of 16); a ring of 8 group slots.  Above 64 rows (``head``
+    at a decode batch over 64, or the core asked for) only 16-row blocks:
+    blocks of 32 or 64 rows over more than 64 rows give outputs that now and
+    then differ from the plain version (fault C3 in ``ROADMAP.md``), so
+    those layouts raise.  Prefill (above 64 rows, or no body group): see
+    :func:`_prefill_plan`."""
     if n <= 0 or n % _TN:
         raise ValueError(f"packed_w4_gemm: N={n} must be a positive multiple of {_TN}")
     if k < GROUP or k % GROUP:
@@ -146,12 +150,17 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
         raise ValueError(f"packed_w4_gemm: N={n} must be whole {HEAD}-column heads")
     tn = HEAD if head else (tile_n or (2 * _TN if n % (2 * _TN) == 0 else _TN))
     rows = tile_m
+    if rows is None and m > CORE_MAX_M:
+        rows = _CORE_ROWS[0]
     if rows is None:
         rows = next(r for r in _CORE_ROWS if r >= min(m, 32 if head else CORE_MAX_M))
         while not head and rows > _CORE_ROWS[0] and n // tn * -(-m // rows) < _SMS:
             rows //= 2
     if rows not in _CORE_ROWS or (head and rows > 32) or tn not in _CORE_COLS or n % tn:
         raise ValueError(f"packed_w4_gemm: N={n} in {rows} x {tn} blocks is not a core layout")
+    if m > CORE_MAX_M and rows > _CORE_ROWS[0]:
+        raise ValueError(f"packed_w4_gemm: the core takes {_CORE_ROWS[0]}-row blocks above {CORE_MAX_M} rows, "
+                         f"not {rows} (fault C3)")
     stages = stages or min(ng + 2, _STAGES)
     smem = core_smem(rows, tn, stages, ng, head)
     if stages < 3 or smem > _SMEM_BLOCK:
@@ -277,7 +286,9 @@ def packed_w4_gemm(
 def packed_w4_gemm_with_plan(a, wp, wk, sa, sw, plan: PackedW4Plan) -> torch.Tensor:
     """K1's CUDA launch under a given plan (CUDA tensors only; counts no
     launch): what :func:`packed_w4_gemm` runs with ``packed_w4_plan``'s
-    choice, and what a measurement of other layouts calls."""
+    choice, and what a measurement of other layouts calls.  The kernel runs
+    the plan as given, also a layout ``packed_w4_plan`` refuses (a repro of
+    fault C3 builds one by hand)."""
     m, ktot = a.shape
     n = wp.shape[1]
     ng = ktot // GROUP - 1

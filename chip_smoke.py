@@ -124,6 +124,32 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_operands(torch, gen, dev, m: int, ktot: int, n: int) -> tuple:
+    """K1's operands for an [m, ktot] x [ktot, n] product, random from ``gen``:
+    body codes in [-8, 8), keeper codes, nibble planes, activation and weight
+    scales."""
+    ng = ktot // 128 - 1
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+
+    def uniform(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
+    wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
+    sa, sw = uniform(0.01, 0.2, (m, ng + 1)), uniform(0.001, 0.02, (ng + 1, n))
+    return a, wp, wk, sa, sw
+
+
+def k1_bound(m: int, ktot: int, n: int) -> tuple[int, int]:
+    """The bytes K1 must move (each operand read once, the f32 output written
+    once) and its int8 operations."""
+    ng = ktot // 128 - 1
+    nbytes = m * ktot + ng * 64 * n + 128 * n + 4 * (m * (ng + 1) + (ng + 1) * n) + 4 * m * n
+    return nbytes, 2 * m * n * ktot
+
+
 class Timer:
     """Median CUDA-event time of one call, with the L2 cache flushed before
     each timed call (the decode step finds every weight and page cold).
@@ -255,16 +281,7 @@ def check_kernels(torch, dev) -> dict:
     # line's ms) and qkv, then the 70B down projection's depth (223 groups, the K-blocked order), each
     # timed on its own, and other layouts of the core at the four decode shapes: all bit for bit
     def k1_inputs(m, ktot, n):
-        ng = ktot // 128 - 1
-        a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
-        wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
-        sa, sw = uniform(0.01, 0.2, (m, ng + 1)), uniform(0.001, 0.02, (ng + 1, n))
-        return a, wp, wk, sa, sw
-
-    def k1_bound(m, ktot, n):
-        ng = ktot // 128 - 1
-        nbytes = m * ktot + ng * 64 * n + 128 * n + 4 * (m * (ng + 1) + (ng + 1) * n) + 4 * m * n
-        return nbytes, 2 * m * n * ktot
+        return k1_operands(torch, gen, dev, m, ktot, n)
 
     k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ms_by_shape={}, bound_ms_by_shape={}, plan_by_shape={},
               layouts={})
@@ -362,7 +379,7 @@ def check_kernels(torch, dev) -> dict:
         require(torch.equal(bits(a_).index_select(axis, others), bits(r0).index_select(axis, others)),
                 f"qkv_ring_fused: ring {i} written outside column {row}")
     # other batch sizes: 16-row blocks (M = 8) and two 32-row tiles (M = 64): bitwise
-    for m_ in (8, 64):
+    def ring_case(m_):
         y_, cs_ = normal((m_, hid), 1.0, torch.bfloat16), rope_tables(randint(0, 2048, (m_,), torch.int32), 128, 10000.0)
         r_ = (randint(-128, 128, (m_, h, 64, w)), uniform(0.01, 0.1, (m_, 4, h, w), torch.bfloat16),
               randint(0, 16, (m_, h, w, 128)))
@@ -371,6 +388,15 @@ def check_kernels(torch, dev) -> dict:
         b_q = gp.packed_w4_gemm_qkv_ring_fused_plain(y_, norm_w, wp, wk, sw, *cs_, *rp2, row, n_q, n_q, abits=4, a_clip=0.9)
         require(torch.equal(bits(a_q), bits(b_q)) and all(torch.equal(bits(x_), bits(z_)) for x_, z_ in zip(rk_, rp2)),
                 f"qkv_ring_fused at M={m_} differs from its plain version")
+
+    for m_ in (8, 64):
+        ring_case(m_)
+    # a decode batch over 64 rows (M = 96, 128): 16-row head blocks (fault C3); its inputs from a
+    # generator of their own, so that the later checks' inputs stay as they were
+    gen_main, gen = gen, torch.Generator(device=dev).manual_seed(96)
+    for m_ in (96, 128):
+        ring_case(m_)
+    gen = gen_main
     ring_bytes = BATCH * h * (64 + 8 + 128)
     nbytes = (y.numel() * 2 + hid * 2 + BATCH * 4 + wp.numel() + wk.numel() + 4 * sw.numel()
               + 2 * 4 * BATCH * 128 + BATCH * n_q * 2 + ring_bytes)
@@ -381,7 +407,7 @@ def check_kernels(torch, dev) -> dict:
         plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused_plain(y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd), n=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape="y [32,4096] bf16, N=12288, ring [32,32,64,32]",
         plan=gp.packed_w4_plan(BATCH, hid, n, head=True)._asdict(),
-        checked="q and the whole ring bitwise at M=32, 8 and 64",
+        checked="q and the whole ring bitwise at M=32, 8, 64, 96 and 128",
     )
 
     # --- K7 packed_w4_gemm_qkv at every prefill bucket, the largest and the mixed step's rows: bitwise
@@ -710,7 +736,8 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         whole = mlp.fused_mlp_packed_plain(y, resid, gu, dn, **kwargs)
         k10[tag] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
                         max_abs_err=(out.float() - whole.float()).abs().max().item())
-    # above 64 rows both GEMMs run on the prefill GEMM (F32 for gate/up, RESID or ROW_SCALE for down)
+    # above 64 rows both GEMMs run on the prefill GEMM (F32 for gate/up, RESID or ROW_SCALE for down),
+    # held bit for bit: act codes and scales equal, and the down half
     row_scale_big = uniform(0.1, 1.0, (MIXED_M,))
     for tag, kwargs in (("norm", dict(norm_w=norm_w, rstd=rstd_big)),
                         ("row_scale", dict(norm_w=norm_w, rstd=rstd_big, row_scale=row_scale_big))):
@@ -718,7 +745,7 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         out, act, act_s = mlp.fused_mlp_packed_stages(y_big, resid_big, gu, dn, **kwargs)
         act_p, act_sp = mlp.fused_mlp_act_plain(y_big, gu, **{k_: v_ for k_, v_ in kwargs.items() if k_ != "row_scale"})
         flips, scale_flips = act.ne(act_p).float().mean().item(), act_s.ne(act_sp).float().mean().item()
-        require(flips <= 1e-3 and scale_flips <= 1e-3,
+        require(torch.equal(act, act_p) and torch.equal(act_s, act_sp),
                 f"fused_mlp_packed ({tag}) at M={MIXED_M}: {flips:.4%} of act codes and {scale_flips:.4%} of act scales differ")
         down = mlp.fused_mlp_down_plain(act, act_s, resid_big, dn, kwargs.get("row_scale"))
         require(torch.equal(bits(out), bits(down)), f"fused_mlp_packed ({tag}) at M={MIXED_M}: down half differs from its plain version")
@@ -735,7 +762,8 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         plain_ms=timer(lambda: mlp.fused_mlp_packed_plain(y, resid, gu, dn, **kwargs), n=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, parts=k10,
         shape="y bf16 [32,4096], gate/up K 4096 -> N 22016, down K 11008 -> N 4096, norm + rstd, resid bf16 [32,4096]",
-        tolerance="act codes and scales: at most 1e-3 differing; down half on the kernel's act codes: bitwise")
+        tolerance="act codes and scales: at most 1e-3 differing at 32 rows, none at 288; down half on the kernel's act "
+                  "codes: bitwise")
     del gu, dn, wo
     torch.cuda.empty_cache()
 

@@ -1,13 +1,20 @@
-"""Repeated launches of K1's two GEMM kernels, each held bit for bit against
-the plain version, on one CUDA card:
+"""Repeated launches of the K1 family's GEMM kernels on one CUDA card, each
+held bit for bit against its plain version:
 
     python3 scripts/torch_gemm_stress.py [--launches 100]
 
-For each plan below (the decode core and the prefill GEMM at the launches
-``packed_w4_plan`` makes, and the decode core forced to 64-row blocks above
-64 rows, a launch no plan makes), it launches the kernel ``--launches``
-times on the same inputs and counts the launches whose output is not
-``torch.equal`` to ``packed_w4_gemm_plain``'s.  Prints one line per plan.
+Planned launches, at the plans ``packed_w4_plan`` makes: K1 on the decode
+core at 32 and 64 rows, on the core asked for at 256 rows (16-row blocks),
+and on the prefill GEMM at 128, 288 and 1,024 rows; K7 at 128 rows; K2 (the
+core with the ring epilogue) at 64, 96 and 128 rows (32-row head blocks up
+to 64 rows, 16-row above).  Each is launched ``--launches`` times on the same
+inputs, and a launch whose outputs are not ``torch.equal`` to the plain
+version's counts as differing.  One line per case; exit 1 if any planned
+launch differs.
+
+Then, apart and outside the exit code, fault C3 (``ROADMAP.md`` section C):
+the core in layouts ``packed_w4_plan`` refuses (32- and 64-row blocks over
+more than 64 rows, for K1 and for K2's head blocks), built by hand.
 """
 from __future__ import annotations
 
@@ -17,10 +24,16 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# (M, K, N, path, tile_m): Llama-2-7B's qkv (N 12288) and gate/up (N 22016)
-PLANS = [(32, 4096, 12288, None, None), (32, 4096, 22016, None, None), (64, 4096, 12288, None, None),
-         (64, 4096, 22016, None, None), (64, 4096, 12288, "core", 32), (128, 4096, 12288, None, None),
-         (288, 4096, 22016, None, None), (1024, 4096, 4096, None, None), (256, 4096, 12288, "core", 64)]
+HID, INTER = 4096, 11008  # Llama-2-7B
+QKV, GATE_UP, O_PROJ = (HID, 3 * HID), (HID, 2 * INTER), (HID, HID)
+# K1: (M, (K, N), path, tile_m): None plans as packed_w4_gemm does
+K1_PLANNED = [(32, QKV, None, None), (32, GATE_UP, None, None), (64, QKV, None, None), (64, GATE_UP, None, None),
+              (256, QKV, "core", None), (128, QKV, None, None), (288, GATE_UP, None, None),
+              (1024, O_PROJ, None, None)]
+K2_PLANNED = (64, 96, 128)
+# fault C3: (M, (K, N), tile_m, tile_n) of the core, and K2 at M rows in 32-row head blocks
+K1_C3 = [(256, QKV, 64, 64), (128, QKV, 32, 64), (128, QKV, 32, 128)]
+K2_C3 = (128,)
 
 
 def main() -> int:
@@ -29,29 +42,93 @@ def main() -> int:
     args = ap.parse_args()
     import torch
 
+    from atom_tpu_torch.models.nn import rope_tables
     from atom_tpu_torch.ops import gemm_packed as gp
 
     if not torch.cuda.is_available():
         print("torch_gemm_stress: no CUDA card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randint(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
 
-    for m, k, n, path, tile_m in PLANS:
-        ng = k // 128 - 1
+    def uniform(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def k1_inputs(m, ktot, n):
+        ng = ktot // 128 - 1
         a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
-        ops = (a, randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n)),
-               torch.rand((m, ng + 1), generator=gen, device=dev) * 0.19 + 0.01,
-               torch.rand((ng + 1, n), generator=gen, device=dev) * 0.019 + 0.001)
-        want = gp.packed_w4_gemm_plain(*ops)
-        plan = gp.packed_w4_plan(m, k, n, path=path, tile_m=tile_m)
-        differ = sum(int(not torch.equal(gp.packed_w4_gemm_with_plan(*ops, plan), want)) for _ in range(args.launches))
-        print(f"M={m} K={k} N={n} {plan.path} {plan.tile_m}x{plan.tile_n} grid {plan.grid}: "
-              f"{differ} of {args.launches} launches differ", flush=True)
-    return 0
+        return (a, randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n)), uniform(0.01, 0.2, (m, ng + 1)),
+                uniform(0.001, 0.02, (ng + 1, n)))
+
+    def same(got, want):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t  # noqa: E731
+        return all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+
+    def count(what, launch, want) -> int:
+        differ = sum(int(not same(launch(), want)) for _ in range(args.launches))
+        print(f"{what}: {differ} of {args.launches} launches differ", flush=True)
+        return differ
+
+    def hand_plan(m, ktot, n, tile_m, tile_n, head):
+        ng = ktot // 128 - 1
+        stages = min(ng + 2, gp._STAGES)
+        return gp.PackedW4Plan("core", tile_m, tile_n, stages, gp.core_smem(tile_m, tile_n, stages, ng, head),
+                               (n // tile_n, -(-m // tile_m)))
+
+    def k2_case(m):
+        """K2 at the 7B qkv on m rows: a launch (ring tensors fresh each time) and the plain outputs."""
+        h, w = HID // 128, 32
+        y = (torch.randn((m, HID), generator=gen, device=dev)).to(torch.bfloat16)
+        norm_w = uniform(0.5, 1.5, (HID,)).to(torch.bfloat16)
+        _, wp, wk, _, sw = k1_inputs(1, *QKV)
+        cos, sin = rope_tables(torch.arange(m, device=dev) + 100, 128, 10000.0)
+        ring = (randint(-128, 128, (m, h, 64, w)), uniform(0.1, 1.0, (m, 4, h, w)).to(torch.bfloat16),
+                randint(0, 16, (m, h, w, 128)))
+
+        def run(fn):
+            k_codes, prm, v_codes = (t.clone() for t in ring)
+            q = fn(y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, 7, HID, HID)
+            return q, k_codes, prm, v_codes
+
+        return (lambda: run(gp.packed_w4_gemm_qkv_ring_fused)), run(gp.packed_w4_gemm_qkv_ring_fused_plain)
+
+    differ = 0
+    for m, (ktot, n), path, tile_m in K1_PLANNED:
+        ops = k1_inputs(m, ktot, n)
+        plan = gp.packed_w4_plan(m, ktot, n, path=path, tile_m=tile_m)
+        differ += count(f"K1 M={m} K={ktot} N={n} {plan.path} {plan.tile_m}x{plan.tile_n} grid {plan.grid}",
+                        lambda: gp.packed_w4_gemm_with_plan(*ops, plan), gp.packed_w4_gemm_plain(*ops))
+    ops = k1_inputs(128, *QKV)
+    cos, sin = rope_tables(torch.arange(128, device=dev), 128, 10000.0)
+    differ += count(f"K7 M=128 K={HID} N={3 * HID} under {gp.packed_w4_plan(128, *QKV, path='prefill')}",
+                    lambda: gp.packed_w4_gemm_qkv(*ops, cos, sin, HID, HID),
+                    gp.packed_w4_gemm_qkv_plain(*ops, cos, sin, HID, HID))
+    for m in K2_PLANNED:
+        launch, want = k2_case(m)
+        differ += count(f"K2 M={m} under {gp.packed_w4_plan(m, *QKV, head=True)}", launch, want)
+    print(f"planned launches: {differ} differ", flush=True)
+
+    # fault C3: layouts no plan makes, run by hand; outside the exit code
+    for m, (ktot, n), tile_m, tile_n in K1_C3:
+        ops = k1_inputs(m, ktot, n)
+        plan = hand_plan(m, ktot, n, tile_m, tile_n, False)
+        count(f"C3 (refused by the plan) K1 M={m} K={ktot} N={n} core {tile_m}x{tile_n} grid {plan.grid}",
+              lambda: gp.packed_w4_gemm_with_plan(*ops, plan), gp.packed_w4_gemm_plain(*ops))
+    planner = gp.packed_w4_plan
+    for m in K2_C3:
+        launch, want = k2_case(m)
+        plan = hand_plan(m, *QKV, 32, 128, True)
+        gp.packed_w4_plan = lambda *a, **kw: plan  # the wrapper plans through the module's name
+        try:
+            count(f"C3 (refused by the plan) K2 M={m} core 32x128 grid {plan.grid}", launch, want)
+        finally:
+            gp.packed_w4_plan = planner
+    return int(differ > 0)
 
 
 if __name__ == "__main__":

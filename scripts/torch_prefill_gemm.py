@@ -1,6 +1,6 @@
-"""Device times of the prefill GEMMs on one CUDA card, for the
-``atom_tpu_torch`` package of the checkout at ``--root`` (default: this one),
-so that two checkouts can be compared on the same card:
+"""The prefill GEMMs of the ``atom_tpu_torch`` package of the checkout at
+``--root`` (default: this one) on one CUDA card, so that two checkouts can
+be compared on the same card, and the launch layouts of this one:
 
     python3 scripts/torch_prefill_gemm.py [--root DIR] [--rows 128,256,288,512,1024]
                                           [--prefill] [--crossover] [--out FILE]
@@ -8,85 +8,41 @@ so that two checkouts can be compared on the same card:
 * K1 (``packed_w4_gemm``) at Llama-2-7B's o_proj (4096 -> 4096), gate/up
   (4096 -> 22016) and down (11008 -> 4096), summed, and K7
   (``packed_w4_gemm_qkv``, 4096 -> 12288 with RoPE and the per-head K/V
-  codes) at each row count of ``--rows`` (the serving engine's prefill
-  buckets, the mixed step's 288 rows and the largest bucket), each held bit
-  for bit (``torch.equal``) against its plain version and timed beside its
-  bound: the larger of the bytes it must move over 3.35 TB/s and its int8
-  operations over 1,979 TOP/s (NVIDIA H100 SXM data sheet);
+  codes) at each row count of ``--rows``, each held bit for bit
+  (``torch.equal``) against its plain version and timed beside its bound;
 * ``--crossover``: K1 at the three shapes and at qkv (4096 -> 12288) under
   each launch the checkout's ``packed_w4_plan(path=..., tile_m=...,
   tile_n=...)`` offers, at 32 to 1,024 rows (the decode core up to 128 rows,
-  the prefill GEMM's four tiles at every row count), each checked bit for bit;
+  the prefill GEMM's four tiles at every row count), each checked bit for
+  bit, with the layout the plan picks (``planned``);
 * ``--prefill``: one 32-layer W4A4 prefill (``prefill_step``, random weights
-  from seed 0) at 256 and 1,024 rows alone on the card: wall time, device
-  time and the K1/K7 kernels' share under ``torch.profiler``.
+  from seed 0) at 256 and 1,024 rows alone on the card: wall and device
+  time, the profile under ``chiprun_out/``.
 
-Times: CUDA events, median of ``n`` calls, the 50 MB L2 flushed before each
-(256 MB written), after warm-up.  Prints one JSON line (and writes it to
-``--out``).
+The yardstick is this checkout's ``chip_smoke.py``, whichever checkout is
+measured: its ``Timer`` (CUDA events, median, the L2 flushed before each
+call), its bound (bytes over the HBM rate or int8 operations over the
+tensor-core peak), K1's operands and the prefill's profile.  Prints one
+JSON line (and writes it to ``--out``).
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-HID, INTER = 4096, 11008  # Llama-2-7B
-K1_SHAPES = (("o_proj", HID, HID), ("gate_up", HID, 2 * INTER), ("down", INTER, HID))
-HBM_BYTES_PER_S, PEAK_INT8_OPS = 3.35e12, 1979e12
-# the GEMM kernels of gemm_packed.cu as the profiler names them (either checkout's)
-GEMM_KERNELS = ("gemm_packed_kernel", "gemm_prefill_kernel", "gemm_core_kernel", "qkv_codes_epilogue_kernel")
+HERE = Path(__file__).resolve().parent.parent
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-class Timer:
-    """Median CUDA-event time of one call, the L2 cache flushed before each."""
-
-    def __init__(self, torch, dev):
-        self.torch = torch
-        self.l2 = torch.empty(64 << 20, dtype=torch.int32, device=dev)
-
-    def __call__(self, fn, n: int = 10, warm: int = 2) -> float:
-        torch = self.torch
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(n):
-            self.l2.zero_()
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
-
-
-def k1_inputs(torch, gen, dev, m: int, ktot: int, n: int):
-    ng = ktot // 128 - 1
-
-    def randint(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
-
-    a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
-    wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
-    sa = torch.rand((m, ng + 1), generator=gen, device=dev) * 0.19 + 0.01
-    sw = torch.rand((ng + 1, n), generator=gen, device=dev) * 0.019 + 0.001
-    return a, wp, wk, sa, sw
-
-
-def k1_bytes_ops(m: int, ktot: int, n: int) -> tuple[int, int]:
-    ng = ktot // 128 - 1
-    return m * ktot + ng * 64 * n + 128 * n + 4 * (m * (ng + 1) + (ng + 1) * n) + 4 * m * n, 2 * m * n * ktot
+def load_chip_smoke():
+    """This checkout's chip_smoke.py as a module (not the measured one's)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def require_equal(torch, got, want, what: str) -> None:
@@ -100,59 +56,63 @@ def require_equal(torch, got, want, what: str) -> None:
                      f"columns {sorted(set(idx[:, 1].tolist()))[:16]}, max |diff| {(got - want)[bad].abs().max().item()}")
 
 
-def gemm_times(torch, gp, timer, gen, dev, rows) -> dict:
+def gemm_times(cs, torch, gp, timer, gen, dev, rows) -> dict:
     """K1 summed over the three MLP/o_proj shapes and K7, per row count."""
     from atom_tpu_torch.models.nn import rope_tables
 
+    hid, inter = cs.HID, cs.INTER
     res = {}
     for m in rows:
         k1 = dict(ms=0.0, ms_by_shape={})
         nbytes = ops = 0
-        for tag, ktot, n in K1_SHAPES:
-            args = k1_inputs(torch, gen, dev, m, ktot, n)
+        for tag, ktot, n in (("o_proj", hid, hid), ("gate_up", hid, 2 * inter), ("down", inter, hid)):
+            args = cs.k1_operands(torch, gen, dev, m, ktot, n)
             require_equal(torch, gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args), f"packed_w4_gemm at M={m} ({tag})")
             ms = timer(lambda: gp.packed_w4_gemm(*args))
             k1["ms"] += ms
             k1["ms_by_shape"][tag] = ms
-            b, o = k1_bytes_ops(m, ktot, n)
+            b, o = cs.k1_bound(m, ktot, n)
             nbytes, ops = nbytes + b, ops + o
             del args
-        k1["bound_ms"], k1["bound_by"] = bound_ms(nbytes, ops)
+        k1["bound_ms"], k1["bound_by"] = cs.bound(nbytes, ops, cs.PEAK_INT8_OPS)
         # K7 at the 7B qkv: a [m, 4096] -> 12288 columns, q RoPE'd, K/V per-head codes
-        n_q = HID
-        a, wp, wk, sa, sw = k1_inputs(torch, gen, dev, m, HID, 3 * HID)
+        n_q = hid
+        a, wp, wk, sa, sw = cs.k1_operands(torch, gen, dev, m, hid, 3 * hid)
         cos, sin = rope_tables(torch.arange(m, device=dev), 128, 10000.0)
         got = gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, cos, sin, n_q, n_q)
         want = gp.packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, cos, sin, n_q, n_q)
-        for g_, w_ in zip(got, want):
-            g_, w_ = (g_.view(torch.int16), w_.view(torch.int16)) if g_.dtype == torch.bfloat16 else (g_, w_)
-            if not torch.equal(g_, w_):
-                raise SystemExit(f"packed_w4_gemm_qkv at M={m} is not bitwise its plain version")
+        if not all(torch.equal(cs.bits(g_), cs.bits(w_)) for g_, w_ in zip(got, want)):
+            raise SystemExit(f"packed_w4_gemm_qkv at M={m} is not bitwise its plain version")
         h = n_q // 128
         b7 = (a.numel() + wp.numel() + wk.numel() + 4 * (sa.numel() + sw.numel()) + 2 * 4 * m * 128
               + m * n_q * 2 + 2 * m * h * (128 + 8))
         k7 = dict(ms=timer(lambda: gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, cos, sin, n_q, n_q)))
-        k7["bound_ms"], k7["bound_by"] = bound_ms(b7, 2 * m * 3 * HID * HID)
+        k7["bound_ms"], k7["bound_by"] = cs.bound(b7, 2 * m * 3 * hid * hid, cs.PEAK_INT8_OPS)
         res[str(m)] = dict(k1=k1, k7=k7)
         del a, wp, wk, sa, sw, got, want
         torch.cuda.empty_cache()
-        print(f"M={m}: K1 {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}), K7 {k7['ms']:.4f} ms "
-              f"(bound {k7['bound_ms']:.4f})", file=sys.stderr, flush=True)
+        cs.log(f"M={m}: K1 {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}), K7 {k7['ms']:.4f} ms "
+               f"(bound {k7['bound_ms']:.4f})")
     return res
 
 
-def crossover(torch, gp, timer, gen, dev) -> dict:
-    """K1 under every launch the checkout's plan offers, per shape and row count."""
+def crossover(cs, torch, gp, timer, gen, dev) -> dict:
+    """K1 under every launch the checkout's plan offers, per shape and row
+    count, and the layout the plan picks."""
     import inspect
 
     if "path" not in inspect.signature(gp.packed_w4_plan).parameters:
         return {"note": "this checkout's packed_w4_plan takes no path"}
+    hid, inter = cs.HID, cs.INTER
     res = {}
     layouts = [("core", None, None)] + [("prefill", tm, tn) for tm in (64, 128) for tn in (64, 128)]
     for m in (32, 48, 64, 80, 100, 128, 192, 256, 288, 512, 1024):
-        for tag, ktot, n in K1_SHAPES + (("qkv", HID, 3 * HID),):
-            args = k1_inputs(torch, gen, dev, m, ktot, n)
+        by_m = res.setdefault(str(m), {"planned": {}})
+        for tag, ktot, n in (("o_proj", hid, hid), ("gate_up", hid, 2 * inter), ("down", inter, hid), ("qkv", hid, 3 * hid)):
+            args = cs.k1_operands(torch, gen, dev, m, ktot, n)
             want = gp.packed_w4_gemm_plain(*args)
+            planned = gp.packed_w4_plan(m, ktot, n)
+            by_m["planned"][tag] = f"{planned.path} {planned.tile_m}x{planned.tile_n}"
             for path, tm, tn in layouts:
                 if path == "core" and m > 128:
                     continue
@@ -165,67 +125,36 @@ def crossover(torch, gp, timer, gen, dev) -> dict:
                     got = gp.packed_w4_gemm_with_plan(*args, plan)
                     torch.cuda.synchronize()
                 except Exception:
-                    print(f"packed_w4_gemm at M={m} ({tag}) under {plan} failed after "
-                          f"{time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
+                    cs.log(f"packed_w4_gemm at M={m} ({tag}) under {plan} failed after {time.perf_counter() - t0:.2f} s")
                     raise
                 require_equal(torch, got, want, f"packed_w4_gemm at M={m} ({tag}) under {plan}")
-                key = f"{path} {plan.tile_m}x{plan.tile_n}" if path == "prefill" else "core"
-                res.setdefault(str(m), {}).setdefault(key, {})[tag] = timer(lambda: gp.packed_w4_gemm_with_plan(*args, plan))
+                key = f"{path} {plan.tile_m}x{plan.tile_n}"
+                by_m.setdefault(key, {})[tag] = timer(lambda: gp.packed_w4_gemm_with_plan(*args, plan))
             del args, want
-        for key, by in res[str(m)].items():
-            print(f"crossover M={m} {key:16s} " + " ".join(f"{t}={v:.4f}" for t, v in by.items()), file=sys.stderr,
-                  flush=True)
+        for key, by in by_m.items():
+            cs.log(f"crossover M={m} {key:16s} " + " ".join(f"{t}={v if key == 'planned' else round(v, 4)}"
+                                                           for t, v in by.items()))
     return res
 
 
-def prefill_device(torch, dev) -> dict:
-    """One 32-layer W4A4 prefill alone on the card at 256 and 1024 rows."""
-    from torch.profiler import ProfilerActivity, profile
-
+def prefill_device(cs, torch, dev, tag: str) -> dict:
+    """One 32-layer W4A4 prefill alone on the card at 256 and 1024 rows
+    (chip_smoke's ``profile_prefill``; the profile in
+    ``chiprun_out/prefill_gemm_<tag>_<rows>.txt``)."""
     from atom_tpu_torch.config import ATOM_W4A4
     from atom_tpu_torch.models.configs import LLAMA2_7B
-    from atom_tpu_torch.serving.model import init_serving_params, make_serving_state, prefill_step
+    from atom_tpu_torch.serving.model import init_serving_params, make_serving_state
 
     cfg = LLAMA2_7B.replace(num_layers=32)
     params = init_serving_params(cfg, ATOM_W4A4, seed=0, device=dev)
-    page = 256
-    state = make_serving_state(cfg.num_layers, 9, 1, cfg.num_kv_heads, page, cfg.head_dim, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    res = {}
-    for bucket in (256, 1024):
-        ids = torch.randint(1, cfg.vocab_size, (bucket,), generator=gen, device=dev, dtype=torch.int32)
-        table_row = torch.zeros((8,), dtype=torch.int32, device=dev)
-        table_row[: -(-bucket // page)] = torch.arange(1, -(-bucket // page) + 1, dtype=torch.int32, device=dev)
-
-        def once():
-            tok, _ = prefill_step(params, state, ids, table_row, bucket - 56, 0, cfg, ATOM_W4A4)
-            return tok.item()
-
-        once()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        token = once()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            once()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        gemm = {}
-        for e in kernels:
-            name = next((k for k in GEMM_KERNELS if k in e.key), None)
-            if name:
-                ms, cnt = gemm.get(name, (0.0, 0))
-                gemm[name] = (ms + e.self_device_time_total / 1e3, cnt + e.count)
-        res[str(bucket)] = dict(wall_ms=wall_ms, device_ms=dev_ms, device_kernels=sum(e.count for e in kernels),
-                                token=token, gemm_kernels={k: dict(ms=v[0], launches=v[1]) for k, v in gemm.items()})
-        print(f"prefill {bucket} rows: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, {gemm}", file=sys.stderr, flush=True)
-    return res
+    state = make_serving_state(cfg.num_layers, 9, 1, cfg.num_kv_heads, cs.PAGE, cfg.head_dim, device=dev)
+    return {str(bucket): cs.profile_prefill(torch, dev, params, state, cfg, ATOM_W4A4, bucket,
+                                            f"prefill_gemm_{tag}_{bucket}.txt") for bucket in (256, 1024)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--rows", default="128,256,288,512,1024")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--crossover", action="store_true")
@@ -233,6 +162,7 @@ def main() -> int:
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
+    cs = load_chip_smoke()
 
     import torch
 
@@ -246,16 +176,14 @@ def main() -> int:
         raise SystemExit(f"atom_tpu_torch came from {atom_tpu_torch.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = Timer(torch, dev)
-    res = dict(root=str(root), card=card)
+    timer = cs.Timer(torch, dev)
+    res = dict(root=str(root), card=cs.card_line())
     if args.crossover:
-        res["crossover"] = crossover(torch, gp, timer, gen, dev)
-    res["rows"] = gemm_times(torch, gp, timer, gen, dev, [int(r) for r in args.rows.split(",") if r])
+        res["crossover"] = crossover(cs, torch, gp, timer, gen, dev)
+    res["rows"] = gemm_times(cs, torch, gp, timer, gen, dev, [int(r) for r in args.rows.split(",") if r])
     if args.prefill:
-        res["prefill"] = prefill_device(torch, dev)
+        res["prefill"] = prefill_device(cs, torch, dev, root.name)
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:

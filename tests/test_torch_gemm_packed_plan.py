@@ -113,6 +113,23 @@ def test_plan_ring_fits_shared_memory(m, k, n):
             assert plan.grid == (n // 128, -(-m // plan.tile_m))
 
 
+@pytest.mark.parametrize("m", [65, 96, 128, 288])
+def test_core_above_64_rows_takes_16_row_blocks(m):
+    """Above 64 rows the core (the ring epilogue at a decode batch over 64,
+    or K1 asked for the core) plans 16-row blocks and refuses 32- and
+    64-row ones: those differ from the plain version now and then over more
+    than 64 rows (fault C3).  Up to 64 rows the head keeps its 32-row
+    blocks."""
+    for head, n in ((True, 3 * HID), (False, 3 * HID)):
+        plan = gp.packed_w4_plan(m, HID, n, head=head, path="core")
+        assert plan.path == "core" and plan.tile_m == 16 and _covered_once(plan, m, n)
+        assert plan.grid == (n // plan.tile_n, -(-m // 16))
+        for tile_m in (32, 64):
+            with pytest.raises(ValueError):
+                gp.packed_w4_plan(m, HID, n, head=head, path="core", tile_m=tile_m)
+    assert gp.packed_w4_plan(64, HID, 3 * HID, head=True).tile_m == 32
+
+
 def test_plan_takes_overrides_and_refuses_bad_layouts():
     """Other layouts (for measuring) plan as asked; a tile that does not
     divide N, a width the kernel has no swizzle for, 64-row head blocks or
@@ -389,15 +406,19 @@ def test_prefill_plan_takes_the_fastest_layout_within_shared_memory(m, k, n):
 
 def test_prefill_plan_takes_overrides_and_refuses_bad_layouts():
     """Other tiles plan as asked (for measuring), and the core can be asked
-    for above 64 rows; 128-row blocks of a K-blocked sum, widths the kernel
-    has no warpgroups for, the ring epilogue on the prefill GEMM and the
-    core without a body group raise."""
+    for above 64 rows, in 16-row blocks only (fault C3: 32- and 64-row
+    blocks over more than 64 rows raise); 128-row blocks of a K-blocked sum,
+    widths the kernel has no warpgroups for, the ring epilogue on the
+    prefill GEMM and the core without a body group raise."""
     plan = gp.packed_w4_plan(1024, HID, HID, path="prefill", tile_m=64, tile_n=128, stages=4)
     assert (plan.tile_m, plan.tile_n, plan.stages, plan.grid) == (64, 128, 4, (16, 32))
     plan = gp.packed_w4_plan(1024, HID, HID, tile_n=64)  # the other dimension still chosen
     assert plan.tile_n == 64 and plan.tile_m in (64, 128)
     core = gp.packed_w4_plan(128, HID, HID, path="core")
-    assert core.path == "core" and core.tile_m in (16, 32, 64) and _covered_once(core, 128, HID)
+    assert core.path == "core" and core.tile_m == 16 and _covered_once(core, 128, HID)
+    for tile_m in (32, 64):
+        with pytest.raises(ValueError, match="C3"):
+            gp.packed_w4_plan(128, HID, HID, path="core", tile_m=tile_m)
     with pytest.raises(ValueError):
         gp.packed_w4_plan(288, 28672, 1024, tile_m=128)
     with pytest.raises(ValueError):
