@@ -45,18 +45,51 @@
 // hundred KB per layer every W-th step, launch latency dominates.
 //
 // K11 replaces :533 paged_decode_attention_rotated (_decode_kernel :74, the page
-// step of :335, the finalize of :187): K3 without the ring, returning also the
-// online-softmax state m, l per query row so that the caller merges it with a
-// second part (the ring, or a prompt chunk's own keys).  The mixed step calls it
-// with the decode batch (G = HQ / H query rows per kv head) and with one
-// sequence whose query axis holds all C queries of a prompt chunk (G * C rows
-// per kv head: 256 at 7B, 2048 for 64 q / 8 kv heads).  Registers and shared
-// memory hold GMAX query rows, so the grid gets a third axis over tiles of
-// GMAX rows; every tile of a (sequence, kv head) walks the same pages, which
-// the first tile brings into L2 for the others.  A sequence with nothing
-// flushed walks no page and stores out = 0, m = -1e30, l = 0.  Bound: the
-// pages' bytes read once (memory); the design re-reads them once per tile
-// from L2, and each tile is latency-bound (one block walks every page in turn).
+// step of :335, the finalize of :187): attention over the flushed pages alone,
+// returning also the online-softmax state m, l per query row so that the caller
+// merges it with a second part (the ring, or a prompt chunk's own keys).  The
+// mixed step calls it twice a layer, and the C entry picks one of two kernels
+// from the shapes alone (ops/decode.py::check_rotated_decode_shape states the
+// rule):
+//  * the decode rows (G = HQ / H <= 8 query rows per kv head): K3's kernel as a
+//    compile-time variant without the ring (paged_ring_stream_kernel<G, false>),
+//    writing the output in float32 or bf16 and m, l; page sizes as K3's.
+//    Bound: the pages' bytes, as K3.
+//  * a chunk's prefix (one sequence whose query axis holds all C queries of a
+//    prompt chunk: G * C rows per kv head, 256 at 7B, 2,048 for 64 q / 8 kv
+//    heads): paged_tile_kernel, flash-style tiles of 64 query rows on the bf16
+//    tensor cores.  Each row meets every prefix token, 4 x 128 operations a
+//    pair, against pages read once: 256 rows a kv head put it at ~960
+//    operations per byte, above the ~295 where the bf16 tensor cores and not
+//    the memory bound it.  A block of 8 warps owns 64 rows of one kv head
+//    (16 a warp, FlashAttention-2's layout, twice: each half of the block
+//    takes every other 64 slots of the walk with its own softmax state, and
+//    the halves merge at the end) and walks the head's pages through a
+//    double buffer of bulk copies (K [64][S], V [S/2][128], params [4][S]).
+//    Per 64 slots of a page (32 of its first half and the 32 that share their
+//    V bytes in the second): q.K on mma.sync m16n8k16 bf16 with float32 sums.
+//    q is bf16 and a u4 code is exact in bf16 (an OR under 128's exponent and
+//    one subtraction), so every product is exact and only the order of the
+//    additions moves.  The k index follows the bytes: a K byte [c][s] holds
+//    channels c and c + 64, one k pair of the B fragment, and q's A fragment
+//    takes its channels in the same order; the n index puts 4 consecutive
+//    slots in one 32-bit load (n-tile u of a 32-slot group, column n: slot
+//    4n + u), which leaves each thread the scores of 8 consecutive slots a
+//    group.  Online softmax per row in registers (the quad of a row shares its
+//    max by shuffles), slots from seq_len on masked.  p.V: the score fragments
+//    are the A fragments (a k pair: slots r and r + 4 of a group), a V byte
+//    [r][d] holds slots r and r + S/2, so one byte load feeds a group and its
+//    partner; p * v_scale is kept in float32 as two bf16 terms, hi and its
+//    remainder, two mma's a k-step (relative error ~2^-17, where one bf16
+//    rounding, 2^-9, would not hold the float32 output's tolerance).  Each
+//    64 slots' p.V starts from a zero accumulator and joins the running
+//    output in one multiply-add with the softmax's rescale.  sum p and
+//    sum p * v_zero stay on the CUDA cores.  Against the plain version the
+//    float32 output sits within ~1.5e-5 at a 1,792-token prefix, where a CPU
+//    emulation of the same order with IEEE sums (tests/test_torch_decode_tile.py)
+//    is within ~2e-6: the rest is the tensor cores' own float32 summation.
+//    A prefix of 0 walks no page and stores out = 0, m = -1e30, l = 0.  One
+//    launch, no workspace, deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,234 +97,10 @@
 
 namespace {
 
-constexpr int D = 128;   // head_dim: one thread per channel
+constexpr int D = 128;  // head_dim
 constexpr int DH = D / 2;
-constexpr int GMAX = 8;  // query heads per kv head
-constexpr int NWARPS = D / 32;
+constexpr int GMAX = 8;  // query rows per kv head of K3 and of K11's decode rows
 constexpr float NEG_INF = -1e30f;
-
-struct BlockRed {
-  float v[NWARPS][GMAX];
-};
-
-// Reduce v[0..G) over the block (max or sum); every thread gets the result.
-template <bool MAX>
-__device__ __forceinline__ void block_reduce(float (&v)[GMAX], int G, BlockRed& red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    float x = v[g];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float y = __shfl_xor_sync(0xffffffffu, x, o);
-      x = MAX ? fmaxf(x, y) : __fadd_rn(x, y);
-    }
-    if (lane == 0) red.v[warp][g] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    float x = red.v[0][g];
-#pragma unroll
-    for (int w = 1; w < NWARPS; ++w) x = MAX ? fmaxf(x, red.v[w][g]) : __fadd_rn(x, red.v[w][g]);
-    v[g] = x;
-  }
-  __syncthreads();
-}
-
-struct Chunk {
-  const int8_t* k;            // [D/2][L] channel-plane bytes, row stride L
-  const __nv_bfloat16* prm;   // plane j at prm + j * plane_stride, lane-indexed
-  size_t plane_stride;
-  const int8_t* v;            // ring: [L][D] codes; page: [L/2][D] slot-plane bytes
-  int L;
-};
-
-// One online-softmax step over a chunk of L lanes.
-template <bool RING>
-__device__ void attend_chunk(const Chunk& ch, int G, const float (*qs)[D], const float* qsum,
-                             float* pw /* [G][L] shared */, BlockRed& red, float sm_scale,
-                             int valid_a, int valid_b, float (&m)[GMAX], float (&l)[GMAX],
-                             float (&acc)[GMAX]) {
-  // RING: lane valid iff (valid_a - lane + L) % L < valid_b   (row, n_hot)
-  // page: lane valid iff valid_a + lane < valid_b             (pos0, seq_len)
-  const int tid = threadIdx.x;
-  const int L = ch.L;
-  float mx[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) mx[g] = NEG_INF;
-  for (int s = tid; s < L; s += D) {
-    const bool valid = RING ? ((valid_a - s + L) % L) < valid_b : valid_a + s < valid_b;
-    float dlo[GMAX], dhi[GMAX];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) dlo[g] = dhi[g] = 0.f;
-    for (int c = 0; c < DH; ++c) {
-      const int byte = (uint8_t)ch.k[(size_t)c * L + s];
-      const float lo = (float)(byte & 0x0F), hi = (float)(byte >> 4);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        dlo[g] = __fadd_rn(dlo[g], __fmul_rn(qs[g][c], lo));
-        dhi[g] = __fadd_rn(dhi[g], __fmul_rn(qs[g][c + DH], hi));
-      }
-    }
-    const float ks = __bfloat162float(ch.prm[s]);
-    const float kz = __bfloat162float(ch.prm[ch.plane_stride + s]);
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g >= G) break;
-      float sc = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(dlo[g], dhi[g]), ks), __fmul_rn(qsum[g], kz)),
-                           sm_scale);
-      if (!valid) sc = NEG_INF;
-      pw[g * L + s] = sc;
-      mx[g] = fmaxf(mx[g], sc);
-    }
-  }
-  block_reduce<true>(mx, G, red);
-  float alpha[GMAX], ls[GMAX], zs[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    const float m_new = fmaxf(m[g], mx[g]);
-    alpha[g] = expf(__fsub_rn(m[g], m_new));
-    m[g] = m_new;
-    ls[g] = 0.f;
-    zs[g] = 0.f;
-  }
-  for (int s = tid; s < L; s += D) {
-    const bool valid = RING ? ((valid_a - s + L) % L) < valid_b : valid_a + s < valid_b;
-    const float vs = __bfloat162float(ch.prm[2 * ch.plane_stride + s]);
-    const float vz = __bfloat162float(ch.prm[3 * ch.plane_stride + s]);
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g >= G) break;
-      const float p = valid ? expf(__fsub_rn(pw[g * L + s], m[g])) : 0.f;
-      ls[g] = __fadd_rn(ls[g], p);
-      zs[g] = __fadd_rn(zs[g], __fmul_rn(p, vz));
-      pw[g * L + s] = __fmul_rn(p, vs);
-    }
-  }
-  block_reduce<false>(ls, G, red);  // its __syncthreads also publishes pw
-  block_reduce<false>(zs, G, red);
-  float pv[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) pv[g] = 0.f;
-  const int d = tid;
-  if (RING) {
-    for (int s = 0; s < L; ++s) {
-      const float code = (float)ch.v[(size_t)s * D + d];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        pv[g] = __fadd_rn(pv[g], __fmul_rn(pw[g * L + s], code));
-      }
-    }
-  } else {
-    const int half = L / 2;
-    for (int r = 0; r < half; ++r) {
-      const int byte = (uint8_t)ch.v[(size_t)r * D + d];
-      const float lo = (float)(byte & 0x0F), hi = (float)(byte >> 4);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        pv[g] = __fadd_rn(pv[g], __fadd_rn(__fmul_rn(pw[g * L + r], lo), __fmul_rn(pw[g * L + r + half], hi)));
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    acc[g] = __fadd_rn(__fadd_rn(__fmul_rn(acc[g], alpha[g]), pv[g]), zs[g]);
-    l[g] = __fadd_rn(__fmul_rn(l[g], alpha[g]), ls[g]);
-  }
-  __syncthreads();  // pw is rewritten by the next chunk
-}
-
-// Load G query rows (row0 ...) into shared memory as float32 with their channel sums.
-__device__ __forceinline__ void load_queries(const __nv_bfloat16* __restrict__ q, size_t row0, int G,
-                                             float (*qs)[D], float* qsum, BlockRed& red) {
-  const int d = threadIdx.x;
-  float sums[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    sums[g] = 0.f;
-    if (g < G) {
-      qs[g][d] = __bfloat162float(q[(row0 + g) * D + d]);
-      sums[g] = qs[g][d];
-    }
-  }
-  block_reduce<false>(sums, G, red);
-  if (d < G) qsum[d] = sums[d];
-  __syncthreads();
-}
-
-// Walk sequence b's flushed pages of kv head h in order, one online-softmax step per page.
-__device__ __forceinline__ void attend_pages(const int8_t* __restrict__ k_pages,
-                                             const __nv_bfloat16* __restrict__ params,
-                                             const int8_t* __restrict__ v_pages,
-                                             const int* __restrict__ table_row, int seq_len, int H, int h,
-                                             int S, int max_pages, int G, const float (*qs)[D],
-                                             const float* qsum, float* pw, BlockRed& red, float sm_scale,
-                                             float (&m)[GMAX], float (&l)[GMAX], float (&acc)[GMAX]) {
-  const int n_pg = min((seq_len + S - 1) / S, max_pages);
-  for (int i = 0; i < n_pg; ++i) {
-    const size_t p = (size_t)table_row[i];
-    Chunk pg;
-    pg.k = k_pages + (p * H + h) * DH * S;
-    pg.prm = params + (p * 4 * H + h) * S;
-    pg.plane_stride = (size_t)H * S;
-    pg.v = v_pages + (p * H + h) * (S / 2) * D;
-    pg.L = S;
-    attend_chunk<false>(pg, G, qs, qsum, pw, red, sm_scale, i * S, seq_len, m, l, acc);
-  }
-}
-
-// K11: pages only.  Block (b, h, tile) owns query rows [tile*GMAX, ...) of the
-// HQ / H rows of kv head h (q is kv-head-major).
-__global__ void __launch_bounds__(D)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ params, const int8_t* __restrict__ v_pages,
-                    const int* __restrict__ page_table, const int* __restrict__ seq_lens,
-                    void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                    int HQ, int H, int S, int max_pages, int out_f32, float sm_scale) {
-  extern __shared__ float pw[];  // [GMAX][S]
-  __shared__ float qs[GMAX][D];
-  __shared__ float qsum[GMAX];
-  __shared__ BlockRed red;
-  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const int rows_per_head = HQ / H;
-  const int g0 = blockIdx.z * GMAX;
-  const int G = min(GMAX, rows_per_head - g0);
-  const size_t row0 = (size_t)b * HQ + (size_t)h * rows_per_head + g0;  // first query row of the tile
-  load_queries(q, row0, G, qs, qsum, red);
-
-  float m[GMAX], l[GMAX], acc[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-
-  attend_pages(k_pages, params, v_pages, page_table + (size_t)b * max_pages, seq_lens[b], H, h, S, max_pages, G,
-               qs, qsum, pw, red, sm_scale, m, l, acc);
-
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    const float o = __fdiv_rn(acc[g], fmaxf(l[g], 1e-20f));
-    if (out_f32)
-      static_cast<float*>(out)[(row0 + g) * D + d] = o;
-    else
-      static_cast<__nv_bfloat16*>(out)[(row0 + g) * D + d] = __float2bfloat16_rn(o);
-    if (d == 0) {
-      m_out[row0 + g] = m[g];
-      l_out[row0 + g] = l[g];
-    }
-  }
-}
 
 __global__ void __launch_bounds__(256)
 flush_kernel(const int8_t* __restrict__ k_flush, const __nv_bfloat16* __restrict__ prm_flush,
@@ -344,19 +153,6 @@ extern "C" int atom_flush_hot(const void* k_flush, const void* prm_flush, const 
       (const int8_t*)k_flush, (const __nv_bfloat16*)prm_flush, (const int8_t*)v_flush,
       (const int*)page_a, (const int*)page_b, (const int*)slot0, (const int*)o, (const int*)lo,
       (const int*)hi, (int8_t*)k_pages, (__nv_bfloat16*)params, (int8_t*)v_pages, H, S, W, Dh);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int atom_paged_decode(const void* q, const void* k_pages, const void* params,
-                                 const void* v_pages, const void* page_table, const void* seq_lens,
-                                 void* out, void* m_out, void* l_out, int B, int HQ, int H, int S,
-                                 int max_pages, int out_f32, float sm_scale, void* stream) {
-  const int tiles = (HQ / H + GMAX - 1) / GMAX;
-  const size_t smem = (size_t)GMAX * S * sizeof(float);
-  paged_decode_kernel<<<dim3(B, H, tiles), D, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)k_pages, (const __nv_bfloat16*)params,
-      (const int8_t*)v_pages, (const int*)page_table, (const int*)seq_lens, out, (float*)m_out,
-      (float*)l_out, HQ, H, S, max_pages, out_f32, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -475,15 +271,17 @@ __device__ __forceinline__ void sts(float* p, const float (&v)[N]) {
   }
 }
 
-template <int G>
+// RING: K3 (the ring, then the pages; bf16 out).  Without: K11's decode rows
+// (the pages alone; float32 or bf16 out, and the softmax state m, l).
+template <int G, bool RING>
 __global__ void __launch_bounds__(K3_THREADS)
 paged_ring_stream_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_pages,
                          const __nv_bfloat16* __restrict__ params, const int8_t* __restrict__ v_pages,
                          const int* __restrict__ page_table, const int* __restrict__ seq_lens,
                          const int8_t* __restrict__ ring_k, const __nv_bfloat16* __restrict__ ring_prm,
                          const int8_t* __restrict__ ring_v, const int* __restrict__ n_hot,
-                         __nv_bfloat16* __restrict__ out, int H, int S, int W, int max_pages, int row,
-                         float sm_scale) {
+                         void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int out_f32,
+                         int H, int S, int W, int max_pages, int row, float sm_scale) {
   constexpr int GP = padded(G);
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.x, h = blockIdx.y, HQ = H * G;
@@ -493,19 +291,30 @@ paged_ring_stream_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
   float* qs = reinterpret_cast<float*>(smem + y.qs);
   float* part = reinterpret_cast<float*>(smem + y.part);
   float* red = reinterpret_cast<float*>(smem + y.red);
-  __nv_bfloat16* orow = out + ((size_t)b * HQ + h * G) * D;  // this kv head's G output rows
+  const size_t row0 = (size_t)b * HQ + h * G;  // this kv head's first output row
+  const bool f32 = !RING && out_f32;
+  auto store = [&](int g, int d, float v) {
+    if (f32)
+      static_cast<float*>(out)[(row0 + g) * D + d] = v;
+    else
+      static_cast<__nv_bfloat16*>(out)[(row0 + g) * D + d] = __float2bfloat16_rn(v);
+  };
 
   // the sequence's lengths and its first page, loaded together
-  const int seq_len = seq_lens[b], nh_b = n_hot[b];
+  const int seq_len = seq_lens[b], nh_b = RING ? n_hot[b] : 0;
   const int first_page = max_pages > 0 ? page_table[(size_t)b * max_pages] : 0;
   const int n_page = max(min((seq_len + S - 1) / S, max_pages), 0);
-  if (n_page == 0 && nh_b <= 0) {  // an idle row: a zero row
-    for (int e = tid; e < G * D; e += K3_THREADS) orow[e] = __float2bfloat16_rn(0.f);
+  if (n_page == 0 && nh_b <= 0) {  // an idle row: a zero row (and m = -1e30, l = 0)
+    for (int e = tid; e < G * D; e += K3_THREADS) store(e / D, e % D, 0.f);
+    if (!RING && tid < G) {
+      m_out[row0 + tid] = NEG_INF;
+      l_out[row0 + tid] = 0.f;
+    }
     return;
   }
   // the chunks: the ring (if it holds a token), then the page-table columns
   // up to the sequence's last flushed page
-  const int has_ring = nh_b > 0 ? 1 : 0;
+  const int has_ring = RING && nh_b > 0 ? 1 : 0;
   const int n_chunks = has_ring + n_page;
 
   // The pages pass through one buffer (thread 0 copies, each part on
@@ -760,16 +569,20 @@ paged_ring_stream_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
       v += part[(w * G + g) * D + tid];
     }
     // a row whose every lane is masked has l = 0 and acc = 0: a zero row
-    orow[g * D + tid] = __float2bfloat16_rn(__fdiv_rn(v + z, fmaxf(a, 1e-20f)));
+    store(g, tid, __fdiv_rn(v + z, fmaxf(a, 1e-20f)));
+    if (!RING && tid == 0) {
+      m_out[row0 + g] = m[g];
+      l_out[row0 + g] = a;
+    }
   }
 }
 
-template <int G>
+template <int G, bool RING>
 int launch_stream(const void* q, const void* k_pages, const void* params, const void* v_pages,
                   const void* page_table, const void* seq_lens, const void* ring_k, const void* ring_prm,
-                  const void* ring_v, const void* n_hot, void* out, int B, int H, int S, int W, int max_pages,
-                  int row, float sm_scale, cudaStream_t st) {
-  auto kernel = paged_ring_stream_kernel<G>;
+                  const void* ring_v, const void* n_hot, void* out, void* m_out, void* l_out, int out_f32, int B,
+                  int H, int S, int W, int max_pages, int row, float sm_scale, cudaStream_t st) {
+  auto kernel = paged_ring_stream_kernel<G, RING>;
   const int smem = k3_layout(G, S, W).total;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;
@@ -781,7 +594,399 @@ int launch_stream(const void* q, const void* k_pages, const void* params, const 
   kernel<<<dim3(B, H), K3_THREADS, smem, st>>>(
       (const __nv_bfloat16*)q, (const int8_t*)k_pages, (const __nv_bfloat16*)params, (const int8_t*)v_pages,
       (const int*)page_table, (const int*)seq_lens, (const int8_t*)ring_k, (const __nv_bfloat16*)ring_prm,
-      (const int8_t*)ring_v, (const int*)n_hot, (__nv_bfloat16*)out, H, S, W, max_pages, row, sm_scale);
+      (const int8_t*)ring_v, (const int*)n_hot, out, (float*)m_out, (float*)l_out, out_f32, H, S, W, max_pages, row,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K11's chunk-prefix path: paged_tile_kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 64;             // query rows of a tile: 4 warps x 16, twice
+constexpr int TILE_THREADS = 256;  // two halves of 4 warps, each on every other 64 slots
+constexpr int MERGE_FLOATS = 70;   // a thread's state handed to the other half: o [16][4], m, l, z [2]
+
+// One page in a buffer: K [64][S] bytes, V [S/2][128] bytes, params [4][S]
+// bf16; two buffers, the halves' merge over them at the end, the barriers.
+__host__ __device__ inline int tile_page_bytes(int S) { return 136 * S; }
+__host__ __device__ inline int tile_bars(int S) {
+  return 2 * tile_page_bytes(S) > MERGE_FLOATS * 128 * 4 ? 2 * tile_page_bytes(S) : MERGE_FLOATS * 128 * 4;
+}
+__host__ __device__ inline int tile_smem(int S) { return tile_bars(S) + 16; }
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Byte U of x and byte U of y (nibble codes, 0-15) as the bf16 pair (x's, y's),
+// exactly: each byte goes under 128's exponent (0x43 above it; the selector's
+// sign-replicating nibbles put zeros there first), then 128 comes off.
+template <int U>
+__device__ __forceinline__ uint32_t code_pair(uint32_t x, uint32_t y) {
+  constexpr uint32_t sel = U | ((8 | U) << 4) | ((4 + U) << 8) | ((8 | U) << 12);
+  const uint32_t v = prmt(x, y, sel) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// x0, x1 as a bf16 pair and the pair of their remainders (exact in float32,
+// then rounded): x = hi + lo to ~2^-17 relative
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = bf16_pair(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
+}
+
+// d += a . b, m16n8k16, bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bf16 from shared memory (16-byte aligned) as floats
+__device__ __forceinline__ void lds8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Block (b, h, tile): query rows [64 tile, 64 tile + 64) of the HQ / H rows of
+// kv head h (q is kv-head-major); warp w its rows 16 (w % 4) .. + 15, a thread
+// rows gid and gid + 8 of those (the mma fragments' rows).  The warps w < 4
+// (half 0) take the page walk's even 64-slot chunks, w >= 4 (half 1) the odd
+// ones, each with its own online-softmax state, merged at the end: two warps
+// a row tile keep the tensor cores busier than one where the grid has a
+// block an SM (a 7B chunk's 32 kv heads x 4 tiles).
+__global__ void __launch_bounds__(TILE_THREADS)
+paged_tile_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_pages,
+                  const __nv_bfloat16* __restrict__ params, const int8_t* __restrict__ v_pages,
+                  const int* __restrict__ page_table, const int* __restrict__ seq_lens, void* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int HQ, int H, int S, int max_pages,
+                  int out_f32, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x, h = blockIdx.y, R = HQ / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int half = warp >> 2;
+  const int rw = blockIdx.z * TQ + (warp & 3) * 16;    // the warp's first row in the head
+  const size_t hrow0 = (size_t)b * HQ + (size_t)h * R;  // the head's row 0 in q, out, m, l
+  const int seq_len = seq_lens[b];
+  const int n_page = max(min((seq_len + S - 1) / S, max_pages), 0);
+  const int PB = tile_page_bytes(S);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + tile_bars(S));
+  const int* table = page_table + (size_t)b * max_pages;
+
+  // thread 0 copies page i of the walk into buffer i & 1, completing on its mbarrier
+  auto issue = [&](int i) {
+    const size_t p = (size_t)table[i];
+    unsigned char* dst = smem + (i & 1) * PB;
+    uint64_t* bar = bars + (i & 1);
+    k3_mbar_expect(bar, PB);
+    bulk_copy(dst, k_pages + (p * H + h) * DH * S, DH * S, bar);
+    bulk_copy(dst + DH * S, v_pages + (p * H + h) * (S / 2) * D, S / 2 * D, bar);
+    for (int j = 0; j < 4; ++j) bulk_copy(dst + 128 * S + j * 2 * S, params + ((p * 4 + j) * H + h) * S, 2 * S, bar);
+  };
+  if (tid == 0) {
+    k3_mbar_init(bars, 1);
+    k3_mbar_init(bars + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(n_page, 2); ++i) issue(i);
+  }
+
+  // q's A fragments (k-step kk: a k pair is channels (8 kk + j, 8 kk + j + 64),
+  // the K bytes' order) and the rows' channel sums, while the copies fly
+  uint32_t qa[8][4];
+  float qsum[2] = {0.f, 0.f};
+  {
+    const unsigned short* qb = reinterpret_cast<const unsigned short*>(q);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t x[2][4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = rw + gid + 8 * rr;
+        const unsigned short* qr = qb + (hrow0 + r) * D + 8 * kk + tig;
+        const bool live = r < R;
+        const int off[4] = {0, 64, 4, 68};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x[rr][j] = live ? qr[off[j]] : 0u;
+          qsum[rr] += __uint_as_float(x[rr][j] << 16);  // bf16 -> float
+        }
+      }
+      qa[kk][0] = x[0][0] | (x[0][1] << 16);
+      qa[kk][1] = x[1][0] | (x[1][1] << 16);
+      qa[kk][2] = x[0][2] | (x[0][3] << 16);
+      qa[kk][3] = x[1][2] | (x[1][3] << 16);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      qsum[rr] += __shfl_xor_sync(0xffffffffu, qsum[rr], 1);
+      qsum[rr] += __shfl_xor_sync(0xffffffffu, qsum[rr], 2);
+    }
+  }
+  __syncthreads();  // the barriers' init
+
+  // state of rows gid, gid + 8: m the same in a row's quad, l and sum p * v_zero
+  // this thread's shares; o[4 D + u][2 rr + e]: channel 32 D + 8 tig + 4 e + u
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, z[2] = {0.f, 0.f};
+  float o[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  const int groups = S / 64;  // 32-slot groups of a page's first half
+  for (int i = 0; i < n_page; ++i) {
+    k3_mbar_wait(bars + (i & 1), (i >> 1) & 1);
+    const unsigned char* kb = smem + (i & 1) * PB;
+    const unsigned char* vb = kb + DH * S;
+    const __nv_bfloat16* prm = reinterpret_cast<const __nv_bfloat16*>(kb + 128 * S);
+    const int pos0 = i * S;
+    // 64 slots at a time: group t of the page's first half (hg 0) and its
+    // partner S/2 on (hg 1), whose V codes share bytes; chunk i * groups + t
+    // of the walk to the half of its parity
+    for (int t = (half + i * groups) & 1; t < groups; t += 2) {
+      if (pos0 + 32 * t >= seq_len) break;  // the rest of the page lies past the prefix
+      // scores: n-tile 4 hg + u, column n = slot 4 n + u of the group
+      float sc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {
+          const unsigned char* kc = kb + (hg ? S / 2 : 0) + 32 * t + 4 * gid;
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(kc + (8 * kk + tig) * S);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(kc + (8 * kk + 4 + tig) * S);
+          const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
+          const uint32_t l1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
+          mma_bf16(sc[4 * hg + 0], qa[kk], code_pair<0>(l0, h0), code_pair<0>(l1, h1));
+          mma_bf16(sc[4 * hg + 1], qa[kk], code_pair<1>(l0, h0), code_pair<1>(l1, h1));
+          mma_bf16(sc[4 * hg + 2], qa[kk], code_pair<2>(l0, h0), code_pair<2>(l1, h1));
+          mma_bf16(sc[4 * hg + 3], qa[kk], code_pair<3>(l0, h0), code_pair<3>(l1, h1));
+        }
+      // the thread's 8 slots of a group, 8 tig + 4 e + u: scores and the chunk's max
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int hg = 0; hg < 2; ++hg) {
+        const int s0 = (hg ? S / 2 : 0) + 32 * t + 8 * tig;
+        float ks[8], kz[8];
+        lds8(prm + s0, ks);
+        lds8(prm + S + s0, kz);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * e + u;
+            const bool valid = pos0 + s0 + k < seq_len;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              float& x = sc[4 * hg + u][2 * rr + e];
+              x = valid ? __fmul_rn(__fmaf_rn(x, ks[k], __fmul_rn(qsum[rr], kz[k])), sm_scale) : NEG_INF;
+              mx[rr] = fmaxf(mx[rr], x);
+            }
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(m[rr], mx[rr]);
+        alpha[rr] = expf(__fsub_rn(m[rr], m_new));
+        m[rr] = m_new;
+        l[rr] = __fmul_rn(l[rr], alpha[rr]);
+        z[rr] = __fmul_rn(z[rr], alpha[rr]);
+      }
+      // p; l and sum p * v_zero; the scores become p * v_scale
+#pragma unroll
+      for (int hg = 0; hg < 2; ++hg) {
+        const int s0 = (hg ? S / 2 : 0) + 32 * t + 8 * tig;
+        float vs[8], vz[8];
+        lds8(prm + 2 * S + s0, vs);
+        lds8(prm + 3 * S + s0, vz);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * e + u;
+            const bool valid = pos0 + s0 + k < seq_len;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              float& x = sc[4 * hg + u][2 * rr + e];
+              const float p = valid ? expf(__fsub_rn(x, m[rr])) : 0.f;
+              l[rr] = __fadd_rn(l[rr], p);
+              z[rr] = __fmaf_rn(p, vz[k], z[rr]);
+              x = __fmul_rn(p, vs[k]);
+            }
+          }
+      }
+      // p.V: channel quad cq (channels 32 cq + 4 gid + u: n-tile 4 cq + u); V
+      // rows 32 t + 8 tig + j, their low nibbles the group's slots, their high
+      // nibbles the partner's; k-step (hg, kp) takes the scores' n-tiles 2 kp
+      // and 2 kp + 1: rows 2 kp + {0, 4} (b0) and 2 kp + 1 + {0, 4} (b1).
+      // The chunk's products go into a fresh accumulator, which joins the
+      // running output in one multiply-add with the softmax's rescale alpha.
+      uint32_t a[2][2][2][4];  // [kp][hg][hi, lo][fragment register]
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp)
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {
+          const float(&c0)[4] = sc[4 * hg + 2 * kp];
+          const float(&c1)[4] = sc[4 * hg + 2 * kp + 1];
+          split_pair(c0[0], c0[1], a[kp][hg][0][0], a[kp][hg][1][0]);
+          split_pair(c0[2], c0[3], a[kp][hg][0][1], a[kp][hg][1][1]);
+          split_pair(c1[0], c1[1], a[kp][hg][0][2], a[kp][hg][1][2]);
+          split_pair(c1[2], c1[3], a[kp][hg][0][3], a[kp][hg][1][3]);
+        }
+#pragma unroll
+      for (int cq = 0; cq < 4; ++cq) {
+        float pv[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[u][e] = 0.f;
+#pragma unroll
+        for (int kp = 0; kp < 2; ++kp) {
+          const unsigned char* vr = vb + (32 * t + 8 * tig + 2 * kp) * D + 32 * cq + 4 * gid;
+          const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(vr), *reinterpret_cast<const uint32_t*>(vr + D),
+                                 *reinterpret_cast<const uint32_t*>(vr + 4 * D),
+                                 *reinterpret_cast<const uint32_t*>(vr + 5 * D)};  // rows 2kp, +1, +4, +5
+#pragma unroll
+          for (int hg = 0; hg < 2; ++hg) {
+            uint32_t x[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) x[j] = (hg ? w[j] >> 4 : w[j]) & 0x0F0F0F0Fu;
+            const uint32_t b0[4] = {code_pair<0>(x[0], x[2]), code_pair<1>(x[0], x[2]), code_pair<2>(x[0], x[2]),
+                                    code_pair<3>(x[0], x[2])};
+            const uint32_t b1[4] = {code_pair<0>(x[1], x[3]), code_pair<1>(x[1], x[3]), code_pair<2>(x[1], x[3]),
+                                    code_pair<3>(x[1], x[3])};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              mma_bf16(pv[u], a[kp][hg][0], b0[u], b1[u]);
+              mma_bf16(pv[u], a[kp][hg][1], b0[u], b1[u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * cq + u][e] = __fmaf_rn(o[4 * cq + u][e], alpha[e >> 1], pv[u][e]);
+      }
+    }
+    __syncthreads();  // buffer i & 1 is read
+    if (tid == 0 && i + 2 < n_page) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the reads above before the copy's writes
+      issue(i + 2);
+    }
+  }
+
+  // half 1 hands its state to the same thread of half 0 (the page buffers
+  // are free: every copy has landed and been read), which merges the two
+  float* xs = reinterpret_cast<float*>(smem) + (tid & 127);
+  __syncthreads();
+  if (half) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * i + e) * 128] = o[i][e];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      xs[(64 + rr) * 128] = m[rr];
+      xs[(66 + rr) * 128] = l[rr];
+      xs[(68 + rr) * 128] = z[rr];
+    }
+  }
+  __syncthreads();
+  if (half) return;
+  {
+    float a0[2], a1[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float m1 = xs[(64 + rr) * 128], m_new = fmaxf(m[rr], m1);
+      a0[rr] = expf(__fsub_rn(m[rr], m_new));
+      a1[rr] = expf(__fsub_rn(m1, m_new));
+      m[rr] = m_new;
+      l[rr] = __fmaf_rn(xs[(66 + rr) * 128], a1[rr], __fmul_rn(l[rr], a0[rr]));
+      z[rr] = __fmaf_rn(xs[(68 + rr) * 128], a1[rr], __fmul_rn(z[rr], a0[rr]));
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[i][e] = __fmaf_rn(xs[(4 * i + e) * 128], a1[e >> 1], __fmul_rn(o[i][e], a0[e >> 1]));
+  }
+
+  // l and sum p * v_zero over the row's quad; out = (acc + z) / max(l, 1e-20)
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      l[rr] = __fadd_rn(l[rr], __shfl_xor_sync(0xffffffffu, l[rr], x));
+      z[rr] = __fadd_rn(z[rr], __shfl_xor_sync(0xffffffffu, z[rr], x));
+    }
+    const int r = rw + gid + 8 * rr;
+    if (r >= R) continue;
+    const size_t gr = hrow0 + r;
+    const float den = fmaxf(l[rr], 1e-20f);
+#pragma unroll
+    for (int cq = 0; cq < 4; ++cq) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[4 * e + u] = __fdiv_rn(__fadd_rn(o[4 * cq + u][2 * rr + e], z[rr]), den);
+      const size_t off = gr * D + 32 * cq + 8 * tig;
+      if (out_f32) {
+        float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + off);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + off) =
+            make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]), bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+      }
+    }
+    if (tig == 0) {
+      m_out[gr] = m[rr];
+      l_out[gr] = l[rr];
+    }
+  }
+}
+
+int launch_tile(const void* q, const void* k_pages, const void* params, const void* v_pages, const void* page_table,
+                const void* seq_lens, void* out, void* m_out, void* l_out, int B, int HQ, int H, int S, int max_pages,
+                int out_f32, float sm_scale, cudaStream_t st) {
+  const int smem = tile_smem(S);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  static int smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(paged_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const int tiles = (HQ / H + TQ - 1) / TQ;
+  paged_tile_kernel<<<dim3(B, H, tiles), TILE_THREADS, smem, st>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k_pages, (const __nv_bfloat16*)params, (const int8_t*)v_pages,
+      (const int*)page_table, (const int*)seq_lens, out, (float*)m_out, (float*)l_out, HQ, H, S, max_pages, out_f32,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -802,8 +1007,8 @@ extern "C" int atom_paged_ring_decode(const void* q, const void* k_pages, const 
   const cudaStream_t st = (cudaStream_t)stream;
 #define K3_CASE(G_)                                                                                            \
   case G_:                                                                                                     \
-    return launch_stream<G_>(q, k_pages, params, v_pages, page_table, seq_lens, ring_k, ring_prm, ring_v, n_hot, \
-                             out, B, H, S, W, max_pages, row, sm_scale, st);
+    return launch_stream<G_, true>(q, k_pages, params, v_pages, page_table, seq_lens, ring_k, ring_prm, ring_v,   \
+                                   n_hot, out, nullptr, nullptr, 0, B, H, S, W, max_pages, row, sm_scale, st);
   switch (HQ / H) {
     K3_CASE(1)
     K3_CASE(2)
@@ -815,5 +1020,40 @@ extern "C" int atom_paged_ring_decode(const void* q, const void* k_pages, const 
     K3_CASE(8)
   }
 #undef K3_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11: the pages alone, with the softmax state.  Up to 8 query rows per kv
+// head K3's kernel without the ring (S a power of two in [16, 512]); above,
+// the tile kernel (S a power of two in [64, 512]).  Anything else is refused.
+extern "C" int atom_paged_decode(const void* q, const void* k_pages, const void* params, const void* v_pages,
+                                 const void* page_table, const void* seq_lens, void* out, void* m_out, void* l_out,
+                                 int B, int HQ, int H, int S, int max_pages, int out_f32, float sm_scale,
+                                 void* stream) {
+  if (H < 1 || HQ % H || HQ == 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int G = HQ / H;
+  if (G > GMAX) {
+    if (!pow2_in(S, 64, 512)) return (int)cudaErrorInvalidValue;
+    return launch_tile(q, k_pages, params, v_pages, page_table, seq_lens, out, m_out, l_out, B, HQ, H, S, max_pages,
+                       out_f32, sm_scale, st);
+  }
+  if (!pow2_in(S, 16, 512)) return (int)cudaErrorInvalidValue;
+#define K11_CASE(G_)                                                                                        \
+  case G_:                                                                                                  \
+    return launch_stream<G_, false>(q, k_pages, params, v_pages, page_table, seq_lens, nullptr, nullptr,    \
+                                    nullptr, nullptr, out, m_out, l_out, out_f32, B, H, S, 0, max_pages, 0, \
+                                    sm_scale, st);
+  switch (G) {
+    K11_CASE(1)
+    K11_CASE(2)
+    K11_CASE(3)
+    K11_CASE(4)
+    K11_CASE(5)
+    K11_CASE(6)
+    K11_CASE(7)
+    K11_CASE(8)
+  }
+#undef K11_CASE
   return (int)cudaErrorInvalidValue;
 }

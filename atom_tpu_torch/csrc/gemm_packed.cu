@@ -246,6 +246,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
   }
 }
 
+// A consumer warp gives a ring slot back once its reads of the slot are done.
+// Those are generic-proxy loads; the slot's next fill is a TMA write (the
+// async proxy), which the mbarrier's release does not order after them: the
+// proxy fence does.  Without it a weight-scale load still in flight at the
+// release now and then read the slot's next group (fault C3, found by
+// scripts/torch_c3_bisect.py: the decode core in 32- or 64-row blocks over
+// more than 64 rows).
+__device__ __forceinline__ void release_slot(uint64_t* bar, int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
@@ -527,8 +540,7 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
     w2 = *reinterpret_cast<const float2*>(ringS + s * BN + c0);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s2[nt] = *reinterpret_cast<const float2*>(sa_s + j * BM + nt * 8 + 2 * tig);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + s);
+    release_slot(empty + s, lane);
   };
   Chain acc[NT][4];
   auto chain = [&](const int (&d)[NT][4], const float2& w2, const float2 (&s2)[NT], int j) {
@@ -810,8 +822,7 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
   };
   int rs = 0;  // ring stage of the next slot to release
   auto release = [&]() {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + rs);
+    release_slot(empty + rs, lane);
     if (++rs == S) rs = 0;
   };
   const uint64_t desc0 = swizzle128_desc(ringA);

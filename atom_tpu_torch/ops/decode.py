@@ -15,7 +15,10 @@ page-resident prefix.  All launch ``csrc/decode.cu`` on CUDA tensors and run
 their plain versions on CPU tensors.
 
 K3 runs one block per (sequence, kv head): an online softmax over the ring,
-then the sequence's pages, streamed through shared memory.
+then the sequence's pages, streamed through shared memory.  K11 takes one of
+two paths on the card, from the shapes alone (``check_rotated_decode_shape``):
+up to 8 query rows per kv head K3's kernel without the ring ("stream"), above
+it tiles of 64 query rows on the tensor cores ("tile").
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
 
 _NEG_INF = -1e30
-_GMAX = 8  # query heads per kv head the kernel takes
+_GMAX = 8  # query rows per kv head of K3 and of K11's stream path
 _CHUNK_LANES = (16, 512)  # K3's page size and ring width: powers of two in this range
+_TILE_LANES = (64, 512)  # K11's tile path: page sizes, powers of two in this range
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -109,8 +113,8 @@ def paged_ring_decode_attention_plain(q, pages: KVPages, page_table, seq_lens, h
     return out.reshape(b, hq, d).to(torch.bfloat16)
 
 
-def _pow2_lanes(x: int) -> bool:
-    return _CHUNK_LANES[0] <= x <= _CHUNK_LANES[1] and x & (x - 1) == 0
+def _pow2_lanes(x: int, lanes=_CHUNK_LANES) -> bool:
+    return lanes[0] <= x <= lanes[1] and x & (x - 1) == 0
 
 
 def check_ring_decode_shape(window: int, page_size: int, q_heads: int, kv_heads: int) -> None:
@@ -270,6 +274,22 @@ def paged_decode_attention_rotated_plain(q, pages: KVPages, page_table, seq_lens
     return out
 
 
+def check_rotated_decode_shape(page_size: int, q_heads: int, kv_heads: int, head_dim: int = 128) -> str:
+    """The path K11 takes on the card for a shape, or a ``ValueError``: head
+    dim 128 and HQ a multiple of H; up to 8 query rows per kv head "stream"
+    (K3's kernel without the ring; page size a power of two in [16, 512]),
+    above it "tile" (tiles of 64 query rows; page size a power of two in
+    [64, 512])."""
+    if head_dim != 128 or kv_heads < 1 or q_heads < 1 or q_heads % kv_heads:
+        raise ValueError(f"paged_decode_attention_rotated: needs head_dim 128 and HQ a multiple of H, "
+                         f"got D={head_dim}, HQ={q_heads}, H={kv_heads}")
+    path, lanes = ("stream", _CHUNK_LANES) if q_heads // kv_heads <= _GMAX else ("tile", _TILE_LANES)
+    if not _pow2_lanes(page_size, lanes):
+        raise ValueError(f"paged_decode_attention_rotated: the {path} path needs a page size that is a power of two "
+                         f"in [{lanes[0]}, {lanes[1]}], got {page_size} at {q_heads // kv_heads} query rows per kv head")
+    return path
+
+
 def paged_decode_attention_rotated(
     q: torch.Tensor,  # bf16 [B, HQ, D] — RoPE'd, kv-head-major
     pages: KVPages,  # K pages hold post-RoPE codes
@@ -281,15 +301,14 @@ def paged_decode_attention_rotated(
     """Kernel K11 -> attention over the pages alone, normalised by
     ``max(l, 1e-20)``, [B, HQ, D] in ``out_dtype``; with ``return_state``
     also the softmax state (m f32 [B, HQ], l f32 [B, HQ]).  Any number of
-    query heads per kv head: the kernel tiles them, so a prompt chunk's C
-    queries ride as ``G * C`` query rows of one sequence."""
+    query heads per kv head: a prompt chunk's C queries ride as ``G * C``
+    query rows of one sequence (the tile path on the card)."""
     tensors = (q, *pages, page_table, seq_lens)
     if on_cpu(*tensors):
         return paged_decode_attention_rotated_plain(q, pages, page_table, seq_lens, out_dtype, return_state)
     b, hq, d = q.shape
     h, s = pages.kv_heads, pages.page_size
-    if d != 128 or hq % h or s % 2:
-        raise ValueError(f"paged_decode_attention_rotated: needs head_dim 128 and HQ a multiple of H, got D={d}, HQ={hq}, H={h}")
+    path = check_rotated_decode_shape(s, hq, h, d)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"paged_decode_attention_rotated: out_dtype {out_dtype} is neither bfloat16 nor float32")
     check_kernel_input(q, "q", torch.bfloat16)
@@ -310,9 +329,11 @@ def paged_decode_attention_rotated(
         "paged_decode_attention_rotated",
     )
     paged_decode_attention_rotated.launches += 1
+    paged_decode_attention_rotated.launches_by_path[path] += 1
     if return_state:
         return out, m, l
     return out
 
 
 paged_decode_attention_rotated.launches = 0
+paged_decode_attention_rotated.launches_by_path = {"stream": 0, "tile": 0}

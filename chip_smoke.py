@@ -391,7 +391,7 @@ def check_kernels(torch, dev) -> dict:
 
     for m_ in (8, 64):
         ring_case(m_)
-    # a decode batch over 64 rows (M = 96, 128): 16-row head blocks (fault C3); its inputs from a
+    # a decode batch over 64 rows (M = 96, 128): 32-row head blocks over 3-4 row tiles, where C3 was; its inputs from a
     # generator of their own, so that the later checks' inputs stay as they were
     gen_main, gen = gen, torch.Generator(device=dev).manual_seed(96)
     for m_ in (96, 128):
@@ -623,7 +623,8 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         if bool(empty.any()):
             require(not bool(got[empty].any()) and bool((gm[empty] == -1e30).all()) and not bool(gl[empty].any()),
                     "paged_decode_attention_rotated: an empty sequence must give out = 0, m = -1e30, l = 0")
-        row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+        row = dict(path=dec.check_rotated_decode_shape(pages.page_size, q.shape[1], pages.kv_heads),
+                   max_abs_err=(got.float() - want.float()).abs().max().item(),
                    m_max_abs_err=(gm - wm).abs().max().item(),
                    l_max_rel_err=((gl - wl).abs() / wl.clamp_min(1e-20)).max().item())
         if time_it:
@@ -651,22 +652,26 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         pages, _, table = kv_inputs(torch, gen, dev, BATCH, hkv)
         q = normal((BATCH, hq, 128), 12.0, torch.bfloat16)
         k11[name] = k11_case(q, pages, table, lens_, dt, time_it)
-    # the chunk-prefix call: one sequence, all C = 256 chunk queries of every q head as query rows
+    # the chunk-prefix call (the tile path): one sequence, all C = 256 chunk queries of every q head as
+    # query rows; prefixes of 0, whole pages, and one ending mid-page (1,000 tokens)
     for hq, hkv in ((h, h), (2 * h, h // 4)):
         pages, _, table = kv_inputs(torch, gen, dev, 1, hkv, max_pages=8)
         q = normal((1, hq * PAGE, 128), 12.0, torch.bfloat16)
-        for prefix in (0, 768, 1792):
+        for prefix in (0, 768, 1000, 1792):
             lens_ = torch.full((1,), prefix, dtype=torch.int32, device=dev)
             tag = f"chunk_prefix_{'mha' if hq == hkv else 'gqa_64q_8kv'}_{prefix}"
-            k11[tag] = k11_case(q, pages, table, lens_, torch.float32, hq == hkv or prefix == 1792)
+            k11[tag] = k11_case(q, pages, table, lens_, torch.float32, prefix in (768, 1792) or (hq == hkv and prefix == 0))
+        if hq == hkv:  # the tile path's bf16 output
+            lens_ = torch.full((1,), 1000, dtype=torch.int32, device=dev)
+            k11["chunk_prefix_mha_1000_bf16"] = k11_case(q, pages, table, lens_, torch.bfloat16, False)
         del pages, q
     torch.cuda.empty_cache()
     log(f"paged_decode_attention_rotated checks: {k11}")
     first = k11.pop("decode_mha")
     res["paged_decode_attention_rotated"] = dict(
         first, library_ms=None, library_note="no PyTorch call reads u4 code pages",
-        shape="decode rows: q [32,32,128] over ~500 flushed tokens each (float32 out + state); chunk_prefix_*: q [1, HQ*256, 128] "
-              "over a prefix of 0 / 768 / 1792 tokens",
+        shape="decode rows (path stream): q [32,32,128] over ~500 flushed tokens each (float32 out + state); chunk_prefix_* "
+              "(path tile): q [1, HQ*256, 128] over a prefix of 0 / 768 / 1000 / 1792 tokens",
         timed_max_abs_err=first["max_abs_err"], **k11)
     res["paged_decode_attention_rotated"]["max_abs_err"] = max([first["max_abs_err"]] + [c["max_abs_err"] for c in k11.values()])
 
@@ -992,9 +997,11 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each kernel's launches, and K1's split by path (decode core, prefill GEMM)."""
+    """Each kernel's launches, and K1's and K11's split by path (K1: decode
+    core, prefill GEMM; K11: stream, tile)."""
     counts = {name: fn.launches for name, fn in counters().items()}
-    counts["packed_w4_gemm_by_path"] = dict(counters()["packed_w4_gemm"].launches_by_path)
+    for name in ("packed_w4_gemm", "paged_decode_attention_rotated"):
+        counts[f"{name}_by_path"] = dict(counters()[name].launches_by_path)
     return counts
 
 
@@ -1092,15 +1099,18 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     t_window = time.perf_counter() - t
-    device_ms, kernels, k3_per_step, gemm = profile_decode(torch, qparams, state, ids, table, full, cfg, ATOM_W4A4, w,
-                                                           profile_file)
-    require(k3_per_step == cfg.num_layers, f"the profiler saw {k3_per_step} K3 kernels per step, not one per layer")
+    device_ms, kernels, k3_per_step, k3_counted, gemm = profile_decode(torch, qparams, state, ids, table, full, cfg,
+                                                                       ATOM_W4A4, w, profile_file)
+    # K3's launches per step by its wrapper's counter, exactly; the profiler's count (which has dropped
+    # events in some runs) is reported beside it and may not exceed it
+    require(k3_counted == cfg.num_layers, f"K3 launched {k3_counted} times per profiled step, not once per layer")
+    require(k3_per_step <= k3_counted, f"the profiler saw {k3_per_step} K3 kernels per step, more than launched")
     first = stats[heads[0][0]]
     step_ms = first["step_ms"]
     first.update(
         host_enqueue_ms_per_step=t_enqueue / w * 1e3, window_ms_per_step=t_window / w * 1e3,
         device_ms_per_step_profiled=device_ms, device_busy_share=device_ms / step_ms, device_kernels_per_step=kernels,
-        k3_kernels_per_step=k3_per_step, k1_family_kernels_per_step=gemm,
+        k3_kernels_per_step=k3_per_step, k3_launches_per_step=k3_counted, k1_family_kernels_per_step=gemm,
     )
     log(f"step {step_ms:.3f} ms ({heads[0][0]} head): host enqueue {t_enqueue / w * 1e3:.3f} ms, device {device_ms:.3f} ms "
         f"(busy share {device_ms / step_ms:.3f}), {kernels:.0f} kernels")
@@ -1200,9 +1210,13 @@ def engine_path(torch, dev, qparams, mixed: bool = False) -> tuple[dict, dict]:
         n_chunks = sum(-(-int(t) // PAGE) for t in rs.prompt_lens)
         require(engine.last_prefill_s == [], "the mixed engine ran a serial prefill")
         require(0 < res["mixed_steps"] <= n_chunks, f"mixed_steps {res['mixed_steps']} outside (0, {n_chunks}]")
-        # every chunk is one mixed_step call: K11 twice per layer, K7 once
+        # every chunk is one mixed_step call: K11 twice per layer (the decode rows on the stream path, the
+        # chunk's prefix on the tile path), K7 once
         require(counts["paged_decode_attention_rotated"] == 2 * cfg.num_layers * n_chunks
                 and counts["flash_code_attention"] == 0, "the mixed engine's chunk count does not match its K11 launches")
+        require(counts["paged_decode_attention_rotated_by_path"] == dict(stream=cfg.num_layers * n_chunks,
+                                                                         tile=cfg.num_layers * n_chunks),
+                f"K11's launches by path {counts['paged_decode_attention_rotated_by_path']} are not one of each per layer")
         res.update(prompt_chunks=n_chunks, ms_per_step=res["elapsed_s"] / (res["decode_steps"] + n_chunks - res["mixed_steps"]) * 1e3)
         res["mixed_step_alone"] = profile_mixed_step(torch, dev, qparams, engine.state, cfg, ATOM_W4A4)
         log(f"one mixed step alone: {res['mixed_step_alone']}")
@@ -1245,10 +1259,12 @@ def prefill_alone(torch, dev, qparams, state, cfg, spec) -> dict:
     return res
 
 
-def profile_once(torch, once, out_file: str, what: str) -> dict:
+def profile_once(torch, once, out_file: str, what: str, by_kernel: dict | None = None) -> dict:
     """``once()`` (which ends by fetching a value from the device) alone on
     the card: warm-up, its wall time, then under the profiler: device time and
-    kernel count, written to chiprun_out/``out_file``."""
+    kernel count, written to chiprun_out/``out_file``; with ``by_kernel``
+    ({name: (substring, ...)}) also the device ms and kernels of the kernels
+    whose names hold every substring of a name."""
     from torch.profiler import ProfilerActivity, profile
 
     once()
@@ -1268,7 +1284,13 @@ def profile_once(torch, once, out_file: str, what: str) -> dict:
         f"{what}: wall {wall_ms:.1f} ms unprofiled, device {dev_ms:.1f} ms, {n_kernels} device kernels\n"
         f"{events.table(sort_by='self_device_time_total', row_limit=40)}\n")
     require(dev_ms > 0, f"the profiler recorded no device time for {what}")
-    return dict(wall_ms=wall_ms, device_ms=dev_ms, device_kernels=n_kernels, device_busy_share=dev_ms / wall_ms)
+    res = dict(wall_ms=wall_ms, device_ms=dev_ms, device_kernels=n_kernels, device_busy_share=dev_ms / wall_ms)
+    if by_kernel:
+        res["by_kernel"] = {name: dict(device_ms=sum(e.self_device_time_total for e in sel) / 1e3,
+                                       kernels=sum(e.count for e in sel))
+                            for name, subs in by_kernel.items()
+                            for sel in ([e for e in kernels if all(x in e.key for x in subs)],)}
+    return res
 
 
 def profile_prefill(torch, dev, qparams, state, cfg, spec, bucket: int, out_file: str) -> dict:
@@ -1316,8 +1338,12 @@ def profile_mixed_step(torch, dev, qparams, state, cfg, spec) -> dict:
         require(0 <= tok.item() < cfg.vocab_size and bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()),
                 "the mixed step's tokens are out of range")
 
-    return profile_once(torch, once, "profile_mixed_step.txt",
-                        f"one mixed step (32 decode rows at context 500 + a 256-token chunk at 512), {cfg.num_layers} layers")
+    res = profile_once(torch, once, "profile_mixed_step.txt",
+                       f"one mixed step (32 decode rows at context 500 + a 256-token chunk at 512), {cfg.num_layers} layers",
+                       by_kernel={"K11_stream": (K11_KERNELS["stream"], ", false>"), "K11_tile": (K11_KERNELS["tile"],)})
+    k11 = res["by_kernel"]
+    res["k11_share"] = (k11["K11_stream"]["device_ms"] + k11["K11_tile"]["device_ms"]) / res["device_ms"]
+    return res
 
 
 def baseline_params(torch, dev, stack: str, layers: int = 32, seed: int = 0):
@@ -1575,27 +1601,32 @@ def w4a16_stack_vs_plain(torch, dev) -> dict:
     return res
 
 
-K3_KERNEL = "paged_ring_stream_kernel"  # K3's CUDA kernel, as the profiler names it
+K3_KERNEL = "paged_ring_stream_kernel"  # K3's CUDA kernel (its RING = true instance), as the profiler names it
+K11_KERNELS = {"stream": "paged_ring_stream_kernel", "tile": "paged_tile_kernel"}  # K11's two paths' kernels
 CORE_EPILOGUES = ("f32", "resid", "row_scale", "ring")  # gemm_core_kernel's EPI template argument, in order
 
 
 def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple:
     """One profiled ring window: device time by kernel, written to
     ``OUT / out_file``; returns device ms, kernels and K3 kernels per
-    decode step and the K1 family's kernels' ms and launches per step.  (The
+    decode step (as the profiler saw them, and by K3's launch counter) and
+    the K1 family's kernels' ms and launches per step.  (The
     profiler's own host cost stretches the window's wall time, so the busy
     share is taken against the unprofiled step time.)"""
     from torch.profiler import ProfilerActivity, profile
 
+    from atom_tpu_torch.ops import decode as dec
     from atom_tpu_torch.serving.model import decode_burst
 
     state = state._replace(flushed=full(CTX), row=0)
     torch.cuda.synchronize()
+    k3_before = dec.paged_ring_decode_attention.launches
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         decode_burst(params, state, ids, table, full(CTX), 1, cfg, spec)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
+    k3_counted = (dec.paged_ring_decode_attention.launches - k3_before) / w
     events = prof.key_averages()
     # kernel events only: an aten op also reports its kernels' time as its own
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1607,7 +1638,7 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
         f"one window of {w} steps: wall {wall_us:.0f} us (profiler on), device {dev_us:.0f} us, "
         f"{n_kernels} device kernels\n{table_txt}\n")
     require(dev_us > 0, "the profiler recorded no device time")
-    k3 = sum(e.count for e in kernels if K3_KERNEL in e.key)
+    k3 = sum(e.count for e in kernels if K3_KERNEL in e.key and ", true>" in e.key)
     # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the prefill
     # GEMM, the activation prologue (K2's second launch; also K9's and K10's first), SiLU (K10)
     gemm = {}
@@ -1619,8 +1650,9 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
             ms, cnt = gemm.get(name, (0.0, 0.0))
             gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
     gemm = {k: dict(ms_per_step=v[0], launches_per_step=v[1]) for k, v in gemm.items()}
-    log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3; K1 family {gemm}")
-    return dev_us / w / 1e3, n_kernels / w, k3 / w, gemm
+    log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3 ({k3_counted:.0f} "
+        f"launched); K1 family {gemm}")
+    return dev_us / w / 1e3, n_kernels / w, k3 / w, k3_counted, gemm
 
 
 @contextlib.contextmanager
@@ -2113,6 +2145,8 @@ def main() -> int:
                                                 mixed_engine=mixed_counts["packed_w4_gemm_by_path"])
             require(engine_counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the engine's prefills did not run the prefill GEMM")
             require(decode_counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the decode burst ran the prefill GEMM")
+        if name == "paged_decode_attention_rotated":  # K11's launches by path: stream (decode rows), tile (a chunk's prefix)
+            rows[-1]["launches_by_path"] = dict(mixed_engine=mixed_counts["paged_decode_attention_rotated_by_path"])
     require(len(rows) == 15, "the kernels line must list K1-K14 (K14's two functions)")
     print(json.dumps({"kernels": rows}), flush=True)
     engine_config = ("batch 32, page 256, max_seq_len 1024, buckets (128, 256, 512), pool 144 pages, "

@@ -1,4 +1,5 @@
-"""K3's order of arithmetic, on the CPU.
+"""K3's order of arithmetic, on the CPU (and K11's on its decode rows, which
+run K3's kernel without the ring).
 
 The kernel runs one block per (sequence, kv head): an online softmax over
 the ring's chunk, then over the sequence's page-table columns in order, up to
@@ -17,6 +18,7 @@ import torch
 
 from atom_tpu.ops.kv_hot import HotKV as JHot
 from atom_tpu.ops.kv_layout import KVPages as JPages
+from atom_tpu.ops.pallas_decode import paged_decode_attention_rotated as j_paged
 from atom_tpu.ops.pallas_decode import paged_ring_decode_attention as j_attn
 from atom_tpu_torch.ops import decode as dec
 from atom_tpu_torch.ops.kv_hot import HotKV as THot
@@ -192,3 +194,34 @@ def test_stream_emulation_edge_cases(case):
     empty = (seq_lens == 0) & (n_hot == 0)
     assert not got[torch.from_numpy(empty)].float().any()  # finite zero rows
     assert not empty.all()
+
+
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (8, 1)], ids=["mha", "gqa_8"])
+def test_stream_emulation_without_ring_is_k11_decode_rows(heads, kv_heads):
+    """K11's decode rows (up to 8 query rows per kv head) run K3's kernel
+    without the ring: the same walk with the ring's chunk wholly masked
+    (n_hot = 0) gives K11's float32 output and state (m, l), within atol =
+    rtol = 1e-4 of the plain version and of the Pallas kernel in interpret
+    mode (m within 1e-5, l within 1e-5 relative); idle sequences keep
+    out = 0, m = -1e30, l = 0."""
+    rng = np.random.default_rng(10 + heads)
+    b, s, w, max_pages = 6, 256, 32, 3
+    q, pg, table, ring = _inputs(rng, b, heads, kv_heads, s, w, max_pages)
+    seq_lens = np.array([0, 300, 1, 0, 768, 511], np.int32)
+    table[seq_lens == 0] = 0
+    args = _torch_args(q, pg, table, seq_lens, ring, np.zeros(b, np.int32), 0)
+    _, states = stream_emulation(*args)
+    m, l, acc = states[-1]
+    got = (acc / torch.clamp_min(l, 1e-20)[..., None]).reshape(b, heads, 128)
+    m, l = m.reshape(b, heads), l.reshape(b, heads)
+    assert dec.check_rotated_decode_shape(s, heads, kv_heads) == "stream"
+    want, wm, wl = dec.paged_decode_attention_rotated_plain(args[0], args[1], args[2], args[3], torch.float32, True)
+    jout, jm, jl = j_paged(jnp.asarray(q), JPages(*(jnp.asarray(x) for x in pg)), jnp.asarray(table),
+                           jnp.asarray(seq_lens), out_dtype=jnp.float32, return_state=True, interpret=True)
+    for ref_out, ref_m, ref_l in ((want.numpy(), wm.numpy(), wl.numpy()),
+                                  (np.asarray(jout), np.asarray(jm), np.asarray(jl))):
+        np.testing.assert_allclose(got.numpy(), ref_out, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(m.numpy(), ref_m, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(l.numpy(), ref_l, rtol=1e-5, atol=1e-7)
+    idle = torch.from_numpy(seq_lens == 0)
+    assert not got[idle].any() and (m[idle] == NEG).all() and not l[idle].any()

@@ -116,18 +116,35 @@ def test_plan_ring_fits_shared_memory(m, k, n):
 @pytest.mark.parametrize("m", [65, 96, 128, 288])
 def test_core_above_64_rows_takes_16_row_blocks(m):
     """Above 64 rows the core (the ring epilogue at a decode batch over 64,
-    or K1 asked for the core) plans 16-row blocks and refuses 32- and
-    64-row ones: those differ from the plain version now and then over more
-    than 64 rows (fault C3).  Up to 64 rows the head keeps its 32-row
-    blocks."""
+    or K1 asked for the core) still takes 16-row blocks when asked, and
+    plans as it does up to 64 rows: 32-row head blocks, 64-row blocks for K1
+    (fault C3, which made 32- and 64-row blocks over more than 64 rows differ
+    from the plain version now and then, is closed: a proxy fence before a
+    slot's release)."""
     for head, n in ((True, 3 * HID), (False, 3 * HID)):
         plan = gp.packed_w4_plan(m, HID, n, head=head, path="core")
-        assert plan.path == "core" and plan.tile_m == 16 and _covered_once(plan, m, n)
-        assert plan.grid == (n // plan.tile_n, -(-m // 16))
-        for tile_m in (32, 64):
+        assert plan.path == "core" and plan.tile_m == (32 if head else 64) and _covered_once(plan, m, n)
+        assert plan.grid == (n // plan.tile_n, -(-m // plan.tile_m))
+        for tile_m in (16, 32) if head else (16, 32, 64):
+            asked = gp.packed_w4_plan(m, HID, n, head=head, path="core", tile_m=tile_m)
+            assert asked.tile_m == tile_m and _covered_once(asked, m, n)
+        if head:
             with pytest.raises(ValueError):
-                gp.packed_w4_plan(m, HID, n, head=head, path="core", tile_m=tile_m)
+                gp.packed_w4_plan(m, HID, n, head=True, path="core", tile_m=64)
     assert gp.packed_w4_plan(64, HID, 3 * HID, head=True).tile_m == 32
+
+
+@pytest.mark.parametrize("m,n,tile_m,tile_n", [(96, 3 * HID, 32, 128), (128, 3 * HID, 32, 64), (256, 3 * HID, 64, 64),
+                                               (128, HID, 32, 128)])
+def test_core_plans_the_layouts_fault_c3_had_refused(m, n, tile_m, tile_n):
+    """The layouts fault C3 was found in, which ``scripts/torch_gemm_stress.py``
+    now launches as planned cases (0 of 100 differ on the card), plan again:
+    K2's 32-row head blocks at a decode batch of 96 and 128, K1's core in 32-
+    and 64-row blocks over more than 64 rows, with their rows covered once."""
+    head = tile_n == 128 and n == 3 * HID and m == 96
+    plan = gp.packed_w4_plan(m, HID, n, head=head, path="core", tile_m=tile_m, tile_n=None if head else tile_n)
+    assert (plan.path, plan.tile_m, plan.tile_n) == ("core", tile_m, tile_n) and _covered_once(plan, m, n)
+    assert plan.smem == gp.core_smem(tile_m, tile_n, plan.stages, HID // 128 - 1, head) <= SMEM_BLOCK
 
 
 def test_plan_takes_overrides_and_refuses_bad_layouts():
@@ -406,8 +423,7 @@ def test_prefill_plan_takes_the_fastest_layout_within_shared_memory(m, k, n):
 
 def test_prefill_plan_takes_overrides_and_refuses_bad_layouts():
     """Other tiles plan as asked (for measuring), and the core can be asked
-    for above 64 rows, in 16-row blocks only (fault C3: 32- and 64-row
-    blocks over more than 64 rows raise); 128-row blocks of a K-blocked sum,
+    for above 64 rows, in 16-, 32- or 64-row blocks; 128-row blocks of a K-blocked sum,
     widths the kernel has no warpgroups for, the ring epilogue on the
     prefill GEMM and the core without a body group raise."""
     plan = gp.packed_w4_plan(1024, HID, HID, path="prefill", tile_m=64, tile_n=128, stages=4)
@@ -415,10 +431,9 @@ def test_prefill_plan_takes_overrides_and_refuses_bad_layouts():
     plan = gp.packed_w4_plan(1024, HID, HID, tile_n=64)  # the other dimension still chosen
     assert plan.tile_n == 64 and plan.tile_m in (64, 128)
     core = gp.packed_w4_plan(128, HID, HID, path="core")
-    assert core.path == "core" and core.tile_m == 16 and _covered_once(core, 128, HID)
-    for tile_m in (32, 64):
-        with pytest.raises(ValueError, match="C3"):
-            gp.packed_w4_plan(128, HID, HID, path="core", tile_m=tile_m)
+    assert core.path == "core" and core.tile_m == 32 and _covered_once(core, 128, HID)  # halved: 64 x 2 blocks < 132
+    for tile_m in (16, 32, 64):
+        assert gp.packed_w4_plan(128, HID, HID, path="core", tile_m=tile_m).tile_m == tile_m
     with pytest.raises(ValueError):
         gp.packed_w4_plan(288, 28672, 1024, tile_m=128)
     with pytest.raises(ValueError):
