@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int D = 128;  // head_dim
@@ -614,45 +616,6 @@ __host__ __device__ inline int tile_bars(int S) {
   return 2 * tile_page_bytes(S) > MERGE_FLOATS * 128 * 4 ? 2 * tile_page_bytes(S) : MERGE_FLOATS * 128 * 4;
 }
 __host__ __device__ inline int tile_smem(int S) { return tile_bars(S) + 16; }
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-// Byte U of x and byte U of y (nibble codes, 0-15) as the bf16 pair (x's, y's),
-// exactly: each byte goes under 128's exponent (0x43 above it; the selector's
-// sign-replicating nibbles put zeros there first), then 128 comes off.
-template <int U>
-__device__ __forceinline__ uint32_t code_pair(uint32_t x, uint32_t y) {
-  constexpr uint32_t sel = U | ((8 | U) << 4) | ((4 + U) << 8) | ((8 | U) << 12);
-  const uint32_t v = prmt(x, y, sel) | 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(128.f, 128.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// x0, x1 as a bf16 pair and the pair of their remainders (exact in float32,
-// then rounded): x = hi + lo to ~2^-17 relative
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = bf16_pair(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
-}
-
-// d += a . b, m16n8k16, bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 8 bf16 from shared memory (16-byte aligned) as floats
 __device__ __forceinline__ void lds8(const __nv_bfloat16* p, float (&v)[8]) {

@@ -152,7 +152,10 @@
 // the unfused chain uses) and the GEMM with the epilogue
 // out = bf16(resid + bf16(acc)): the GEMM output is rounded to bf16 before the
 // add, then the sum once more, which is what x + quant_gemm(...) does, so K9
-// equals the unfused chain bit for bit.  Bound: the weight stream, as K1.
+// equals the unfused chain bit for bit.  A float32 residual gives a float32
+// output, resid + acc unrounded (the TPU kernel's out dtype is the residual's;
+// the same holds for K10's down epilogue), on separate epilogue instances, so
+// the bf16 ones are unchanged.  Bound: the weight stream, as K1.
 //
 // K10 replaces atom_tpu/ops/pallas_mlp.py:238 fused_mlp_packed (_fused_mlp_kernel
 // :84).  On the TPU one sequential grid runs prologue, gate/up tiles and down
@@ -189,8 +192,13 @@ constexpr int HT = HEAD + 4;         // core: row stride of the head epilogue's 
 
 // Epilogues of the GEMM: the f32 product (K1, K7's qkv scratch);
 // bf16(resid + bf16(acc)), resid optional (K9, K10); bf16(resid + row_scale *
-// acc) (K10 with a per-row output scale); the head ring epilogue (K2, K8: core only).
-enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3 };
+// acc) (K10 with a per-row output scale); the head ring epilogue (K2, K8: core
+// only); and on a float32 residual, into float32, resid + acc and resid +
+// row_scale * acc (K9, K10: the TPU kernels' output takes the residual's type,
+// and their pinned rounding _rp does nothing at 32 bits).
+enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3, EPI_RESID_F32 = 4, EPI_ROW_SCALE_F32 = 5 };
+
+__host__ __device__ constexpr bool f32_out(int epi) { return epi == EPI_F32 || epi == EPI_RESID_F32 || epi == EPI_ROW_SCALE_F32; }
 
 // One output element's running sum in the TPU kernel's order (see the note):
 // add(t) per body group, keeper(t) once at the end.
@@ -212,10 +220,14 @@ struct Chain {
   }
 };
 
-__device__ __forceinline__ float epi_value(int epi, float acc, const __nv_bfloat16* resid,
-                                           const float* row_scale, size_t o, int row) {
-  if (epi == EPI_RESID) return resid != nullptr ? __fadd_rn(__bfloat162float(resid[o]), bf16_round(acc)) : acc;
-  return __fadd_rn(__bfloat162float(resid[o]), __fmul_rn(row_scale[row], acc));
+__device__ __forceinline__ float epi_value(int epi, float acc, const void* resid, const float* row_scale, size_t o,
+                                           int row) {
+  const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(resid);
+  const float* rf = static_cast<const float*>(resid);
+  if (epi == EPI_RESID) return resid != nullptr ? __fadd_rn(__bfloat162float(rb[o]), bf16_round(acc)) : acc;
+  if (epi == EPI_ROW_SCALE) return __fadd_rn(__bfloat162float(rb[o]), __fmul_rn(row_scale[row], acc));
+  if (epi == EPI_RESID_F32) return __fadd_rn(rf[o], acc);
+  return __fadd_rn(rf[o], __fmul_rn(row_scale[row], acc));  // EPI_ROW_SCALE_F32
 }
 
 // ---------------------------------------------------------------------------
@@ -314,7 +326,7 @@ struct CoreParams {
   const float* sa;
   const float* sw;
   void* out;
-  const __nv_bfloat16* resid;
+  const void* resid;  // bf16, or float32 for the *_F32 epilogues
   const float* row_scale;
   const float* cosv;
   const float* sinv;
@@ -619,6 +631,9 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
       const size_t o = (size_t)(m0 + r) * p.N + n0 + c0;
       if (EPI == EPI_F32) {
         *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+      } else if (f32_out(EPI)) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(
+            epi_value(EPI, v0, p.resid, p.row_scale, o, m0 + r), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, m0 + r));
       } else {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) = __floats2bfloat162_rn(
             epi_value(EPI, v0, p.resid, p.row_scale, o, m0 + r), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, m0 + r));
@@ -932,6 +947,9 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
       const size_t o = (size_t)row * p.N + n0 + c0;
       if (EPI == EPI_F32) {
         *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+      } else if (f32_out(EPI)) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(
+            epi_value(EPI, v0, p.resid, p.row_scale, o, row), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, row));
       } else {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) = __floats2bfloat162_rn(
             epi_value(EPI, v0, p.resid, p.row_scale, o, row), epi_value(EPI, v1, p.resid, p.row_scale, o + 1, row));
@@ -1245,7 +1263,7 @@ int launch_gemm(const void* a, const void* wp, const void* wk, const void* sa, c
                 const void* resid, const void* row_scale, int M, int N, int ng, const Plan& pl, cudaStream_t st) {
   CoreParams p = {};
   p.out = out;
-  p.resid = (const __nv_bfloat16*)resid;
+  p.resid = resid;
   p.row_scale = (const float*)row_scale;
   if (!pl.core) return launch_prefill<EPI>(a, wp, wk, sa, sw, p, M, N, ng, pl, st);
   return launch_core<EPI>(a, wp, wk, sa, sw, p, M, N, ng, pl, st);
@@ -1327,8 +1345,8 @@ extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, con
 }
 
 // K9: prologue (norm optional: wg and rstd null without it), then the GEMM with
-// the residual epilogue into bf16 (resid null: bf16(acc)) or, with out_f32, the
-// plain f32 product.
+// the residual epilogue into bf16 (resid null: bf16(acc)) or, with out_f32,
+// into float32: resid + acc on a float32 residual, else the plain product.
 extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rstd, const void* wp,
                                   const void* wk, const void* sw, const void* resid,
                                   void* a_scratch, void* sa_scratch, void* out, int M, int K, int N,
@@ -1338,19 +1356,22 @@ extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rst
   const Plan pl = plan_of(plan);
   const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
+  if (out_f32 && resid != nullptr)
+    return launch_gemm<EPI_RESID_F32>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N, ng, pl, st);
   if (out_f32)
     return launch_gemm<EPI_F32>(a_scratch, wp, wk, sa_scratch, sw, out, nullptr, nullptr, M, N, ng, pl, st);
   return launch_gemm<EPI_RESID>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N, ng, pl, st);
 }
 
 // K10: prologue, gate/up GEMM, SiLU * up + requantization, down GEMM with the
-// residual epilogue (row_scale null) or resid + row_scale * acc.
+// residual epilogue (row_scale null) or resid + row_scale * acc; resid_f32:
+// the residual and the output are float32.
 extern "C" int atom_fused_mlp(const void* y, const void* wg, const void* rstd, const void* gu_wp,
                               const void* gu_wk, const void* gu_sw, const void* dn_wp,
                               const void* dn_wk, const void* dn_sw, const void* resid,
                               const void* row_scale, void* a_scratch, void* sa_scratch,
                               void* gu_scratch, void* act, void* act_scales, void* out, int M, int D,
-                              int inter, int abits, float a_clip, const int* gu_plan, const int* dn_plan,
+                              int inter, int abits, int resid_f32, float a_clip, const int* gu_plan, const int* dn_plan,
                               void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, D, abits, a_clip, st);
@@ -1363,6 +1384,12 @@ extern "C" int atom_fused_mlp(const void* y, const void* wg, const void* rstd, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nga = inter / GROUP - 1;
+  if (resid_f32 && row_scale != nullptr)
+    return launch_gemm<EPI_ROW_SCALE_F32>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, row_scale, M, D, nga,
+                                          plan_of(dn_plan), st);
+  if (resid_f32)
+    return launch_gemm<EPI_RESID_F32>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M, D, nga,
+                                      plan_of(dn_plan), st);
   if (row_scale != nullptr)
     return launch_gemm<EPI_ROW_SCALE>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, row_scale, M, D, nga,
                                       plan_of(dn_plan), st);

@@ -209,7 +209,7 @@ def _lib():
     lib.atom_qkv_codes.restype = _I
     lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _PLAN, _P]
     lib.atom_gemm_fused_in.restype = _I
-    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 4 + [_F, _PLAN, _PLAN, _P]
+    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 5 + [_F, _PLAN, _PLAN, _P]
     lib.atom_fused_mlp.restype = _I
     return lib
 
@@ -570,15 +570,20 @@ packed_w4_gemm_qkv_ring.launches = 0
 
 
 def resid_epilogue_plain(acc, resid, row_scale=None, out_dtype=torch.bfloat16):
-    """The fused GEMMs' epilogue on the f32 product: ``resid + bf16(acc)``
-    rounded once more (the unfused ``x + quant_gemm``), or with ``row_scale``
-    ``resid + row_scale * acc`` without the pin; ``acc`` cast when there is
-    no residual."""
+    """The fused GEMMs' epilogue on the f32 product, in the residual's type
+    (bf16 or float32): ``resid + acc`` with ``acc`` first rounded to that
+    type's precision (``bf16(acc)`` for a bf16 residual: the unfused ``x +
+    quant_gemm``; ``acc`` itself for a float32 one), then the sum rounded to
+    it; or with ``row_scale`` ``resid + row_scale * acc`` without the pin.
+    ``acc`` cast when there is no residual."""
     if resid is None:
         return acc.to(out_dtype)
+    if resid.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"resid: expected bfloat16 or float32, got {resid.dtype}")
     if row_scale is not None:
         return (resid.to(torch.float32) + row_scale.to(torch.float32).reshape(-1, 1) * acc).to(resid.dtype)
-    return (resid.to(torch.float32) + rp_bf16(acc)).to(resid.dtype)
+    pinned = rp_bf16(acc) if resid.dtype == torch.bfloat16 else acc
+    return (resid.to(torch.float32) + pinned).to(resid.dtype)
 
 
 def packed_w4_gemm_fused_in_plain(y, kw: KernelPackedWeight, norm_w=None, rstd=None, resid=None,
@@ -612,12 +617,19 @@ def check_fused_in_inputs(name, y, kw: KernelPackedWeight, norm_w, rstd, eps):
     return rstd.to(torch.float32).reshape(m, 1).contiguous()
 
 
+def check_resid(resid, name, shape) -> None:
+    """K9's and K10's residual: bf16 or float32 (the output's type), on the card."""
+    if resid.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: resid must be bfloat16 or float32, got {resid.dtype}")
+    check_kernel_input(resid, "resid", resid.dtype, shape)
+
+
 def packed_w4_gemm_fused_in(
     y: torch.Tensor,  # bf16 [M, K] — gathered (reordered) activation
     kw: KernelPackedWeight,  # K -> N
     norm_w: torch.Tensor | None = None,  # bf16 [K] — gathered norm weight
     rstd: torch.Tensor | None = None,  # f32 [M, 1] — the norm's reciprocal std
-    resid: torch.Tensor | None = None,  # bf16 [M, N] — residual added in the epilogue
+    resid: torch.Tensor | None = None,  # bf16 or f32 [M, N] — residual added in the epilogue
     abits: int = 4,
     a_clip: float = 1.0,
     eps: float = 1e-5,
@@ -635,7 +647,7 @@ def packed_w4_gemm_fused_in(
     n = kw.body_packed.shape[1]
     rstd = check_fused_in_inputs("packed_w4_gemm_fused_in", y, kw, norm_w, rstd, eps)
     if resid is not None:
-        check_kernel_input(resid, "resid", torch.bfloat16, (m, n))
+        check_resid(resid, "packed_w4_gemm_fused_in", (m, n))
         out_dtype = resid.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"packed_w4_gemm_fused_in: out_dtype {out_dtype} is neither bfloat16 nor float32")

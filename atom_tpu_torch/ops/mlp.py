@@ -7,7 +7,10 @@ input, the gate and up GEMMs, SiLU(gate) * up in float32, its requantization
 per 128 channels (the last 128 channels of the intermediate the INT8 keeper,
 every other block INT4 with the clip), the down GEMM and the residual add
 ``bf16(resid + bf16(acc))``, or ``resid + row_scale * acc`` for a caller that
-weights the block's output per row (MoE routing).  It launches
+weights the block's output per row (MoE routing).  The residual is bf16 or
+float32 and sets the output's type; a float32 one takes ``resid + acc``
+unrounded, as the TPU kernel's epilogue does (MoE's chain over the experts
+on a float32 accumulator).  It launches
 ``csrc/gemm_packed.cu`` on CUDA tensors and runs its plain version on CPU
 tensors.
 """
@@ -24,6 +27,7 @@ from atom_tpu_torch.ops.gemm_packed import (
     HALF,
     _lib,
     check_fused_in_inputs,
+    check_resid,
     packed_w4_gemm_plain,
     packed_w4_plan,
     plan_arg,
@@ -87,7 +91,7 @@ def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=
         raise ValueError(f"fused_mlp_packed: geometry D={d}, inter={inter} is outside fused_mlp_supported")
     rstd = check_fused_in_inputs("fused_mlp_packed", y, gu, norm_w, rstd, eps)
     nga = inter // GROUP - 1
-    check_kernel_input(resid, "resid", torch.bfloat16, (m, d))
+    check_resid(resid, "fused_mlp_packed", (m, d))
     check_kernel_input(dn.body_packed, "down body_packed", torch.int8, (nga * HALF, d))
     check_kernel_input(dn.keeper, "down keeper", torch.int8, (GROUP, d))
     check_kernel_input(dn.scales, "down scales", torch.float32, (nga + 1, d))
@@ -99,7 +103,7 @@ def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=
     prod = torch.empty((m, 2 * inter), dtype=torch.float32, device=dev)
     act = torch.empty((m, inter), dtype=torch.int8, device=dev)
     act_scales = torch.empty((m, inter // GROUP), dtype=torch.float32, device=dev)
-    out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, d), dtype=resid.dtype, device=dev)
     if m:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _build.check(
@@ -107,7 +111,7 @@ def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=
                 y.data_ptr(), ptr(norm_w), ptr(rstd), gu.body_packed.data_ptr(), gu.keeper.data_ptr(),
                 gu.scales.data_ptr(), dn.body_packed.data_ptr(), dn.keeper.data_ptr(), dn.scales.data_ptr(),
                 resid.data_ptr(), ptr(row_scale), a.data_ptr(), sa.data_ptr(), prod.data_ptr(), act.data_ptr(),
-                act_scales.data_ptr(), out.data_ptr(), m, d, inter, abits, a_clip,
+                act_scales.data_ptr(), out.data_ptr(), m, d, inter, abits, int(resid.dtype == torch.float32), a_clip,
                 plan_arg(packed_w4_plan(m, d, 2 * inter)), plan_arg(packed_w4_plan(m, inter, d)), _build.stream(),
             ),
             "fused_mlp_packed",
@@ -118,7 +122,7 @@ def fused_mlp_packed_stages(y, resid, gu, dn, norm_w=None, rstd=None, row_scale=
 
 def fused_mlp_packed(
     y: torch.Tensor,  # bf16 [M, D] — mlp-reordered hidden (normed here iff norm_w is given)
-    resid: torch.Tensor,  # bf16 [M, D]
+    resid: torch.Tensor,  # bf16 or f32 [M, D] — also the output's type
     gu: KernelPackedWeight,  # K = D, N = 2 * inter (gate columns, then up)
     dn: KernelPackedWeight,  # K = inter, N = D
     norm_w: torch.Tensor | None = None,  # bf16 [D] — gathered mlp norm weight
@@ -128,7 +132,7 @@ def fused_mlp_packed(
     a_clip: float = 1.0,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Kernel K10 -> bf16 [M, D]; see the module docstring."""
+    """Kernel K10 -> [M, D] in the residual's type; see the module docstring."""
     return fused_mlp_packed_stages(y, resid, gu, dn, norm_w, rstd, row_scale, abits, a_clip, eps)[0]
 
 

@@ -683,13 +683,16 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     norm_w = uniform(0.7, 1.3, (HID,), torch.bfloat16)
     rstd = rms_rstd(y)
     k9 = {}
+    resid32 = normal((BATCH, HID))  # a float32 residual (fault C4): float32 out, resid + acc unrounded
     for tag, kwargs in (("resid", dict(resid=resid)), ("norm_resid", dict(norm_w=norm_w, rstd=rstd, resid=resid)),
-                        ("norm", dict(norm_w=norm_w, rstd=rstd)), ("f32_out", dict(out_dtype=torch.float32))):
+                        ("norm", dict(norm_w=norm_w, rstd=rstd)), ("f32_out", dict(out_dtype=torch.float32)),
+                        ("f32_resid", dict(norm_w=norm_w, rstd=rstd, resid=resid32))):
         kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
         got = gp.packed_w4_gemm_fused_in(y, wo, **kwargs)
         want = gp.packed_w4_gemm_fused_in_plain(y, wo, **kwargs)
         require(got.dtype == want.dtype and torch.equal(bits(got), bits(want)),
                 f"packed_w4_gemm_fused_in ({tag}) differs from its plain version")
+        require(tag != "f32_resid" or got.dtype == torch.float32, "packed_w4_gemm_fused_in: a float32 residual must give float32")
         nbytes = (2 * y.numel() + sum(t.numel() * t.element_size() for t in wo) + got.numel() * got.element_size()
                   + (2 * resid.numel() if "resid" in kwargs else 0) + (2 * HID + 4 * BATCH if "norm_w" in kwargs else 0))
         b_ms, b_by = bound(nbytes, 2 * BATCH * HID * HID, PEAK_INT8_OPS)
@@ -714,8 +717,8 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     res["packed_w4_gemm_fused_in"] = dict(
         k9["resid"], max_abs_err=0.0, library_ms=None,
         shape="y bf16 [32,4096], wo K 4096 -> N 4096, resid bf16 [32,4096]; norm_*: with the RMSNorm in front",
-        checked=f"bitwise at M=32 (resid, norm + resid, norm, f32 out; the unfused chain) and at M={MIXED_M} "
-                "(resid, norm + resid, f32 out: the prefill GEMM)",
+        checked=f"bitwise at M=32 (resid, norm + resid, norm, f32 out, a float32 residual into float32; the unfused "
+                f"chain) and at M={MIXED_M} (resid, norm + resid, f32 out: the prefill GEMM)",
         **{f"norm_{k_}": v_ for k_, v_ in k9["norm_resid"].items()})
 
     # --- K10 fused_mlp_packed at the 7B MLP, in two parts: the act codes after
@@ -724,10 +727,14 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     dn = _rand_packed(gen, INTER, HID, spec, dev)
     row_scale = uniform(0.1, 1.0, (BATCH,))
     k10 = {}
-    for tag, kwargs in (("norm", dict(norm_w=norm_w, rstd=rstd)), ("no_norm", dict()),
-                        ("row_scale", dict(norm_w=norm_w, rstd=rstd, row_scale=row_scale))):
+    # the float32 residual (fault C4), with row_scale MoE's chain over the experts on a float32 accumulator
+    for tag, kwargs, res_ in (("norm", dict(norm_w=norm_w, rstd=rstd), resid), ("no_norm", dict(), resid),
+                              ("row_scale", dict(norm_w=norm_w, rstd=rstd, row_scale=row_scale), resid),
+                              ("f32_resid", dict(norm_w=norm_w, rstd=rstd), resid32),
+                              ("f32_resid_row_scale", dict(norm_w=norm_w, rstd=rstd, row_scale=row_scale), resid32)):
         kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
-        out, act, act_s = mlp.fused_mlp_packed_stages(y, resid, gu, dn, **kwargs)
+        out, act, act_s = mlp.fused_mlp_packed_stages(y, res_, gu, dn, **kwargs)
+        require(out.dtype == res_.dtype, f"fused_mlp_packed ({tag}): output {out.dtype} for a {res_.dtype} residual")
         in_kwargs = {k_: v_ for k_, v_ in kwargs.items() if k_ != "row_scale"}
         act_p, act_sp = mlp.fused_mlp_act_plain(y, gu, **in_kwargs)
         flips = act.ne(act_p).float().mean().item()
@@ -736,25 +743,30 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         # rounding boundary per thousand is the bound a differing last bit of expf would stay under
         require(flips <= 1e-3 and scale_flips <= 1e-3,
                 f"fused_mlp_packed ({tag}): {flips:.4%} of act codes and {scale_flips:.4%} of act scales differ")
-        down = mlp.fused_mlp_down_plain(act, act_s, resid, dn, kwargs.get("row_scale"))
+        down = mlp.fused_mlp_down_plain(act, act_s, res_, dn, kwargs.get("row_scale"))
         require(torch.equal(bits(out), bits(down)), f"fused_mlp_packed ({tag}): down half differs from its plain version")
-        whole = mlp.fused_mlp_packed_plain(y, resid, gu, dn, **kwargs)
+        whole = mlp.fused_mlp_packed_plain(y, res_, gu, dn, **kwargs)
         k10[tag] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
                         max_abs_err=(out.float() - whole.float()).abs().max().item())
     # above 64 rows both GEMMs run on the prefill GEMM (F32 for gate/up, RESID or ROW_SCALE for down),
     # held bit for bit: act codes and scales equal, and the down half
     row_scale_big = uniform(0.1, 1.0, (MIXED_M,))
-    for tag, kwargs in (("norm", dict(norm_w=norm_w, rstd=rstd_big)),
-                        ("row_scale", dict(norm_w=norm_w, rstd=rstd_big, row_scale=row_scale_big))):
+    resid32_big = normal((MIXED_M, HID))
+    for tag, kwargs, res_ in (("norm", dict(norm_w=norm_w, rstd=rstd_big), resid_big),
+                              ("row_scale", dict(norm_w=norm_w, rstd=rstd_big, row_scale=row_scale_big), resid_big),
+                              ("f32_resid", dict(norm_w=norm_w, rstd=rstd_big), resid32_big),
+                              ("f32_resid_row_scale", dict(norm_w=norm_w, rstd=rstd_big, row_scale=row_scale_big),
+                               resid32_big)):
         kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
-        out, act, act_s = mlp.fused_mlp_packed_stages(y_big, resid_big, gu, dn, **kwargs)
+        out, act, act_s = mlp.fused_mlp_packed_stages(y_big, res_, gu, dn, **kwargs)
+        require(out.dtype == res_.dtype, f"fused_mlp_packed ({tag}) at M={MIXED_M}: output {out.dtype} for a {res_.dtype} residual")
         act_p, act_sp = mlp.fused_mlp_act_plain(y_big, gu, **{k_: v_ for k_, v_ in kwargs.items() if k_ != "row_scale"})
         flips, scale_flips = act.ne(act_p).float().mean().item(), act_s.ne(act_sp).float().mean().item()
         require(torch.equal(act, act_p) and torch.equal(act_s, act_sp),
                 f"fused_mlp_packed ({tag}) at M={MIXED_M}: {flips:.4%} of act codes and {scale_flips:.4%} of act scales differ")
-        down = mlp.fused_mlp_down_plain(act, act_s, resid_big, dn, kwargs.get("row_scale"))
+        down = mlp.fused_mlp_down_plain(act, act_s, res_, dn, kwargs.get("row_scale"))
         require(torch.equal(bits(out), bits(down)), f"fused_mlp_packed ({tag}) at M={MIXED_M}: down half differs from its plain version")
-        whole = mlp.fused_mlp_packed_plain(y_big, resid_big, gu, dn, **kwargs)
+        whole = mlp.fused_mlp_packed_plain(y_big, res_, gu, dn, **kwargs)
         k10[f"m{MIXED_M}_{tag}"] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
                                         max_abs_err=(out.float() - whole.float()).abs().max().item())
     nbytes = (2 * y.numel() + 2 * 2 * resid.numel() + 2 * HID + 4 * BATCH
@@ -768,13 +780,13 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, parts=k10,
         shape="y bf16 [32,4096], gate/up K 4096 -> N 22016, down K 11008 -> N 4096, norm + rstd, resid bf16 [32,4096]",
         tolerance="act codes and scales: at most 1e-3 differing at 32 rows, none at 288; down half on the kernel's act "
-                  "codes: bitwise")
+                  "codes: bitwise; f32_resid*: a float32 residual (with row_scale: MoE's chain), float32 out")
     del gu, dn, wo
     torch.cuda.empty_cache()
 
-    # --- K12 flash_code_attention at prefill's largest and smallest bucket, GQA, and a row offset
-    # q scaled as for K3 and K11, so that the softmax peaks on a few keys and a key admitted or dropped wrongly at
-    # the causal edge moves the output past ATTN_TOL
+    # --- K12 flash_code_attention at prefill's largest bucket and the engine's others, GQA, row offsets, a ragged
+    # shape; q scaled as for K3 and K11, so that the softmax peaks on a few keys and a key admitted or dropped
+    # wrongly at the causal edge moves the output past ATTN_TOL
     def k12_case(tq, tk, hq, hkv, offset, time_it, library=False):
         q = normal((tq, hq, 128), 12.0, torch.bfloat16)
         kq = quantize_kv_asym(normal((tk, hkv, 128)))
@@ -783,7 +795,22 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         got = pf.flash_code_attention(*args, row_offset=offset, offset_max=max(tk - tq, 0))
         want = pf.flash_code_attention_plain(*args, row_offset=offset)
         torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL, msg=f"flash_code_attention Tq={tq} Tk={tk} HQ={hq}")
-        row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), mean_abs_out=want.float().abs().mean().item())
+        require(torch.equal(bits(got), bits(pf.flash_code_attention(*args, row_offset=offset))),
+                f"flash_code_attention Tq={tq} Tk={tk} offset={offset}: two launches differ")
+        plan = pf.flash_plan(tq, tk, offset)
+        row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), mean_abs_out=want.float().abs().mean().item(),
+                   plan=dict(tile_q=pf.TILE_Q, q_tiles=len(plan.q_tiles), key_tiles=sum(plan.key_tiles),
+                             blocks=len(plan.q_tiles) * hq, heaviest=plan.key_tiles[0]))
+        if time_it:
+            pairs = sum(min(offset + r + 1, tk) for r in range(tq))
+            nbytes = 2 * 2 * q.numel() + 2 * tk * hkv * (128 + 8)
+            # three products of 128 multiply-adds a visible (row, key, head) on the bf16 tensor cores: q.K, and p.V
+            # as two bf16 terms; bound_f32_pv_ms counts p.V once at the float32 CUDA-core peak (the earlier design's)
+            b_ms, b_by = bound(nbytes, 3 * 2 * hq * 128 * pairs, PEAK_BF16_OPS)
+            t_f32 = (2 * hq * 128 * pairs / PEAK_BF16_OPS + 2 * hq * 128 * pairs / PEAK_F32_OPS) * 1e3
+            row.update(ms=timer(lambda: pf.flash_code_attention(*args, row_offset=offset), n=10),
+                       plain_ms=timer(lambda: pf.flash_code_attention_plain(*args, row_offset=offset), n=3, warm=1),
+                       bound_ms=b_ms, bound_by=b_by, bound_f32_pv_ms=max(t_f32, nbytes / HBM_BYTES_PER_S * 1e3))
         last = offset + tq - 1  # the last key any row may see
         if last + 1 < tk:
             # other keys and values past it must change nothing, bit for bit
@@ -794,15 +821,6 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
             require(torch.equal(bits(got), bits(again)),
                     f"flash_code_attention Tq={tq} Tk={tk} offset={offset}: keys past the last visible one changed the output")
             row["keys_past_last_visible_replaced"] = tk - last - 1
-        if time_it:
-            pairs = sum(min(offset + r + 1, tk) for r in range(tq))
-            nbytes = 2 * 2 * q.numel() + 2 * tk * hkv * (128 + 8)
-            # scores may use the bf16 tensor cores (exact products), p . V is float32 outside them
-            t_ops = (2 * hq * 128 * pairs / PEAK_BF16_OPS + 2 * hq * 128 * pairs / PEAK_F32_OPS) * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            row.update(ms=timer(lambda: pf.flash_code_attention(*args, row_offset=offset), n=10),
-                       plain_ms=timer(lambda: pf.flash_code_attention_plain(*args, row_offset=offset), n=3, warm=1),
-                       bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
         if library:
             # for scale only: PyTorch's fused attention on K and V dequantized to bf16 (other inputs, other numerics)
             kd = (kq.codes.float() * kq.params[..., :1] + kq.params[..., 1:]).to(torch.bfloat16).transpose(0, 1)[None]
@@ -810,20 +828,28 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
             qd = q.transpose(0, 1)[None]
             row["sdpa_on_dequantized_bf16_ms"] = timer(
                 lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True), n=10)
+        if time_it:
+            log(f"flash_code_attention Tq={tq} Tk={tk} HQ={hq} Hkv={hkv} offset={offset}: {row['ms']:.4f} ms, plan {row['plan']}")
         return row
 
-    k12 = {"t1024": k12_case(1024, 1024, h, h, 0, True, library=True), "t128": k12_case(128, 128, h, h, 0, True),
+    k12 = {"t1024": k12_case(1024, 1024, h, h, 0, True, library=True),
+           "t128": k12_case(128, 128, h, h, 0, True), "t256": k12_case(256, 256, h, h, 0, True),
+           "t512": k12_case(512, 512, h, h, 0, True),
            "gqa_64q_8kv_t1024": k12_case(1024, 1024, 2 * h, h // 4, 0, True),
            "tq512_tk1024_offset512": k12_case(512, 1024, h, h, 512, False),
            "tq512_tk1024_offset200": k12_case(512, 1024, h, h, 200, False),
-           "t300": k12_case(300, 300, h, h, 0, False)}
+           "t300": k12_case(300, 300, h, h, 0, False),
+           "tq200_tk457_offset100": k12_case(200, 457, h, h, 100, False)}
     log(f"flash_code_attention checks: {k12}")
     first = k12.pop("t1024")
     res["flash_code_attention"] = dict(
         first, library_ms=None, library_note="no PyTorch call attends over u4 codes; sdpa_on_dequantized_bf16_ms is "
         "scaled_dot_product_attention on K/V dequantized to bf16, for scale only",
-        shape="q bf16 [1024,32,128], K/V codes int8 [1024,32,128] + params; t128, GQA 64/8, Tq 512 at offset 512 and at 200 (keys past row 711 replaced: "
-              "output bitwise unchanged), T 300 beside it; q of scale 12 (peaked softmax)",
+        shape="q bf16 [1024,32,128], K/V codes int8 [1024,32,128] + params; t128, t256, t512, GQA 64/8, Tq 512 at offset "
+              "512 and at 200 (keys past row 711 replaced: output bitwise unchanged), T 300, Tq 200 / Tk 457 at offset 100 "
+              "(no multiples of the tiles); q of scale 12 (peaked softmax); every case launched twice (bitwise)",
+        bound_note="bound_ms: q.K and p.V as two bf16 terms, three products on the bf16 tensor cores; bound_f32_pv_ms: "
+                   "p.V once at the float32 CUDA-core peak, the bound of K12's earlier CUDA-core design",
         timed_max_abs_err=first["max_abs_err"], **k12)
     res["flash_code_attention"]["max_abs_err"] = max([first["max_abs_err"]] + [c["max_abs_err"] for c in k12.values()])
     torch.cuda.empty_cache()
@@ -1856,6 +1882,11 @@ def mixed_step_kernel_vs_plain(torch, dev, params, flush: bool, pos0: int, chunk
                 launches={k: v for k, v in counts.items() if v})
 
 
+# The gate below as K12's earlier CUDA-core design read it (float32 FMAs, 32-row tiles;
+# scripts/torch_flash_compare.py on that tree, NVIDIA H100 80GB HBM3, 700 W), logged beside this run's reading
+EARLIER_K12_GATE = dict(rows_layer1_k_bitwise_equal=0.9125, page_entries_differing=0.022151)
+
+
 def prefill_kernel_vs_plain(torch, dev, params, bucket: int = 512, true_len: int = 400) -> dict:
     """Phase 5: one prefill at 2 layers through the flash kernel (K12), kernel
     path vs plain path: layer 0's pages bitwise (K6, K7 and the append are),
@@ -1892,13 +1923,14 @@ def prefill_kernel_vs_plain(torch, dev, params, bucket: int = 512, true_len: int
     same = (sk.pages[1].k_pages[own] == sp.pages[1].k_pages[own]).all(dim=1).all(dim=1).reshape(-1)[:true_len]
     rows_equal = same.float().mean().item()
     log(f"kernel prefill, kernel vs plain path (2 layers, {bucket} rows, {true_len} true): token {tk} / {tp}, "
-        f"page bytes differing {page_diff:.6f}, {rows_equal:.3f} of the prompt's rows with layer-1 K codes bitwise equal")
+        f"page bytes differing {page_diff:.6f}, {rows_equal:.3f} of the prompt's rows with layer-1 K codes bitwise equal "
+        f"(K12's earlier design: {EARLIER_K12_GATE})")
     # K12 is within one bf16 rounding of its plain version in a few elements of a row; where one sits on the o_proj
     # quantizer's rounding boundary a code flips and the row's hidden moves, and with it its layer-1 K/V codes
     require(page_diff < 0.05 and rows_equal >= 0.75 and sk.flushed.tolist() == sp.flushed.tolist() == [0, true_len],
             f"kernel prefill: {page_diff:.3%} of page bytes differ, {rows_equal:.2%} of rows equal")
     return dict(token_equal=tk == tp, page_entries_differing=page_diff, rows_layer1_k_bitwise_equal=rows_equal,
-                launches={k: v for k, v in counts.items() if v})
+                launches={k: v for k, v in counts.items() if v}, earlier_k12_design=EARLIER_K12_GATE)
 
 
 def engine_kernel_vs_plain(torch, dev, qparams, mixed: bool = False) -> dict:

@@ -213,6 +213,93 @@ def test_fused_mlp_support_gate_matches_jax(geom):
 
 
 # ---------------------------------------------------------------------------
+# a float32 residual (fault C4): the output takes the residual's type, and the
+# epilogue adds the product unrounded, as the TPU kernels' ``_rp`` does at 32 bits
+# ---------------------------------------------------------------------------
+
+
+def _rows_within_f32(got, want):
+    """Share of rows whose every element lies within 1e-5 relative + 1e-5."""
+    return (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-5).all(axis=1).mean()
+
+
+def test_fused_in_gemm_f32_resid_matches_pallas():
+    """K9 with a float32 residual against the Pallas kernel in interpret mode,
+    on the inputs of ``test_fused_in_gemm_matches_pallas[resid-no_norm]`` with
+    the residual left in float32: float32 out, at least 75% of the rows within
+    1e-5 relative + 1e-5 (a flipped input code moves its row, as there), every
+    element within 0.2.  One bf16 rounding of the product before the add (the
+    fault) moves products of order 1 by up to 2^-9 and puts rows outside."""
+    rng = np.random.default_rng(8)
+    m, k, n = 32, 640, 384
+    jkw, tkw = _weights(1, k, n)
+    y = _bf16(rng.standard_normal((m, k)) * 1.5)
+    r = rng.standard_normal((m, n)).astype(np.float32)
+    want = np.asarray(j_fused_in(jnp.asarray(y), jkw, resid=jnp.asarray(r), abits=4, a_clip=A_CLIP, interpret=True))
+    got = t_fused_in(_t(y), tkw, resid=_t(r), abits=4, a_clip=A_CLIP)
+    assert want.dtype == np.float32 and got.dtype == torch.float32 and got.shape == (m, n)
+    got = got.numpy()
+    assert _rows_within_f32(got, want) >= 0.75, f"{_rows_within_f32(got, want):.2%} of rows within 1e-5"
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.2)
+
+
+@pytest.mark.parametrize("row_scale", [False, True], ids=["resid", "row_scale"])
+def test_fused_mlp_f32_resid_matches_pallas(row_scale):
+    """K10 with a float32 residual, without and with ``row_scale``, against
+    the Pallas kernel in interpret mode on the inputs of
+    ``test_fused_mlp_matches_pallas`` (its ``norm_rstd`` and ``row_scale``
+    cases: d 512, inter 1024, M 32, norm and rstd) with the residual left in
+    float32: float32 out, at least 75% of the rows within 1e-5 relative +
+    1e-5, the whole output within ``_flip_close``'s bound.  Rounding the
+    product to bf16 before the add (the fault) put 0 of the 32 rows within it
+    without ``row_scale``.  The rows that move are those of the bf16 test: an
+    input code flipped by the compiled quantizer, whatever the residual's type."""
+    rng = np.random.default_rng(2 if row_scale else 0)
+    m, d, inter = 32, 512, 1024
+    jgu, tgu = _weights(10, d, 2 * inter)
+    jdn, tdn = _weights(11, inter, d)
+    y = _bf16(rng.standard_normal((m, d)))
+    resid = rng.standard_normal((m, d)).astype(np.float32)
+    norm_w = _bf16(rng.uniform(0.7, 1.3, (d,)))
+    rstd = np.asarray(j_rms_rstd(jnp.asarray(y)))
+    kj, kt = dict(norm_w=jnp.asarray(norm_w), rstd=jnp.asarray(rstd)), dict(norm_w=_t(norm_w), rstd=_t(rstd))
+    if row_scale:
+        rs = rng.uniform(0.1, 1.0, (m,)).astype(np.float32)
+        kj.update(row_scale=jnp.asarray(rs))
+        kt.update(row_scale=_t(rs))
+    want = np.asarray(j_fused_mlp(jnp.asarray(y), jnp.asarray(resid), jgu, jdn, abits=4, a_clip=A_CLIP, interpret=True,
+                                  **kj))
+    got = t_fused_mlp(_t(y), _t(resid), tgu, tdn, abits=4, a_clip=A_CLIP, **kt)
+    assert want.dtype == np.float32 and got.dtype == torch.float32 and got.shape == (m, d)
+    got = got.numpy()
+    assert _rows_within_f32(got, want) >= 0.75, f"{_rows_within_f32(got, want):.2%} of rows within 1e-5"
+    _flip_close(got, want, atol=1.0)
+
+
+def test_fused_mlp_expert_chain_on_f32_accumulator_matches_pallas():
+    """MoE's fused branch (``atom_tpu/serving/moe.py``): the experts' K10 calls
+    chained on a float32 accumulator, ``acc = fused_mlp_packed(h, acc, gu_e,
+    dn_e, row_scale=w_e)``, two experts, in both packages (the Pallas kernel in
+    interpret mode).  Bounds as the single call's."""
+    rng = np.random.default_rng(21)
+    m, d, inter = 32, 512, 1024
+    experts = [(_weights(30 + e, d, 2 * inter), _weights(40 + e, inter, d)) for e in range(2)]
+    h = _bf16(rng.standard_normal((m, d)))
+    w = rng.uniform(0.0, 1.0, (2, m)).astype(np.float32)
+    x = _bf16(rng.standard_normal((m, d))).astype(np.float32)
+    acc_j, acc_t = jnp.asarray(x), _t(x)
+    for e, ((jgu, tgu), (jdn, tdn)) in enumerate(experts):
+        acc_j = j_fused_mlp(jnp.asarray(h), acc_j, jgu, jdn, row_scale=jnp.asarray(w[e]), abits=4, a_clip=A_CLIP,
+                            interpret=True)
+        acc_t = t_fused_mlp(_t(h), acc_t, tgu, tdn, row_scale=_t(w[e]), abits=4, a_clip=A_CLIP)
+    want = np.asarray(acc_j)
+    assert want.dtype == np.float32 and acc_t.dtype == torch.float32
+    got = acc_t.numpy()
+    assert _rows_within_f32(got, want) >= 0.75, f"{_rows_within_f32(got, want):.2%} of rows within 1e-5"
+    _flip_close(got, want, atol=1.0)
+
+
+# ---------------------------------------------------------------------------
 # the gates and the decode step
 # ---------------------------------------------------------------------------
 
