@@ -149,7 +149,9 @@
 // K9 replaces :540 packed_w4_gemm_fused_in (_gemm_fused_in_kernel :494,
 // _quant_prologue :438): two launches, the prologue above (its norm optional;
 // rstd always comes from outside, as on the TPU, so the statistic is the one
-// the unfused chain uses) and the GEMM with the epilogue
+// the unfused chain uses; given the layer's reorder index it reads y[m, idx[k]]
+// for channel k, the gather the TPU program fuses into its neighbours, so the
+// caller launches no gather of its own) and the GEMM with the epilogue
 // out = bf16(resid + bf16(acc)): the GEMM output is rounded to bf16 before the
 // add, then the sum once more, which is what x + quant_gemm(...) does, so K9
 // equals the unfused chain bit for bit.  A float32 residual gives a float32
@@ -159,19 +161,49 @@
 //
 // K10 replaces atom_tpu/ops/pallas_mlp.py:238 fused_mlp_packed (_fused_mlp_kernel
 // :84).  On the TPU one sequential grid runs prologue, gate/up tiles and down
-// tiles in turn with the act codes in VMEM.  Here blocks run in parallel and
-// the down product needs every act code of a row, so the phases are launches
-// on one stream: (1) the prologue, (2) the gate/up GEMM into an f32 [M, 2*inter]
-// scratch, (3) SiLU(gate) * up in f32 and the requantization per 128 channels
-// (the last 128 of inter the INT8 keeper, every other block INT4 with the
-// clip), (4) the down GEMM with the residual epilogue (or resid + row_scale *
-// acc, the MoE form, without the bf16 pin, as the TPU kernel has it).  The
-// scratch (2.8 MB at 7B), act codes and scales stay in L2 between launches.
-// SiLU is x / (1 + expf(-x)) with IEEE division, the formula of PyTorch's CUDA
-// silu, so the act codes equal the plain version's.  Bound: the two weight
-// streams (gate/up 45 MB + down 22.5 MB at 7B): memory.  K9's and K10's GEMMs
-// run on the core at M <= 64 and on the prefill GEMM above.
+// tiles in turn with the act codes in VMEM, each gate tile paired with its up
+// tile in one grid step.  Here blocks run in parallel and the down product
+// needs every act code of a row, so the phases are launches on one stream.
+// Up to 64 rows, three: (1) the prologue (the reorder gather folded in, as
+// K9's), (2) the gate/up GEMM on the core with the SiLU-quant epilogue, (3) the
+// down GEMM with the residual epilogue (or resid + row_scale * acc, the MoE
+// form, without the bf16 pin, as the TPU kernel has it; on a float32 residual
+// the float32 forms).  In (2) a block pairs as the TPU kernel does: its tile of
+// t gate columns [c, c + t) and the matching up columns [inter + c, ...), read
+// from the one gate/up weight the unfused path and the prefill GEMM read; a
+// ring slot takes them as one 3D TMA box of a [rows][gate, up][inter] view
+// (and the scale rows likewise), so a slot is three copies as in the unpaired
+// core, with L2 promotion to 128 bytes: a box row is t bytes of each half, and
+// a cluster's blocks read the rest of those 128 bytes.  Each column's float
+// chain is the core's, unchanged; after it the block's tile goes into its
+// ring (every slot read by then), and each row's 2 tile_n / tile_m
+// consecutive consumer threads take act = SiLU(g) * u over the block's t
+// channels in turn and the row's partial |max| by shuffles.  A 128-channel
+// requantization group spans 128 / t blocks, launched as one thread-block
+// cluster (t = 32: 4 blocks of 64 weight columns, the unpaired grid; t = 64: 2
+// of 128, slower: its 288-thread blocks fit one an SM by registers, 132 of 172
+// at once): each block stores its rows' partial maxima into every rank's
+// shared memory through distributed shared memory, and after one cluster
+// barrier reads them locally, takes the group's max (exact in any order) and
+// quantizes its own channels as quant_group_store does (the last 128 of inter
+// the INT8 keeper without clip, every other group INT4 with the clip),
+// writing the act codes and, at the cluster's rank 0, the scale straight into
+// the down GEMM's input.  No block reads a partner's memory after the
+// barrier, so none waits to exit.  No f32 gate/up scratch, no SiLU launch.
+// The producer warp passes the barrier too.  Measured at 7B (PERF.md section
+// 6): two boxes a slot for weights and scales were no slower than one; a
+// warp a row over its channels and a pull of the partners' maxima (two
+// barriers) cost ~4 us more; without the L2 promotion ~2 us more.
+// Above 64 rows (the prefill GEMM) four launches: the prologue, the gate/up GEMM
+// into an f32 [M, 2*inter] scratch, silu_mul_quant_kernel (the same SiLU and
+// requantization a warp per group), the down GEMM.  SiLU is x / (1 + expf(-x))
+// with IEEE division, the formula of PyTorch's CUDA silu, in both forms, so
+// the act codes of the two are equal bit for bit and equal the plain
+// version's.  Bound: the two weight streams (gate/up 45 MB + down 22.5 MB at
+// 7B): memory.  K9's and K10's GEMMs run on the core at M <= 64 and on the
+// prefill GEMM above.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -179,6 +211,8 @@
 #include <stdint.h>
 
 #include "int8_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -195,8 +229,12 @@ constexpr int HT = HEAD + 4;         // core: row stride of the head epilogue's 
 // acc) (K10 with a per-row output scale); the head ring epilogue (K2, K8: core
 // only); and on a float32 residual, into float32, resid + acc and resid +
 // row_scale * acc (K9, K10: the TPU kernels' output takes the residual's type,
-// and their pinned rounding _rp does nothing at 32 bits).
-enum Epilogue { EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3, EPI_RESID_F32 = 4, EPI_ROW_SCALE_F32 = 5 };
+// and their pinned rounding _rp does nothing at 32 bits); and K10's gate/up
+// epilogue, SiLU(gate) * up requantized over a cluster (core only, paired tiles).
+enum Epilogue {
+  EPI_F32 = 0, EPI_RESID = 1, EPI_ROW_SCALE = 2, EPI_RING = 3, EPI_RESID_F32 = 4, EPI_ROW_SCALE_F32 = 5,
+  EPI_SILU_QUANT = 6
+};
 
 __host__ __device__ constexpr bool f32_out(int epi) { return epi == EPI_F32 || epi == EPI_RESID_F32 || epi == EPI_ROW_SCALE_F32; }
 
@@ -281,6 +319,12 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm, int x
                ::"r"(smem_u32(dst)), "l"((uint64_t)tm), "r"(x), "r"(y), "r"(smem_u32(bar)) : "memory");
 }
 
+// A 3D box of the tensor map at (x, y, z) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* tm, int x, int y, int z, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+               ::"r"(smem_u32(dst)), "l"((uint64_t)tm), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar)) : "memory");
+}
+
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                ::"r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
@@ -314,10 +358,13 @@ __device__ __forceinline__ float small_int_to_float(int d) {
 
 // The weight slot's layout: rows tile_n bytes apart, TMA's swizzle for that
 // width (none at 32 bytes, 64- or 128-byte at 64 or 128): bits [4, 4 + b) of
-// the offset take bits [7, 7 + b) by exclusive or.
-__device__ __forceinline__ uint32_t w_offset(int row, int col, int tile_n) {
+// the offset take bits [7, 7 + b) by exclusive or.  The paired slot
+// (EPI_SILU_QUANT) is one 3D box, [64 rows][gate, up][tile_n / 2 bytes], so
+// its rows are tile_n bytes too, under the swizzle of its tile_n / 2-byte
+// inner dimension (32- or 64-byte: b = 1 or 2).
+__device__ __forceinline__ uint32_t w_offset(int row, int col, int tile_n, bool paired = false) {
   const uint32_t off = row * tile_n + col;
-  const uint32_t mask = tile_n == 128 ? 7u : tile_n == 64 ? 3u : 0u;
+  const uint32_t mask = paired ? (tile_n == 128 ? 3u : 1u) : tile_n == 128 ? 7u : tile_n == 64 ? 3u : 0u;
   return off ^ (((off >> 7) & mask) << 4);
 }
 
@@ -334,14 +381,20 @@ struct CoreParams {
   int8_t* ring_k;
   __nv_bfloat16* ring_prm;
   int8_t* ring_v;
+  int8_t* act;        // EPI_SILU_QUANT: the down GEMM's input codes [M, inter]
+  float* act_scales;  // and its scales [M, inter / 128]
   int M, N, ng, tile_m, tile_n, stages;
   int n_q, H, W, row;
+  int inter, abits;
+  float a_clip;
 };
 
-// Dynamic shared memory of a core block (ops/gemm_packed.py::core_smem).
-__host__ __device__ constexpr int core_smem(int tile_m, int tile_n, int stages, int ng, bool head) {
+// Dynamic shared memory of a core block (ops/gemm_packed.py::core_smem); paired
+// (EPI_SILU_QUANT): the partial maxima of up to 4 cluster ranks, MAX_RANKS x tile_m floats.
+constexpr int MAX_RANKS = 4;
+__host__ __device__ constexpr int core_smem(int tile_m, int tile_n, int stages, int ng, bool head, bool paired = false) {
   return 1024 + stages * (tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16) + (ng + 1) * tile_m * 4 +
-         (head ? tile_m * (HT + 2 * HEAD) * 4 : 0);
+         (head ? tile_m * (HT + 2 * HEAD) * 4 : 0) + (paired ? MAX_RANKS * tile_m * 4 : 0);
 }
 
 // The ring epilogue of one row m of the block's head hb, by one warp: lane
@@ -398,16 +451,29 @@ __device__ __forceinline__ void ring_row(const float* __restrict__ x, const floa
   }
 }
 
+// The SiLU-quant epilogue's f32 tile (tile_m rows of tile_n columns, stride
+// tile_n + 4) reuses the ring, which holds it at every plan: the largest tile
+// in the shallowest ring.
+static_assert(64 * (128 + 4) * 4 <= 3 * (64 * GROUP + 128 * HALF), "the SiLU-quant tile fits a ring of 3 slots");
+
 // NT: n-tiles of 8 activation rows; a block's rows, tile_m = 8 * NT, are
 // every consumer warp's rows.  KBLK: the K-blocked order (ng > 112).
+// EPI_SILU_QUANT pairs the tiles: a slot's weights are one 3D box of tile_n / 2
+// gate columns n0.. and as many up columns inter + n0.. (tmW, tmK viewed as
+// [rows][2][inter]), its weight scales one more (tmS, [ng + 1][2][inter]
+// float32), so a slot still takes three copies; the block is one rank of a
+// cluster of 256 / tile_n (see the K10 note).  tmS is unused otherwise.
 template <int NT, int EPI, bool KBLK>
 __global__ void __launch_bounds__(32 * (1 + MAX_CONSUMERS), 1)
 gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
-                 const __grid_constant__ CUtensorMap tmK, const CoreParams p) {
+                 const __grid_constant__ CUtensorMap tmK, const __grid_constant__ CUtensorMap tmS,
+                 const CoreParams p) {
   constexpr int BM = 8 * NT;
+  constexpr bool PAIRED = EPI == EPI_SILU_QUANT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   const int S = p.stages, BN = p.tile_n, ng = p.ng;
+  const int BW = PAIRED ? BN / 2 : BN;  // the block's output columns: the tile, or its gate (and up) channels
   const int consumers = BN / 16;
   unsigned char* ringA = base;                                     // S x BM x 128, 128-byte swizzle
   unsigned char* ringW = ringA + S * BM * GROUP;                   // S x 64 rows x BN, swizzled (w_offset)
@@ -418,7 +484,8 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
   float* sin_s = cos_s + BM * HEAD;
   uint64_t* full = reinterpret_cast<uint64_t*>(ht + (EPI == EPI_RING ? BM * (HT + 2 * HEAD) : 0));
   uint64_t* empty = full + S;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  float* pmax = reinterpret_cast<float*>(empty + S);  // paired: MAX_RANKS x BM, the ranks' partial maxima of the rows
+  const int n0 = blockIdx.x * BW, m0 = blockIdx.y * BM;  // paired: the block's first gate column
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr bool kblk = KBLK;
 
@@ -427,23 +494,35 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
       mbar_init(full + s, 1);
       mbar_init(empty + s, consumers);
     }
+    if constexpr (PAIRED) asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == 0) {
     // producer: slot j < ng body group j, slot ng the keeper's rows 0-63 with
-    // its activation tile and scale row, slot ng + 1 its rows 64-127
+    // its activation tile and scale row, slot ng + 1 its rows 64-127; paired,
+    // the weights and the scale row as the gate and the up columns' 3D boxes
     if (lane == 0) {
       for (int j = 0, s = 0, ph = 0; j < ng + 2; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
         if (j >= S) mbar_wait(empty + s, ph ^ 1);
         const bool act = j <= ng;
         mbar_expect(full + s, BN * HALF + (act ? BM * GROUP + BN * 4 : 0));
-        tma_load(ringW + s * BN * HALF, j < ng ? &tmW : &tmK, n0, (j < ng ? j : j - ng) * HALF, full + s);
+        if constexpr (PAIRED)
+          tma_load_3d(ringW + s * BN * HALF, j < ng ? &tmW : &tmK, n0, 0, (j < ng ? j : j - ng) * HALF, full + s);
+        else
+          tma_load(ringW + s * BN * HALF, j < ng ? &tmW : &tmK, n0, (j < ng ? j : j - ng) * HALF, full + s);
         if (act) {
           tma_load(ringA + s * BM * GROUP, &tmA, j * GROUP, m0, full + s);
-          bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, BN * 4, full + s);
+          if constexpr (PAIRED)
+            tma_load_3d(ringS + s * BN, &tmS, n0, 0, j, full + s);
+          else
+            bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, BN * 4, full + s);
         }
       }
+    }
+    if constexpr (PAIRED) {  // the epilogue's cluster barrier counts every thread of the cluster
+      __syncwarp();
+      cg::this_cluster().sync();
     }
     return;
   }
@@ -504,7 +583,7 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) woff[q][i] = w_offset(16 * q + 4 * tig + ((i + tig) & 3), c0, BN);
+    for (int i = 0; i < 4; ++i) woff[q][i] = w_offset(16 * q + 4 * tig + ((i + tig) & 3), c0, BN, PAIRED);
   // ldmatrix: lane l addresses row (l & 7) + 8 * (l >> 4) of its matrix pair,
   // 16-byte chunk +((l >> 3) & 1): matrices (rows 0-7, chunk q), (rows 0-7,
   // q + 1), (rows 8-15, q), (rows 8-15, q + 1) = b0, b1 of two n-tiles
@@ -616,6 +695,64 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
   }
   // element e of n-tile nt: activation row nt*8 + 2tig + (e & 1), weight column c0 + (e >> 1)
   const int rows_here = min(BM, p.M - m0);
+  if constexpr (PAIRED) {
+    cg::cluster_group cluster = cg::this_cluster();
+    // every consumer has read its last slot (and every copy has landed): the
+    // f32 tile goes into the ring, gate columns [0, BW), up columns [BW, BN)
+    const int ets = BN + 4;
+    float* et = reinterpret_cast<float*>(ringA);
+    asm volatile("bar.sync 2, %0;\n" ::"r"(consumers * 32) : "memory");
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(et + (nt * 8 + 2 * tig + h) * ets + c0) =
+            make_float2(acc[nt][h].out, acc[nt][2 + h].out);
+    asm volatile("bar.sync 2, %0;\n" ::"r"(consumers * 32) : "memory");
+    // each row's tpr = 2 BN / BM consecutive consumer threads (2-16) take its
+    // BW channels in turn (cpt = BW / tpr each, 4-16): act = SiLU(g) * u with
+    // silu_mul_quant_kernel's arithmetic, then the row's partial |max| over
+    // the block's channels by shuffles, stored into every rank's pmax at this
+    // block's rank (its own included): after the one barrier each block reads
+    // its own shared memory only, and none touches a partner's again
+    const int ct = tid - 32, tpr = 2 * BN / BM, cpt = BW / tpr, r = ct / tpr, part = ct % tpr;
+    const int ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    float* row = et + r * ets;
+    float mx = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < cpt; ++i) {
+      const int c = part + i * tpr;
+      const float g = row[c], u = row[BW + c];
+      const float v = __fmul_rn(__fdiv_rn(g, __fadd_rn(1.f, expf(-g))), u);
+      row[c] = v;
+      mx = fmaxf(mx, fabsf(v));
+    }
+    for (int o = tpr / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int q = part; q < ranks; q += tpr) *cluster.map_shared_rank(pmax + rank * BM + r, q) = mx;
+    cluster.sync();  // every rank's partial maxima have landed
+    // the group's max over the ranks (exact in any order), then each thread
+    // quantizes its channels with quant_group_store's arithmetic
+    const int nblk = p.inter / GROUP, grp = n0 / GROUP;
+    const bool keeper = grp == nblk - 1;
+    const int qmax = keeper ? 127 : (1 << (p.abits - 1)) - 1;
+    float pm[MAX_RANKS];
+#pragma unroll
+    for (int q = 0; q < MAX_RANKS; ++q) pm[q] = q < ranks ? pmax[q * BM + r] : 0.f;
+    float amax = fmaxf(fmaxf(fmaxf(0.f, pm[0]), fmaxf(pm[1], pm[2])), pm[3]);
+    amax = fmaxf(amax, 1e-5f);
+    if (!keeper && p.a_clip < 1.f) amax = __fmul_rn(amax, p.a_clip);
+    const float scale = __fdiv_rn(amax, (float)qmax);
+    if (r < rows_here) {
+      int8_t* codes = p.act + (size_t)(m0 + r) * p.inter + n0;
+#pragma unroll 4
+      for (int i = 0; i < cpt; ++i) {
+        const int c = part + i * tpr;
+        codes[c] = (signed char)fminf(fmaxf(rintf(__fdiv_rn(row[c], scale)), (float)(-qmax - 1)), (float)qmax);
+      }
+      if (part == 0 && rank == 0) p.act_scales[(size_t)(m0 + r) * nblk + grp] = scale;
+    }
+    return;
+  }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -992,20 +1129,32 @@ __device__ __forceinline__ void quant_group_store(const float (&v)[4], int lane,
 // token row m, a warp each (all of a row's loads in flight at once).  With a
 // norm weight: xn = bf16(y * rstd); v = bf16(xn * wg); without (wg null):
 // v = y.  Then per 128-group symmetric quantization (INT4 body with clip, the
-// last group an INT8 keeper without clip).
+// last group an INT8 keeper without clip).  GATHER (K9 and K10): channel k is
+// y[m, idx[k]], the layer's reorder gather read in place (wg is already
+// gathered, and rstd, the row's statistic, does not depend on the order);
+// K2's instance reads y[m, k].
+template <bool GATHER>
 __global__ void __launch_bounds__(256)
-quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ wg,
-                      const float* __restrict__ rstd, int8_t* __restrict__ a, float* __restrict__ sa,
-                      int K, int ng, int abits, float a_clip) {
+quant_prologue_kernel(const __nv_bfloat16* __restrict__ y, const int* __restrict__ idx,
+                      const __nv_bfloat16* __restrict__ wg, const float* __restrict__ rstd, int8_t* __restrict__ a,
+                      float* __restrict__ sa, int K, int ng, int abits, float a_clip) {
   const int m = blockIdx.x, g = blockIdx.y * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const bool norm = wg != nullptr;
   const float r = norm ? rstd[m] : 1.f;
   if (g <= ng) {
     const int k0 = g * GROUP + lane * 4;
+    int src[4] = {k0, k0 + 1, k0 + 2, k0 + 3};
+    if constexpr (GATHER) {
+      const int4 i4 = *reinterpret_cast<const int4*>(idx + k0);
+      src[0] = i4.x;
+      src[1] = i4.y;
+      src[2] = i4.z;
+      src[3] = i4.w;
+    }
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      v[i] = __bfloat162float(y[(size_t)m * K + k0 + i]);
+      v[i] = __bfloat162float(y[(size_t)m * K + src[i]]);
       if (norm) {
         const float xn = bf16_round(__fmul_rn(v[i], r));
         v[i] = bf16_round(__fmul_rn(xn, __bfloat162float(wg[k0 + i])));
@@ -1151,9 +1300,48 @@ int encode_map(CUtensorMap* tm, const void* ptr, int inner, int outer, int box_i
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The cluster launch of the SiLU-quant epilogue: 256 / tile_n blocks (one
+// 128-channel group of t = tile_n / 2 channels each) a cluster along x.
+cudaLaunchConfig_t silu_cluster_config(const Plan& pl, int M, int N, int smem, cudaStream_t st,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / pl.tile_n, (M + pl.tile_m - 1) / pl.tile_m, 1);
+  cfg.blockDim = dim3(32 * (1 + pl.tile_n / 16), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2 * GROUP / pl.tile_n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// A 3D tensor map over a [outer][2][inner] view of a [outer, row_bytes] array
+// whose halves start `inner` elements apart (K10's gate and up columns), boxes
+// of box_inner x 2 x box_outer, with L2 promotion to 128 bytes.
+int encode_map_3d(CUtensorMap* tm, CUtensorMapDataType type, const void* ptr, int inner, int outer, int row_bytes,
+                  int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) return (int)cudaErrorNotSupported;
+  }
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 1;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, 2, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * elem_bytes, (cuuint64_t)row_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, 2, (cuuint32_t)box_outer}, elem[3] = {1, 1, 1};
+  const CUresult r = encode(tm, type, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int NT, int EPI>
-int launch_core_nt(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CoreParams& p,
-                   const Plan& pl, int smem, cudaStream_t st) {
+int launch_core_nt(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CUtensorMap& ts,
+                   const CoreParams& p, const Plan& pl, int smem, cudaStream_t st) {
   const bool kblk = p.ng > KBLK_THRESHOLD;
   auto kernel = kblk ? gemm_core_kernel<NT, EPI, true> : gemm_core_kernel<NT, EPI, false>;
   static bool ready[2] = {false, false};
@@ -1162,8 +1350,24 @@ int launch_core_nt(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorM
     if (err != cudaSuccess) return (int)err;
     ready[kblk] = true;
   }
+  if constexpr (EPI == EPI_SILU_QUANT) {
+    // the cluster's blocks must fit at once: refuse a layout the card cannot co-schedule
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = silu_cluster_config(pl, p.M, p.N, smem, st, attr);
+    static int checked_smem[2] = {0, 0};
+    if (checked_smem[kblk] != smem) {
+      int clusters = 0;
+      const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+      checked_smem[kblk] = smem;
+    }
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, ta, tw, tk, ts, p);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   const dim3 grid(p.N / pl.tile_n, (p.M + pl.tile_m - 1) / pl.tile_m, 1);
-  kernel<<<grid, 32 * (1 + pl.tile_n / 16), smem, st>>>(ta, tw, tk, p);
+  kernel<<<grid, 32 * (1 + pl.tile_n / 16), smem, st>>>(ta, tw, tk, ts, p);
   return (int)cudaGetLastError();
 }
 
@@ -1173,18 +1377,29 @@ int launch_core_nt(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorM
 template <int EPI>
 int launch_core(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, CoreParams p,
                 int M, int N, int ng, const Plan& pl, cudaStream_t st) {
+  const bool paired = EPI == EPI_SILU_QUANT;  // N = 2 * inter, 256 / tile_n blocks a 128-channel group
   const bool shape_ok = ng >= 1 && (pl.tile_m == 16 || pl.tile_m == 32 || pl.tile_m == 64) &&
                         (pl.tile_n == 32 || pl.tile_n == 64 || pl.tile_n == 128) && N % pl.tile_n == 0 &&
-                        pl.stages >= 3 && (EPI != EPI_RING || (pl.tile_n == HEAD && pl.tile_m <= 32));
+                        pl.stages >= 3 && (EPI != EPI_RING || (pl.tile_n == HEAD && pl.tile_m <= 32)) &&
+                        (!paired || (pl.tile_n >= 64 && N == 2 * p.inter && p.inter % GROUP == 0));
   if (!shape_ok) return (int)cudaErrorInvalidValue;
-  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, EPI == EPI_RING);
+  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, EPI == EPI_RING, paired);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  CUtensorMap ta, tw, tk;
-  const CUtensorMapSwizzle wsw = pl.tile_n == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : pl.tile_n == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap ta, tw, tk, ts = {};
   int e = encode_map(&ta, a, (ng + 1) * GROUP, M, GROUP, pl.tile_m, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!e) e = encode_map(&tw, wp, N, ng * HALF, pl.tile_n, HALF, wsw);
-  if (!e) e = encode_map(&tk, wk, N, GROUP, pl.tile_n, HALF, wsw);
+  if (paired) {  // [rows][gate, up][inter] views; boxes of tile_n / 2 columns of each half
+    const int t = pl.tile_n / 2;
+    const CUtensorMapSwizzle psw = t == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!e) e = encode_map_3d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wp, p.inter, ng * HALF, N, t, HALF, psw);
+    if (!e) e = encode_map_3d(&tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, wk, p.inter, GROUP, N, t, HALF, psw);
+    if (!e) e = encode_map_3d(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sw, p.inter, ng + 1, N * 4, t, 1,
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    const CUtensorMapSwizzle wsw = pl.tile_n == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : pl.tile_n == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE;
+    if (!e) e = encode_map(&tw, wp, N, ng * HALF, pl.tile_n, HALF, wsw);
+    if (!e) e = encode_map(&tk, wk, N, GROUP, pl.tile_n, HALF, wsw);
+  }
   if (e) return e;
   p.sa = (const float*)sa;
   p.sw = (const float*)sw;
@@ -1195,10 +1410,10 @@ int launch_core(const void* a, const void* wp, const void* wk, const void* sa, c
   p.tile_n = pl.tile_n;
   p.stages = pl.stages;
   switch (pl.tile_m) {
-    case 16: return launch_core_nt<2, EPI>(ta, tw, tk, p, pl, smem, st);
-    case 32: return launch_core_nt<4, EPI>(ta, tw, tk, p, pl, smem, st);
+    case 16: return launch_core_nt<2, EPI>(ta, tw, tk, ts, p, pl, smem, st);
+    case 32: return launch_core_nt<4, EPI>(ta, tw, tk, ts, p, pl, smem, st);
   }
-  return launch_core_nt<8, EPI>(ta, tw, tk, p, pl, smem, st);
+  return launch_core_nt<8, EPI>(ta, tw, tk, ts, p, pl, smem, st);
 }
 
 template <int H, int NWG, int EPI, bool KBLK>
@@ -1288,12 +1503,54 @@ int launch_ring(const void* a, const void* wp, const void* wk, const void* sa, c
   return launch_core<EPI_RING>(a, wp, wk, sa, sw, p, M, n_q + 2 * H * HEAD, ng, pl, st);
 }
 
-cudaError_t launch_prologue(const void* y, const void* wg, const void* rstd, void* a, void* sa,
+// idx null: y read as it lies (K2); else the gathered instance (K9, K10).
+cudaError_t launch_prologue(const void* y, const void* idx, const void* wg, const void* rstd, void* a, void* sa,
                             int M, int K, int abits, float a_clip, cudaStream_t st) {
-  quant_prologue_kernel<<<dim3(M, (K / GROUP + 7) / 8), 256, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)wg,
-                                           (const float*)rstd, (int8_t*)a, (float*)sa, K,
-                                           K / GROUP - 1, abits, a_clip);
+  auto kernel = idx != nullptr ? quant_prologue_kernel<true> : quant_prologue_kernel<false>;
+  kernel<<<dim3(M, (K / GROUP + 7) / 8), 256, 0, st>>>((const __nv_bfloat16*)y, (const int*)idx,
+                                                     (const __nv_bfloat16*)wg, (const float*)rstd, (int8_t*)a,
+                                                     (float*)sa, K, K / GROUP - 1, abits, a_clip);
   return cudaGetLastError();
+}
+
+// K10's down GEMM on the act codes, with the epilogue its residual and row scale select.
+int launch_down(const void* act, const void* act_scales, const void* wp, const void* wk, const void* sw,
+                const void* resid, const void* row_scale, void* out, int M, int D, int inter, int resid_f32,
+                const Plan& pl, cudaStream_t st) {
+  const int nga = inter / GROUP - 1;
+  if (resid_f32 && row_scale != nullptr)
+    return launch_gemm<EPI_ROW_SCALE_F32>(act, wp, wk, act_scales, sw, out, resid, row_scale, M, D, nga, pl, st);
+  if (resid_f32)
+    return launch_gemm<EPI_RESID_F32>(act, wp, wk, act_scales, sw, out, resid, nullptr, M, D, nga, pl, st);
+  if (row_scale != nullptr)
+    return launch_gemm<EPI_ROW_SCALE>(act, wp, wk, act_scales, sw, out, resid, row_scale, M, D, nga, pl, st);
+  return launch_gemm<EPI_RESID>(act, wp, wk, act_scales, sw, out, resid, nullptr, M, D, nga, pl, st);
+}
+
+// K10's gate/up GEMM on the core with the SiLU-quant epilogue (a paired plan).
+int launch_gate_up_silu(const void* a, const void* wp, const void* wk, const void* sa, const void* sw, void* act,
+                        void* act_scales, int M, int D, int inter, int abits, float a_clip, const Plan& pl,
+                        cudaStream_t st) {
+  if (!pl.core) return (int)cudaErrorInvalidValue;
+  CoreParams p = {};
+  p.act = (int8_t*)act;
+  p.act_scales = (float*)act_scales;
+  p.inter = inter;
+  p.abits = abits;
+  p.a_clip = a_clip;
+  return launch_core<EPI_SILU_QUANT>(a, wp, wk, sa, sw, p, M, 2 * inter, D / GROUP - 1, pl, st);
+}
+
+template <int NT>
+int silu_max_clusters_nt(const Plan& pl, int ng, int* clusters) {
+  auto kernel = ng > KBLK_THRESHOLD ? gemm_core_kernel<NT, EPI_SILU_QUANT, true>
+                                    : gemm_core_kernel<NT, EPI_SILU_QUANT, false>;
+  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, false, true);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = silu_cluster_config(pl, pl.tile_m, 2 * GROUP * 132, smem, 0, attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 }  // namespace
@@ -1314,7 +1571,7 @@ extern "C" int atom_qkv_ring_fused(const void* y, const void* wg, const void* rs
                                    void* ring_k, void* ring_prm, void* ring_v, int M, int K, int n_q, int H,
                                    int W, int row, int abits, float a_clip, const int* plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
+  const cudaError_t err = launch_prologue(y, nullptr, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
   return launch_ring(a_scratch, wp, wk, sa_scratch, sw, cosv, sinv, q, ring_k, ring_prm, ring_v, M, K / GROUP - 1,
                      n_q, H, W, row, plan_of(plan), st);
@@ -1344,17 +1601,18 @@ extern "C" int atom_qkv_codes(const void* a, const void* wp, const void* wk, con
   return (int)cudaGetLastError();
 }
 
-// K9: prologue (norm optional: wg and rstd null without it), then the GEMM with
-// the residual epilogue into bf16 (resid null: bf16(acc)) or, with out_f32,
-// into float32: resid + acc on a float32 residual, else the plain product.
-extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rstd, const void* wp,
+// K9: prologue (norm optional: wg and rstd null without it; idx, the reorder
+// index, optional: null reads y as it lies), then the GEMM with the residual
+// epilogue into bf16 (resid null: bf16(acc)) or, with out_f32, into float32:
+// resid + acc on a float32 residual, else the plain product.
+extern "C" int atom_gemm_fused_in(const void* y, const void* idx, const void* wg, const void* rstd, const void* wp,
                                   const void* wk, const void* sw, const void* resid,
                                   void* a_scratch, void* sa_scratch, void* out, int M, int K, int N,
                                   int abits, int out_f32, float a_clip, const int* plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int ng = K / GROUP - 1;
   const Plan pl = plan_of(plan);
-  const cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
+  const cudaError_t err = launch_prologue(y, idx, wg, rstd, a_scratch, sa_scratch, M, K, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
   if (out_f32 && resid != nullptr)
     return launch_gemm<EPI_RESID_F32>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N, ng, pl, st);
@@ -1363,36 +1621,45 @@ extern "C" int atom_gemm_fused_in(const void* y, const void* wg, const void* rst
   return launch_gemm<EPI_RESID>(a_scratch, wp, wk, sa_scratch, sw, out, resid, nullptr, M, N, ng, pl, st);
 }
 
-// K10: prologue, gate/up GEMM, SiLU * up + requantization, down GEMM with the
-// residual epilogue (row_scale null) or resid + row_scale * acc; resid_f32:
-// the residual and the output are float32.
-extern "C" int atom_fused_mlp(const void* y, const void* wg, const void* rstd, const void* gu_wp,
+// K10: prologue (idx as K9's), then with gu_silu (a paired core plan) the
+// gate/up GEMM with the SiLU-quant epilogue over clusters (gu_scratch unused),
+// else the gate/up GEMM into gu_scratch and SiLU * up + requantization; then
+// the down GEMM with the residual epilogue (row_scale null) or resid +
+// row_scale * acc; resid_f32: the residual and the output are float32.
+extern "C" int atom_fused_mlp(const void* y, const void* idx, const void* wg, const void* rstd, const void* gu_wp,
                               const void* gu_wk, const void* gu_sw, const void* dn_wp,
                               const void* dn_wk, const void* dn_sw, const void* resid,
                               const void* row_scale, void* a_scratch, void* sa_scratch,
                               void* gu_scratch, void* act, void* act_scales, void* out, int M, int D,
-                              int inter, int abits, int resid_f32, float a_clip, const int* gu_plan, const int* dn_plan,
-                              void* stream) {
+                              int inter, int abits, int resid_f32, int gu_silu, float a_clip, const int* gu_plan,
+                              const int* dn_plan, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_prologue(y, wg, rstd, a_scratch, sa_scratch, M, D, abits, a_clip, st);
+  cudaError_t err = launch_prologue(y, idx, wg, rstd, a_scratch, sa_scratch, M, D, abits, a_clip, st);
   if (err != cudaSuccess) return (int)err;
-  int e = launch_gemm<EPI_F32>(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, gu_scratch, nullptr, nullptr, M,
-                               2 * inter, D / GROUP - 1, plan_of(gu_plan), st);
-  if (e) return e;
-  silu_mul_quant_kernel<<<dim3(M, (inter / GROUP + 7) / 8), 256, 0, st>>>((const float*)gu_scratch, (int8_t*)act,
-                                           (float*)act_scales, inter, abits, a_clip);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nga = inter / GROUP - 1;
-  if (resid_f32 && row_scale != nullptr)
-    return launch_gemm<EPI_ROW_SCALE_F32>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, row_scale, M, D, nga,
-                                          plan_of(dn_plan), st);
-  if (resid_f32)
-    return launch_gemm<EPI_RESID_F32>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M, D, nga,
-                                      plan_of(dn_plan), st);
-  if (row_scale != nullptr)
-    return launch_gemm<EPI_ROW_SCALE>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, row_scale, M, D, nga,
-                                      plan_of(dn_plan), st);
-  return launch_gemm<EPI_RESID>(act, dn_wp, dn_wk, act_scales, dn_sw, out, resid, nullptr, M, D, nga,
-                                plan_of(dn_plan), st);
+  if (gu_silu) {
+    const int e = launch_gate_up_silu(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, act, act_scales, M, D, inter, abits,
+                                      a_clip, plan_of(gu_plan), st);
+    if (e) return e;
+  } else {
+    const int e = launch_gemm<EPI_F32>(a_scratch, gu_wp, gu_wk, sa_scratch, gu_sw, gu_scratch, nullptr, nullptr, M,
+                                       2 * inter, D / GROUP - 1, plan_of(gu_plan), st);
+    if (e) return e;
+    silu_mul_quant_kernel<<<dim3(M, (inter / GROUP + 7) / 8), 256, 0, st>>>((const float*)gu_scratch, (int8_t*)act,
+                                                                           (float*)act_scales, inter, abits, a_clip);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_down(act, act_scales, dn_wp, dn_wk, dn_sw, resid, row_scale, out, M, D, inter, resid_f32,
+                     plan_of(dn_plan), st);
+}
+
+// The most clusters of K10's SiLU-quant gate/up launch the card holds at once
+// under a paired plan at ng body groups (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int atom_silu_quant_max_clusters(const int* plan, int ng, int* clusters) {
+  const Plan pl = plan_of(plan);
+  switch (pl.tile_m) {
+    case 16: return silu_max_clusters_nt<2>(pl, ng, clusters);
+    case 32: return silu_max_clusters_nt<4>(pl, ng, clusters);
+  }
+  return silu_max_clusters_nt<8>(pl, ng, clusters);
 }

@@ -21,7 +21,8 @@ Kernel K9, ``packed_w4_gemm_fused_in``: the K1 product with the dynamic
 activation quantization (and, given a norm weight, the RMSNorm) in front and
 the residual add behind: ``bf16(resid + bf16(acc))``, the roundings of the
 unfused chain ``x + quant_gemm_packed(reorder_quant(..))``, which it equals
-bit for bit.
+bit for bit.  Given the layer's ``reorder`` index it takes the ungathered
+activation and its prologue reads the gather in place.
 
 All launch ``csrc/gemm_packed.cu`` on CUDA tensors and run their plain
 versions (``*_plain``) on CPU tensors.  The plain versions compute each
@@ -65,6 +66,8 @@ HEAD = 128  # columns of a head: the ring epilogue's block owns one
 _CORE_ROWS = (16, 32, 64)  # block rows of the core (tile_m)
 _CORE_COLS = (32, 64, 128)  # block columns of the core (tile_n): a consumer warp per 16
 _STAGES = 8  # ring slots of the core (3 to 35 measured within a few per cent on the H100; 8 the best or equal)
+_PAIRED_COLS = (64, 128)  # the SiLU-quant gate/up core's block columns: t = 32 or 64 gate + as many up columns
+_PAIRED_TILE_N = 64  # its default: 4-block clusters (PERF.md section 6 holds both layouts' times)
 _PREFILL_ROWS = (64, 128)  # block rows of the prefill GEMM: one or two 64-row wgmma units a group
 _PREFILL_COLS = (64, 128)  # block columns of the prefill GEMM: a consumer warpgroup per 64
 _PREFILL_STAGES = 6  # ring slots of the prefill GEMM, fewer where shared memory holds fewer
@@ -89,7 +92,10 @@ class PackedW4Plan(NamedTuple):
     blocks of ``tile_m`` rows x ``tile_n`` columns, a consumer warpgroup per
     64 columns and a producer warp, the same ring and shared memory, grid
     ``(ceil(M / tile_m), ceil(N / tile_n))`` (row tiles first, so that the
-    blocks in flight share their column tiles' weights in L2)."""
+    blocks in flight share their column tiles' weights in L2).  ``cluster``:
+    blocks a thread-block cluster along the grid's columns (K10's SiLU-quant
+    gate/up launch, whose block takes ``tile_n / 2`` gate and as many up
+    columns: the 128-channel groups' blocks; 1 for every other launch)."""
 
     path: str
     tile_m: int
@@ -97,31 +103,42 @@ class PackedW4Plan(NamedTuple):
     stages: int
     smem: int
     grid: tuple
+    cluster: int = 1
 
     def args(self) -> list:
         """The plan as the C entry points' four ints."""
         return [int(self.path == "core"), self.tile_m, self.tile_n, self.stages]
 
 
-def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool) -> int:
+_MAX_RANKS = 4  # the SiLU-quant epilogue's largest cluster (t = 32)
+
+
+def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool, paired: bool = False) -> int:
     """Dynamic shared memory of a core or prefill block
     (``gemm_packed.cu::core_smem``): per ring stage the activation tile, the
     weight slot (64 byte rows), the scale row and two barriers; the
     activation scales of all groups; the head epilogue's f32 tile and its
-    rows' cos and sin; 1 KB to align the ring."""
+    rows' cos and sin; the SiLU-quant epilogue's partial maxima of up to 4
+    cluster ranks (``paired``); 1 KB to align the ring."""
     stage = tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16
-    return 1024 + stages * stage + (ng + 1) * tile_m * 4 + (tile_m * (3 * HEAD + 4) * 4 if head else 0)
+    return (1024 + stages * stage + (ng + 1) * tile_m * 4 + (tile_m * (3 * HEAD + 4) * 4 if head else 0)
+            + (_MAX_RANKS * tile_m * 4 if paired else 0))
 
 
 @functools.lru_cache(maxsize=512)
 def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | None = None,
-                   tile_m: int | None = None, stages: int | None = None, path: str | None = None) -> PackedW4Plan:
+                   tile_m: int | None = None, stages: int | None = None, path: str | None = None,
+                   paired: bool = False) -> PackedW4Plan:
     """The launch for an [m, k] x [k, n] product (k = body groups * 128 +
     the 128 keeper rows); raises on a shape the kernels do not take (N not
     whole 32-column tiles, K not whole groups).  ``head``: the ring epilogue,
     whose block owns a 128-column head (at most 32 rows a block, any M).
     ``path`` ("core" or "prefill"), ``tile_n``, ``tile_m`` and ``stages``
-    override the defaults (for measuring other layouts).
+    override the defaults (for measuring other layouts).  ``paired``: K10's
+    gate/up launch with the SiLU-quant epilogue (n = 2 * inter, inter whole
+    128-channel groups; the core only): a block of ``tile_n`` weight columns
+    holds ``tile_n / 2`` gate columns and the matching up columns, 64 (the
+    default) or 128 of them, in clusters of ``256 / tile_n`` blocks.
 
     Core (M <= 64 with a body group, or ``head``): 64 columns a block where
     N allows (rows of 64 bytes a weight copy), else 32; the fewest of 16, 32
@@ -139,6 +156,11 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     if k < GROUP or k % GROUP:
         raise ValueError(f"packed_w4_gemm: K={k} must be a positive multiple of {GROUP}")
     ng = k // GROUP - 1
+    if paired:
+        if head or n % (2 * GROUP) or (tile_n or _PAIRED_TILE_N) not in _PAIRED_COLS or path == "prefill":
+            raise ValueError(f"packed_w4_gemm: no paired SiLU-quant launch for N={n} in {tile_n} columns")
+        tile_n = tile_n or _PAIRED_TILE_N
+        path = "core"
     if path is None:
         path = "core" if head or (m <= CORE_MAX_M and ng > 0) else "prefill"
     if path == "prefill" and not head:
@@ -156,10 +178,10 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     if rows not in _CORE_ROWS or (head and rows > 32) or tn not in _CORE_COLS or n % tn:
         raise ValueError(f"packed_w4_gemm: N={n} in {rows} x {tn} blocks is not a core layout")
     stages = stages or min(ng + 2, _STAGES)
-    smem = core_smem(rows, tn, stages, ng, head)
+    smem = core_smem(rows, tn, stages, ng, head, paired)
     if stages < 3 or smem > _SMEM_BLOCK:
         raise ValueError(f"packed_w4_gemm: K={k} at {rows} x {tn} leaves no room for a ring of {stages} stages")
-    return PackedW4Plan("core", rows, tn, stages, smem, (n // tn, -(-m // rows)))
+    return PackedW4Plan("core", rows, tn, stages, smem, (n // tn, -(-m // rows)), 2 * GROUP // tn if paired else 1)
 
 
 def _prefill_plan(m: int, ng: int, n: int, tile_m: int | None = None, tile_n: int | None = None,
@@ -207,10 +229,12 @@ def _lib():
     lib.atom_qkv_ring.restype = _I
     lib.atom_qkv_codes.argtypes = [_P] * 13 + [_I] * 4 + [_PLAN, _P]
     lib.atom_qkv_codes.restype = _I
-    lib.atom_gemm_fused_in.argtypes = [_P] * 10 + [_I] * 5 + [_F, _PLAN, _P]
+    lib.atom_gemm_fused_in.argtypes = [_P] * 11 + [_I] * 5 + [_F, _PLAN, _P]
     lib.atom_gemm_fused_in.restype = _I
-    lib.atom_fused_mlp.argtypes = [_P] * 17 + [_I] * 5 + [_F, _PLAN, _PLAN, _P]
+    lib.atom_fused_mlp.argtypes = [_P] * 18 + [_I] * 6 + [_F, _PLAN, _PLAN, _P]
     lib.atom_fused_mlp.restype = _I
+    lib.atom_silu_quant_max_clusters.argtypes = [_PLAN, _I, ctypes.POINTER(ctypes.c_int)]
+    lib.atom_silu_quant_max_clusters.restype = _I
     return lib
 
 
@@ -587,8 +611,10 @@ def resid_epilogue_plain(acc, resid, row_scale=None, out_dtype=torch.bfloat16):
 
 
 def packed_w4_gemm_fused_in_plain(y, kw: KernelPackedWeight, norm_w=None, rstd=None, resid=None,
-                                  abits=4, a_clip=1.0, eps=1e-5, out_dtype=torch.bfloat16):
+                                  abits=4, a_clip=1.0, eps=1e-5, out_dtype=torch.bfloat16, reorder=None):
     """Plain version of K9 (same signature as the kernel's wrapper)."""
+    if reorder is not None:
+        y = torch.index_select(y, -1, reorder)
     if norm_w is not None and rstd is None:
         rstd = rms_rstd(y, eps)
     a, sa = quant_prologue_plain(y, norm_w, rstd, abits, a_clip)
@@ -596,8 +622,10 @@ def packed_w4_gemm_fused_in_plain(y, kw: KernelPackedWeight, norm_w=None, rstd=N
     return resid_epilogue_plain(acc, resid, out_dtype=out_dtype)
 
 
-def check_fused_in_inputs(name, y, kw: KernelPackedWeight, norm_w, rstd, eps):
-    """Checks shared by K9 and K10's input side -> (rstd f32 [M, 1] or None)."""
+def check_fused_in_inputs(name, y, kw: KernelPackedWeight, norm_w, rstd, eps, reorder=None):
+    """Checks shared by K9 and K10's input side -> (rstd f32 [M, 1] or None).
+    ``reorder``: int32 [K], a permutation of the channels that the prologue
+    gathers ``y`` by (its vector loads need 16-byte alignment)."""
     m, k = y.shape
     ng = k // GROUP - 1
     n = kw.body_packed.shape[1]
@@ -607,13 +635,17 @@ def check_fused_in_inputs(name, y, kw: KernelPackedWeight, norm_w, rstd, eps):
     check_kernel_input(kw.body_packed, "body_packed", torch.int8, (ng * HALF, n))
     check_kernel_input(kw.keeper, "keeper", torch.int8, (GROUP, n))
     check_kernel_input(kw.scales, "scales", torch.float32, (ng + 1, n))
+    if reorder is not None:
+        check_kernel_input(reorder, "reorder", torch.int32, (k,))
+        if reorder.data_ptr() % 16:
+            raise ValueError(f"{name}: reorder must start on a 16-byte boundary")
     if norm_w is None:
         if rstd is not None:
             raise ValueError(f"{name}: rstd is only meaningful with norm_w")
         return None
     check_kernel_input(norm_w, "norm_w", torch.bfloat16, (k,))
-    if rstd is None:  # rms statistics do not depend on the channel order
-        rstd = rms_rstd(y, eps)
+    if rstd is None:  # the statistic of the gathered row, as the plain version takes it
+        rstd = rms_rstd(y if reorder is None else torch.index_select(y, -1, reorder), eps)
     return rstd.to(torch.float32).reshape(m, 1).contiguous()
 
 
@@ -625,7 +657,7 @@ def check_resid(resid, name, shape) -> None:
 
 
 def packed_w4_gemm_fused_in(
-    y: torch.Tensor,  # bf16 [M, K] — gathered (reordered) activation
+    y: torch.Tensor,  # bf16 [M, K] — the activation, gathered (reordered) unless `reorder` is given
     kw: KernelPackedWeight,  # K -> N
     norm_w: torch.Tensor | None = None,  # bf16 [K] — gathered norm weight
     rstd: torch.Tensor | None = None,  # f32 [M, 1] — the norm's reciprocal std
@@ -634,18 +666,21 @@ def packed_w4_gemm_fused_in(
     a_clip: float = 1.0,
     eps: float = 1e-5,
     out_dtype=torch.bfloat16,
+    reorder: torch.Tensor | None = None,  # int32 [K] — the layer's channel order, gathered in the prologue
 ) -> torch.Tensor:
     """Kernel K9: 4-bit GEMM with the dynamic quantization (+ optional
     RMSNorm) in front and the residual add behind -> [M, N] in the residual's
     type (``out_dtype`` without one).  ``rstd`` comes from outside the
     kernel (``numerics.rms_rstd``; computed here when a norm weight comes
-    without it), so the statistic is the unfused chain's."""
-    tensors = [t for t in (y, *kw, norm_w, rstd, resid) if t is not None]
+    without it), so the statistic is the unfused chain's.  With ``reorder``,
+    ``y`` is the ungathered activation and the result is that of
+    ``torch.index_select(y, -1, reorder)`` without it, bit for bit."""
+    tensors = [t for t in (y, *kw, norm_w, rstd, resid, reorder) if t is not None]
     if on_cpu(*tensors):
-        return packed_w4_gemm_fused_in_plain(y, kw, norm_w, rstd, resid, abits, a_clip, eps, out_dtype)
+        return packed_w4_gemm_fused_in_plain(y, kw, norm_w, rstd, resid, abits, a_clip, eps, out_dtype, reorder)
     m, k = y.shape
     n = kw.body_packed.shape[1]
-    rstd = check_fused_in_inputs("packed_w4_gemm_fused_in", y, kw, norm_w, rstd, eps)
+    rstd = check_fused_in_inputs("packed_w4_gemm_fused_in", y, kw, norm_w, rstd, eps, reorder)
     if resid is not None:
         check_resid(resid, "packed_w4_gemm_fused_in", (m, n))
         out_dtype = resid.dtype
@@ -659,7 +694,7 @@ def packed_w4_gemm_fused_in(
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _build.check(
             _lib().atom_gemm_fused_in(
-                y.data_ptr(), ptr(norm_w), ptr(rstd), kw.body_packed.data_ptr(), kw.keeper.data_ptr(),
+                y.data_ptr(), ptr(reorder), ptr(norm_w), ptr(rstd), kw.body_packed.data_ptr(), kw.keeper.data_ptr(),
                 kw.scales.data_ptr(), ptr(resid), a.data_ptr(), sa.data_ptr(), out.data_ptr(),
                 m, k, n, abits, int(out_dtype == torch.float32), a_clip, plan_arg(packed_w4_plan(m, k, n)),
                 _build.stream(),

@@ -230,20 +230,19 @@ def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec):
     """reorder+quant -> o_proj -> residual; then the MLP block.
 
     Behind ``_fused_oproj_ok`` the half-layer runs as fused kernels and only
-    the reorder gathers and the norm statistic stay outside them: o_proj with
+    the norm statistic stays outside them: o_proj with the reorder gather and
     the quantization in front and the residual add behind (K9), then, behind
-    ``_fused_mlp_ok``, the whole MLP block (K10; the RMSNorm runs inside it on
-    the gathered hidden with the pre-gathered weight, exact because rms
-    statistics do not depend on the channel order).  A geometry K10 does not
-    take keeps the fused o_proj and the unfused MLP."""
+    ``_fused_mlp_ok``, the whole MLP block (K10; its prologue gathers the
+    hidden and runs the RMSNorm with the pre-gathered weight, exact because
+    rms statistics do not depend on the channel order).  A geometry K10 does
+    not take keeps the fused o_proj and the unfused MLP."""
     if _fused_oproj_ok(x.shape, lp, spec):
-        ao = torch.index_select(attn_out, -1, lp.o_reorder)
-        x = packed_w4_gemm_fused_in(ao, lp.wo, resid=x, abits=spec.abits, a_clip=spec.a_clip_ratio)
+        x = packed_w4_gemm_fused_in(attn_out, lp.wo, resid=x, abits=spec.abits, a_clip=spec.a_clip_ratio,
+                                    reorder=lp.o_reorder)
         if _fused_mlp_ok(x.shape, lp, spec):
-            y = torch.index_select(x, -1, lp.mlp_reorder)
             return fused_mlp_packed(
-                y, x, lp.wgateup, lp.wdown, norm_w=lp.ln_mlp_g, rstd=_rms_rstd(x),
-                abits=spec.abits, a_clip=spec.a_clip_ratio,
+                x, x, lp.wgateup, lp.wdown, norm_w=lp.ln_mlp_g, rstd=_rms_rstd(x),
+                abits=spec.abits, a_clip=spec.a_clip_ratio, reorder=lp.mlp_reorder,
             )
     else:
         a_in = R.reorder_quant(attn_out, lp.o_reorder, spec)

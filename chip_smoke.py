@@ -9,7 +9,10 @@ Phases, each fatal on failure:
      (K1 and K7 at the engine's buckets 128, 256 and 512 rows and at 1024, K12
      at 1024 and 128), of the head (K5 at 32 rows and 1), of the mixed step (K1
      and K7 at its 288 rows, K11 on the decode rows and on a chunk's prefix),
-     of the fused post-attention half (K9, K10; also at 288 rows), of the
+     of the fused post-attention half (K9, K10; also at 288 rows; K9 and K10
+     given the reorder index bitwise with index_select and the kernel; K10's
+     cluster epilogue at 8, 17 and 32 rows bitwise with its four-launch form
+     under both cluster layouts, each form timed, also by the profiler), of the
      W4A16 stack (K13 at its layer's seven GEMMs, at 1024 rows and at the head)
      and of the int8-carrier GEMMs (K14a at 32 and 1024 rows, N 4096 and 11008;
      K14b at N 4096), and time kernel, plain version and, where one PyTorch call
@@ -23,7 +26,8 @@ Phases, each fatal on failure:
      windows, which flush, with every kernel's launch count read; then decode
      tok/s by the slope between burst lengths (median of positive samples), with
      the W8A16 head, the bf16 head and the W4A16 head (K13); then the same with
-     ``ATOM_TPU_FUSED_MLP=1`` (K9 and K10 in place of K1 and its glue);
+     ``ATOM_TPU_FUSED_MLP=1`` (K9 and K10 in place of K1 and its glue; the
+     profiled window counts the K1 family's kernels and the reorder gathers);
   4. drive the serving engine at full width in the JAX package's cross-stack
      engine configuration (32 seeded requests, max_seq_len 1024): serial
      prefill with the bf16 head (the W4A4 row of the stack comparison), launch
@@ -60,6 +64,7 @@ Usage: python3 chip_smoke.py                  (everything; what a check of the p
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -180,6 +185,27 @@ class Timer:
             times.append(e0.elapsed_time(e1))
         self.host_us = statistics.median(host) * 1e6
         return statistics.median(times)
+
+    def device(self, fn, n: int = 20) -> dict:
+        """Device time of one call by the profiler: its kernels' own time (µs)
+        and count per call over ``n`` calls, each after the L2 flush (whose
+        fill kernel is left out), and the time per call by kernel.  Unlike
+        the event interval it holds no host time, so wrappers whose host
+        time passes the flush's (K9, K10) compare by it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                self.l2.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.key]
+        return dict(us=sum(e.self_device_time_total for e in kernels) / n, kernels=sum(e.count for e in kernels) / n,
+                    by_kernel={e.key[:90]: e.self_device_time_total / n for e in kernels})
 
 
 def idle_slots(torch, dev):
@@ -591,6 +617,7 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     mixed step, the fused decode configuration and kernel prefill give them."""
     from atom_tpu_torch.config import ATOM_W4A4
     from atom_tpu_torch.numerics import rms_rstd
+    from atom_tpu_torch.ops import _build
     from atom_tpu_torch.ops import decode as dec
     from atom_tpu_torch.ops import gemm_packed as gp
     from atom_tpu_torch.ops import mlp
@@ -705,6 +732,23 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
     chain = resid + gp.quant_gemm_packed(quantize_activation_packed(y, spec), wo)
     require(torch.equal(bits(chain), bits(gp.packed_w4_gemm_fused_in(y, wo, resid=resid, abits=spec.abits, a_clip=spec.a_clip_ratio))),
             "packed_w4_gemm_fused_in differs from the unfused chain x + quant_gemm_packed(quantize(y))")
+    # the reorder gather read in the prologue (the fused burst's call: the ungathered attention output and
+    # o_reorder): bitwise with index_select + K9 and with the plain version given the index; timed beside them
+    gen_perm = torch.Generator(device=dev).manual_seed(120)  # its own draws: the later checks' inputs stay as they were
+    perm = torch.argsort(torch.rand(HID, generator=gen_perm, device=dev)).to(torch.int32)
+    for tag, kwargs in (("resid", dict(resid=resid)), ("norm_resid", dict(norm_w=norm_w, rstd=rstd, resid=resid)),
+                        ("f32_resid", dict(resid=resid32))):
+        kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
+        got = gp.packed_w4_gemm_fused_in(y, wo, reorder=perm, **kwargs)
+        require(torch.equal(bits(got), bits(gp.packed_w4_gemm_fused_in(torch.index_select(y, -1, perm), wo, **kwargs)))
+                and torch.equal(bits(got), bits(gp.packed_w4_gemm_fused_in_plain(y, wo, reorder=perm, **kwargs))),
+                f"packed_w4_gemm_fused_in ({tag}) with reorder differs from index_select + K9 or from its plain version")
+    kwargs = dict(resid=resid, abits=spec.abits, a_clip=spec.a_clip_ratio)
+    k9_forms = {"gathered_input": lambda: gp.packed_w4_gemm_fused_in(y, wo, **kwargs),
+                "reorder": lambda: gp.packed_w4_gemm_fused_in(y, wo, reorder=perm, **kwargs),
+                "index_select_then_kernel": lambda: gp.packed_w4_gemm_fused_in(torch.index_select(y, -1, perm), wo, **kwargs)}
+    k9["reorder"] = dict(ms=timer(k9_forms["reorder"]), index_select_then_kernel_ms=timer(k9_forms["index_select_then_kernel"]))
+    k9_device = {k_: timer.device(f_) for k_, f_ in k9_forms.items()}
     # above 64 rows the GEMM runs on the prefill GEMM (its RESID epilogue, and F32): bitwise at the mixed step's rows
     y_big, resid_big = normal((MIXED_M, HID), 1.0, torch.bfloat16), normal((MIXED_M, HID), 1.0, torch.bfloat16)
     rstd_big = rms_rstd(y_big)
@@ -716,24 +760,45 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
                 f"packed_w4_gemm_fused_in ({tag}) at M={MIXED_M} differs from its plain version")
     res["packed_w4_gemm_fused_in"] = dict(
         k9["resid"], max_abs_err=0.0, library_ms=None,
-        shape="y bf16 [32,4096], wo K 4096 -> N 4096, resid bf16 [32,4096]; norm_*: with the RMSNorm in front",
+        shape="y bf16 [32,4096], wo K 4096 -> N 4096, resid bf16 [32,4096]; norm_*: with the RMSNorm in front; "
+              "reorder_*: the fused burst's call, the ungathered y and a permutation read in the prologue",
         checked=f"bitwise at M=32 (resid, norm + resid, norm, f32 out, a float32 residual into float32; the unfused "
-                f"chain) and at M={MIXED_M} (resid, norm + resid, f32 out: the prefill GEMM)",
-        **{f"norm_{k_}": v_ for k_, v_ in k9["norm_resid"].items()})
+                f"chain; with reorder: resid, norm + resid, f32 resid, against index_select + K9 and the plain version) "
+                f"and at M={MIXED_M} (resid, norm + resid, f32 out: the prefill GEMM)",
+        **{f"norm_{k_}": v_ for k_, v_ in k9["norm_resid"].items()},
+        reorder_ms=k9["reorder"]["ms"], reorder_index_select_then_kernel_ms=k9["reorder"]["index_select_then_kernel_ms"],
+        device_by_form=k9_device)
 
     # --- K10 fused_mlp_packed at the 7B MLP, in two parts: the act codes after
-    # gate/up (flips counted), and the down half on the kernel's own act codes (bitwise)
+    # gate/up (flips counted), and the down half on the kernel's own act codes (bitwise).  Up to 64 rows the
+    # gate/up launch carries SiLU * up and the requantization in its epilogue over a block cluster: its act
+    # codes and scales, and the output, bitwise with the four-launch form (the f32 scratch and a SiLU launch)
+    # under both cluster layouts (t = 32 and t = 64 gate columns a block)
     gu = _rand_packed(gen, HID, 2 * INTER, spec, dev)
     dn = _rand_packed(gen, INTER, HID, spec, dev)
     row_scale = uniform(0.1, 1.0, (BATCH,))
     k10 = {}
+    mlp_layouts = (64, 128)  # the cluster epilogue's gate/up block columns: t = 32 (the default) and t = 64
+
+    def against_four_launch(y_, res_, kwargs, what):
+        out, act, act_s = mlp.fused_mlp_packed_stages(y_, res_, gu, dn, **kwargs)
+        for tile_n in mlp_layouts:
+            got = mlp.fused_mlp_packed_stages(y_, res_, gu, dn, gu_tile_n=tile_n, **kwargs)
+            require(all(torch.equal(bits(g_), bits(w_)) for g_, w_ in zip(got, (out, act, act_s))),
+                    f"fused_mlp_packed ({what}): the {tile_n}-column cluster layout differs from the default one")
+        four = mlp.fused_mlp_packed_stages(y_, res_, gu, dn, path=mlp.FOUR_LAUNCH, **kwargs)
+        require(torch.equal(act, four[1]) and torch.equal(act_s, four[2]),
+                f"fused_mlp_packed ({what}): the SiLU-quant epilogue's act codes or scales differ from the four-launch form")
+        require(torch.equal(bits(out), bits(four[0])), f"fused_mlp_packed ({what}): output differs from the four-launch form")
+        return out, act, act_s
+
     # the float32 residual (fault C4), with row_scale MoE's chain over the experts on a float32 accumulator
     for tag, kwargs, res_ in (("norm", dict(norm_w=norm_w, rstd=rstd), resid), ("no_norm", dict(), resid),
                               ("row_scale", dict(norm_w=norm_w, rstd=rstd, row_scale=row_scale), resid),
                               ("f32_resid", dict(norm_w=norm_w, rstd=rstd), resid32),
                               ("f32_resid_row_scale", dict(norm_w=norm_w, rstd=rstd, row_scale=row_scale), resid32)):
         kwargs = dict(kwargs, abits=spec.abits, a_clip=spec.a_clip_ratio)
-        out, act, act_s = mlp.fused_mlp_packed_stages(y, res_, gu, dn, **kwargs)
+        out, act, act_s = against_four_launch(y, res_, kwargs, tag)
         require(out.dtype == res_.dtype, f"fused_mlp_packed ({tag}): output {out.dtype} for a {res_.dtype} residual")
         in_kwargs = {k_: v_ for k_, v_ in kwargs.items() if k_ != "row_scale"}
         act_p, act_sp = mlp.fused_mlp_act_plain(y, gu, **in_kwargs)
@@ -747,7 +812,26 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
         require(torch.equal(bits(out), bits(down)), f"fused_mlp_packed ({tag}): down half differs from its plain version")
         whole = mlp.fused_mlp_packed_plain(y, res_, gu, dn, **kwargs)
         k10[tag] = dict(act_code_flips=flips, act_scale_flips=scale_flips,
-                        max_abs_err=(out.float() - whole.float()).abs().max().item())
+                        max_abs_err=(out.float() - whole.float()).abs().max().item(),
+                        equal_to_four_launch=True, cluster_layouts_equal=list(mlp_layouts))
+    # other row counts of the cluster path (the batch-8 branch's; a last block with rows past M): as the four-launch form
+    for m_ in (8, 17):
+        kwargs = dict(norm_w=norm_w, rstd=rstd[:m_], abits=spec.abits, a_clip=spec.a_clip_ratio)
+        against_four_launch(y[:m_].contiguous(), resid[:m_].contiguous(), kwargs, f"M={m_}")
+        k10[f"m{m_}_norm"] = dict(equal_to_four_launch=True, cluster_layouts_equal=list(mlp_layouts))
+    # the reorder gather in the prologue (the fused burst's call: the ungathered hidden and mlp_reorder)
+    perm_d = torch.argsort(torch.rand(HID, generator=gen_perm, device=dev)).to(torch.int32)
+    kw_main = dict(norm_w=norm_w, rstd=rstd, abits=spec.abits, a_clip=spec.a_clip_ratio)
+    for tag, res_, extra in (("reorder_norm", resid, {}), ("reorder_f32_resid_row_scale", resid32, dict(row_scale=row_scale))):
+        got = mlp.fused_mlp_packed_stages(y, res_, gu, dn, reorder=perm_d, **kw_main, **extra)
+        want = mlp.fused_mlp_packed_stages(torch.index_select(y, -1, perm_d), res_, gu, dn, **kw_main, **extra)
+        require(all(torch.equal(bits(g_), bits(w_)) for g_, w_ in zip(got, want)),
+                f"fused_mlp_packed ({tag}) differs from index_select + K10")
+        act_p, act_sp = mlp.fused_mlp_act_plain(y, gu, reorder=perm_d, **kw_main)
+        k10[tag] = dict(act_code_flips=got[1].ne(act_p).float().mean().item(),
+                        act_scale_flips=got[2].ne(act_sp).float().mean().item(), equal_to_index_select_then_kernel=True)
+        require(k10[tag]["act_code_flips"] <= 1e-3 and k10[tag]["act_scale_flips"] <= 1e-3,
+                f"fused_mlp_packed ({tag}): act codes differ from the plain version given the index")
     # above 64 rows both GEMMs run on the prefill GEMM (F32 for gate/up, RESID or ROW_SCALE for down),
     # held bit for bit: act codes and scales equal, and the down half
     row_scale_big = uniform(0.1, 1.0, (MIXED_M,))
@@ -773,14 +857,43 @@ def check_new_kernels(torch, dev, timer, gen) -> dict:
               + sum(t.numel() * t.element_size() for t in (*gu, *dn)))
     b_ms, b_by = bound(nbytes, 2 * BATCH * HID * 3 * INTER, PEAK_INT8_OPS)
     kwargs = dict(norm_w=norm_w, rstd=rstd, abits=spec.abits, a_clip=spec.a_clip_ratio)
+    # the times, each form in turn and then again in reverse order: the default layout (gathered input), each
+    # cluster layout, the four-launch form, the fused burst's call (reorder) and the parent's (index_select + four launches)
+    forms = {
+        "ms": lambda: mlp.fused_mlp_packed(y, resid, gu, dn, **kwargs),
+        **{f"ms_cluster_t{tn // 2}": (lambda tn=tn: mlp.fused_mlp_packed_stages(y, resid, gu, dn, gu_tile_n=tn, **kwargs))
+           for tn in mlp_layouts},
+        "ms_four_launch": lambda: mlp.fused_mlp_packed_stages(y, resid, gu, dn, path=mlp.FOUR_LAUNCH, **kwargs),
+        "ms_reorder": lambda: mlp.fused_mlp_packed(y, resid, gu, dn, reorder=perm_d, **kwargs),
+        "ms_index_select_then_four_launch": lambda: mlp.fused_mlp_packed_stages(
+            torch.index_select(y, -1, perm_d), resid, gu, dn, path=mlp.FOUR_LAUNCH, **kwargs),
+    }
+    times = {k_: [] for k_ in forms}
+    device = {k_: [] for k_ in forms}  # the profiler's device time: the event interval holds K10's host time
+    for order in (list(forms), list(forms)[::-1]):
+        for k_ in order:
+            times[k_].append(timer(forms[k_]))
+            device[k_].append(timer.device(forms[k_]))
+    clusters = {}
+    for tn in mlp_layouts:
+        plan = gp.packed_w4_plan(BATCH, HID, 2 * INTER, paired=True, tile_n=tn)
+        n_ = ctypes.c_int(0)
+        _build.check(gp._lib().atom_silu_quant_max_clusters(gp.plan_arg(plan), HID // 128 - 1, ctypes.byref(n_)),
+                     "atom_silu_quant_max_clusters")
+        clusters[f"t{tn // 2}"] = dict(blocks=plan.grid[0] * plan.grid[1], cluster=plan.cluster, max_active_clusters=n_.value)
     res["fused_mlp_packed"] = dict(
-        max_abs_err=max(c["max_abs_err"] for c in k10.values()),
-        ms=timer(lambda: mlp.fused_mlp_packed(y, resid, gu, dn, **kwargs)),
+        max_abs_err=max(c["max_abs_err"] for c in k10.values() if "max_abs_err" in c),
+        **{k_: statistics.median(v_) for k_, v_ in times.items()}, times_both_orders=times,
+        device_us_by_form={k_.replace("ms", "form", 1): [d_["us"] for d_ in v_] for k_, v_ in device.items()},
+        device_by_form={k_.replace("ms", "form", 1): v_[0] for k_, v_ in device.items()},
         plain_ms=timer(lambda: mlp.fused_mlp_packed_plain(y, resid, gu, dn, **kwargs), n=5),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, parts=k10,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, parts=k10, cluster_layouts=clusters,
+        default_gu_plan=gp.packed_w4_plan(BATCH, HID, 2 * INTER, paired=True)._asdict(),
         shape="y bf16 [32,4096], gate/up K 4096 -> N 22016, down K 11008 -> N 4096, norm + rstd, resid bf16 [32,4096]",
-        tolerance="act codes and scales: at most 1e-3 differing at 32 rows, none at 288; down half on the kernel's act "
-                  "codes: bitwise; f32_resid*: a float32 residual (with row_scale: MoE's chain), float32 out")
+        tolerance="act codes and scales: at most 1e-3 differing from the plain version at 32 rows, none at 288; at 8, 17 "
+                  "and 32 rows the cluster epilogue's act codes, scales and output bitwise with the four-launch form "
+                  "under both layouts; down half on the kernel's act codes: bitwise; with reorder bitwise with "
+                  "index_select + K10; f32_resid*: a float32 residual (with row_scale: MoE's chain), float32 out")
     del gu, dn, wo
     torch.cuda.empty_cache()
 
@@ -1023,10 +1136,11 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each kernel's launches, and K1's and K11's split by path (K1: decode
-    core, prefill GEMM; K11: stream, tile)."""
+    """Each kernel's launches, and K1's, K10's and K11's split by path (K1:
+    decode core, prefill GEMM; K10: the cluster epilogue, four launches;
+    K11: stream, tile)."""
     counts = {name: fn.launches for name, fn in counters().items()}
-    for name in ("packed_w4_gemm", "paged_decode_attention_rotated"):
+    for name in ("packed_w4_gemm", "fused_mlp_packed", "paged_decode_attention_rotated"):
         counts[f"{name}_by_path"] = dict(counters()[name].launches_by_path)
     return counts
 
@@ -1629,7 +1743,10 @@ def w4a16_stack_vs_plain(torch, dev) -> dict:
 
 K3_KERNEL = "paged_ring_stream_kernel"  # K3's CUDA kernel (its RING = true instance), as the profiler names it
 K11_KERNELS = {"stream": "paged_ring_stream_kernel", "tile": "paged_tile_kernel"}  # K11's two paths' kernels
-CORE_EPILOGUES = ("f32", "resid", "row_scale", "ring")  # gemm_core_kernel's EPI template argument, in order
+# gemm_core_kernel's EPI template argument, in order (silu_quant: K10's gate/up launch over a block cluster)
+CORE_EPILOGUES = ("f32", "resid", "row_scale", "ring", "resid_f32", "row_scale_f32", "silu_quant")
+# the reorder gathers' kernels, as the profiler names them (index_select on the card)
+GATHER_KERNELS = ("_scatter_gather_elementwise_kernel", "indexSelect")
 
 
 def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple:
@@ -1666,12 +1783,14 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
     require(dev_us > 0, "the profiler recorded no device time")
     k3 = sum(e.count for e in kernels if K3_KERNEL in e.key and ", true>" in e.key)
     # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the prefill
-    # GEMM, the activation prologue (K2's second launch; also K9's and K10's first), SiLU (K10)
+    # GEMM, the activation prologue (K2's first launch; also K9's and K10's), SiLU (K10's four-launch form);
+    # and the reorder gathers (index_select) that feed them
     gemm = {}
     for e in kernels:
         core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)>", e.key)
         name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
-                next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None))
+                next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None)
+                or ("gather" if any(g_ in e.key for g_ in GATHER_KERNELS) else None))
         if name:
             ms, cnt = gemm.get(name, (0.0, 0.0))
             gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
@@ -2084,6 +2203,8 @@ def main() -> int:
     with fused_flag():
         fused_counts, fused_stats = decode_path(torch, dev, (("w8a16", qparams, 3),), FUSED_DECODE_KERNELS, "profile_fused.txt")
     require(fused_counts["packed_w4_gemm"] == 0, "the fused decode path still launched the unfused GEMM")
+    require(fused_counts["fused_mlp_packed_by_path"]["four_launch"] == 0,
+            "the fused decode burst ran K10's four-launch form, not the cluster epilogue")
     torch.cuda.empty_cache()
     log(f"fused decode path in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2177,6 +2298,8 @@ def main() -> int:
                                                 mixed_engine=mixed_counts["packed_w4_gemm_by_path"])
             require(engine_counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the engine's prefills did not run the prefill GEMM")
             require(decode_counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the decode burst ran the prefill GEMM")
+        if name == "fused_mlp_packed":  # K10's launches by path: the cluster epilogue (<= 64 rows), four launches
+            rows[-1]["launches_by_path"] = dict(fused_decode_burst=fused_counts["fused_mlp_packed_by_path"])
         if name == "paged_decode_attention_rotated":  # K11's launches by path: stream (decode rows), tile (a chunk's prefix)
             rows[-1]["launches_by_path"] = dict(mixed_engine=mixed_counts["paged_decode_attention_rotated_by_path"])
     require(len(rows) == 15, "the kernels line must list K1-K14 (K14's two functions)")

@@ -196,29 +196,32 @@ def _selectors(tig):
     return sel0, sel1
 
 
-def _w_offset(row, col, tile_n):
-    """gemm_packed.cu::w_offset: rows tile_n bytes apart, TMA's 32/64/128-byte swizzle."""
+def _w_offset(row, col, tile_n, paired=False):
+    """gemm_packed.cu::w_offset: rows tile_n bytes apart, TMA's 32/64/128-byte
+    swizzle; the paired slot (one 3D box [64][gate, up][tile_n / 2]) under the
+    swizzle of its half's width, 32- or 64-byte."""
     off = row * tile_n + col
-    mask = {32: 0, 64: 3, 128: 7}[tile_n]
+    mask = {64: 1, 128: 3}[tile_n] if paired else {32: 0, 64: 3, 128: 7}[tile_n]
     return off ^ (((off >> 7) & mask) << 4)
 
 
-def _slot(w, tile_n):
-    """A weight slot [64 rows, tile_n bytes] as the TMA lays it out in shared memory."""
+def _slot(w, tile_n, paired=False):
+    """A weight slot [64 rows, tile_n bytes] as the TMA lays it out in shared
+    memory (paired: w's columns are the gate half, then the up half)."""
     flat = np.zeros(64 * tile_n, np.uint8)
     for r in range(64):
         for c in range(tile_n):
-            flat[_w_offset(r, c, tile_n)] = w[r, c]
+            flat[_w_offset(r, c, tile_n, paired)] = w[r, c]
     return flat
 
 
-def _load_cols(slot, tile_n, c0, q, tig, banks):
+def _load_cols(slot, tile_n, c0, q, tig, banks, paired=False):
     """load_cols at the 4-row step q: columns c0, c0 + 1 of rows 16q + 4tig
     + ((i + tig) & 3); the loads' word addresses go to `banks`."""
     sel0, sel1 = _selectors(tig)
     u = []
     for i in range(4):
-        off = _w_offset(16 * q + 4 * tig + ((i + tig) & 3), c0, tile_n)
+        off = _w_offset(16 * q + 4 * tig + ((i + tig) & 3), c0, tile_n, paired)
         banks[i].append(off // 4)
         u.append(int(slot[off]) | int(slot[off + 1]) << 8)
     x, y = _byte_perm(u[0], u[1], 0x5410), _byte_perm(u[2], u[3], 0x5410)
@@ -270,18 +273,19 @@ def _mma(d, a_regs, b0, b1, gid_of, tig_of):
         d[lane] += [D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]]
 
 
-def _core_group_dot(act, w, keeper, rows, tile_n, wc):
+def _core_group_dot(act, w, keeper, rows, tile_n, wc, paired=False):
     """Consumer warp wc's int32 dots of one group for its 16 columns and the
     block's `rows` activation rows, as gemm_core_kernel computes them ->
     [rows, 16] (16 x the dot for a nibble group, the dot for the keeper),
     and the word addresses of its weight loads.  w: the group's weight bytes
     [64, tile_n] (the keeper: [128, tile_n], two slots); act: the group's
-    activation codes [rows, 128]."""
+    activation codes [rows, 128].  ``paired``: the SiLU-quant epilogue's
+    slot (w's columns: tile_n / 2 gate columns, then as many up columns)."""
     lanes = range(32)
     gid_of, tig_of = [ln >> 2 for ln in lanes], [ln & 3 for ln in lanes]
     flat = _swizzled(act.astype(np.uint8))
     w = w.astype(np.uint8)
-    slots = [_slot(w[h * 64 : h * 64 + 64], tile_n) for h in range(w.shape[0] // 64)]
+    slots = [_slot(w[h * 64 : h * 64 + 64], tile_n, paired) for h in range(w.shape[0] // 64)]
     d = np.zeros((rows // 8, 32, 4), np.int64)
     banks = []
     # (slot, first 4-row step, plane, activation chunk) of each k-step
@@ -292,8 +296,8 @@ def _core_group_dot(act, w, keeper, rows, tile_n, wc):
         for lane in lanes:
             bank_lists = [[] for _ in range(4)]
             c0 = wc * 16 + 2 * gid_of[lane]
-            t0, t1 = _load_cols(slots[slot], tile_n, c0, q, tig_of[lane], bank_lists)
-            t2, t3 = _load_cols(slots[slot], tile_n, c0, q + 1, tig_of[lane], bank_lists)
+            t0, t1 = _load_cols(slots[slot], tile_n, c0, q, tig_of[lane], bank_lists, paired)
+            t2, t3 = _load_cols(slots[slot], tile_n, c0, q + 1, tig_of[lane], bank_lists, paired)
             banks.append(bank_lists)
             t = [t0, t1, t2, t3]
             if plane == 0:
@@ -338,6 +342,70 @@ def test_core_group_dot_equals_unpacked_codes(rows, tile_n):
                 for call in range(2):
                     words = {lists[i][call] for lists in banks[step : step + 32]}
                     assert len(words) == 16 and len({w % 32 for w in words}) == 16
+
+
+@pytest.mark.parametrize("rows,tile_n", [(32, 64), (16, 128), (64, 128)])
+def test_paired_slot_group_dot_reads_gate_and_up_columns(rows, tile_n):
+    """K10's SiLU-quant gate/up launch: block x's slot is one 3D box, each
+    row the gate columns t x .. of the gate/up weight (t = tile_n / 2), then
+    the up columns inter + t x .., under the swizzle of t bytes (32- or
+    64-byte); every consumer warp's dots, through the core's loads, permutes
+    and mma fragments, are those of its gate or up columns, and the 4 lanes
+    of a column still read 4 different banks."""
+    rng = np.random.default_rng(rows + tile_n + 1)
+    t, inter = tile_n // 2, 256
+    wp = rng.integers(-128, 128, (64, 2 * inter)).astype(np.int8)
+    codes = gp.unpack_nibble_planes(torch.from_numpy(wp)).numpy()[0].astype(np.int64)  # [128, 2 * inter]
+    wk = rng.integers(-127, 128, (128, 2 * inter)).astype(np.int8)
+    a = rng.integers(-8, 8, (rows, 128)).astype(np.int8)
+    ak = rng.integers(-127, 128, (rows, 128)).astype(np.int8)
+    x = 1  # the block's column tile
+    cols_of_tile = np.r_[x * t : x * t + t, inter + x * t : inter + x * t + t]
+    for wc in range(tile_n // 16):
+        cols = cols_of_tile[wc * 16 : wc * 16 + 16]
+        got, banks = _core_group_dot(a, wp[:, cols_of_tile].view(np.uint8), False, rows, tile_n, wc, paired=True)
+        np.testing.assert_array_equal(got, 16 * (a.astype(np.int64) @ codes[:, cols]))
+        got, _ = _core_group_dot(ak, wk[:, cols_of_tile].view(np.uint8), True, rows, tile_n, wc, paired=True)
+        np.testing.assert_array_equal(got, ak.astype(np.int64) @ wk.astype(np.int64)[:, cols])
+        for step in range(0, len(banks), 32):
+            for i in range(4):
+                for call in range(2):
+                    words = {lists[i][call] for lists in banks[step : step + 32]}
+                    assert len(words) == 16 and len({w % 32 for w in words}) == 16
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 32, 64])
+@pytest.mark.parametrize("tile_n", [None, 64, 128])
+def test_paired_plan_clusters_cover_the_groups(m, tile_n):
+    """The SiLU-quant gate/up launch (7B: K 4096, N = 2 x 11008): the core, 64
+    (t = 32, the default) or 128 weight columns a block, the grid of the
+    unpaired plan at that width; its clusters of 256 / tile_n blocks along
+    the columns cover each 128-channel group of the intermediate exactly
+    (block x: gate columns t x .. t x + t - 1, rank x mod cluster); the
+    shared memory is core_smem's, with the ranks' partial maxima."""
+    inter = 11008
+    plan = gp.packed_w4_plan(m, HID, 2 * inter, paired=True, tile_n=tile_n)
+    t = plan.tile_n // 2
+    assert plan.path == "core" and plan.tile_n == (tile_n or 64) and plan.cluster == 128 // t
+    assert plan.grid == gp.packed_w4_plan(m, HID, 2 * inter, tile_n=plan.tile_n).grid == (inter // t, plan.grid[1])
+    assert plan.grid[0] % plan.cluster == 0
+    groups = [{(x * t) // 128 for x in range(c * plan.cluster, (c + 1) * plan.cluster)}
+              for c in range(plan.grid[0] // plan.cluster)]
+    assert groups == [{g} for g in range(inter // 128)]
+    assert plan.smem == gp.core_smem(plan.tile_m, plan.tile_n, plan.stages, HID // 128 - 1, False, True) <= SMEM_BLOCK
+    assert gp.packed_w4_plan(m, HID, 2 * inter).cluster == 1
+
+
+def test_paired_plan_refuses_what_the_epilogue_cannot_take():
+    """No paired launch in 32-column blocks (a group would span 8 blocks), on
+    an intermediate that is not whole 128-channel groups, with the ring
+    epilogue or on the prefill GEMM; the shallowest ring plans (the epilogue's
+    tile, which reuses the ring, fits it at the largest block)."""
+    assert gp.packed_w4_plan(64, HID, 2 * 11008, paired=True, tile_m=64, tile_n=128, stages=3).stages == 3
+    for kwargs, n in ((dict(tile_n=32), 2 * 11008), (dict(), 2 * 1088), (dict(head=True), 2 * 11008),
+                      (dict(path="prefill"), 2 * 11008)):
+        with pytest.raises(ValueError):
+            gp.packed_w4_plan(32, HID, n, paired=True, **kwargs)
 
 
 # ---------------------------------------------------------------------------
