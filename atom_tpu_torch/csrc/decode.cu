@@ -35,15 +35,30 @@
 // Explicit multiply-adds (held within a tolerance, not bitwise).
 //
 // K4 replaces :720 flush_hot_pallas (_flush_kernel :647).  The TPU version
-// runs two aliased passes (first page, wrapped page) and rewrites whole page
-// blocks with a select, the sink page 0 included.  Blocks here run
-// concurrently, so each block (sequence, kv head) writes only the valid lanes
-// of the ring block [lo, hi) into its one or two pages, both passes in one
-// block; a V byte holds two slots, so its nibble is merged by a
-// read-modify-write of that byte, which only this block touches (W <= S/2).
-// Inactive sequences have no valid lane and write nothing.  Bound: a few
-// hundred KB per layer every W-th step, launch latency dominates.
-//
+// takes the ring pre-rolled into position order (three rolls of the ring, one
+// copy each), runs two aliased passes (first page, wrapped page) and rewrites
+// whole page blocks with a select, the sink page 0 included.  Here one pass
+// reads the ring in place: block token t is ring column (roll + t) mod W, with
+// roll = row + 1 for the live ring and 0 for pre-rolled blocks, so no copy of
+// the ring is made.  Blocks run concurrently, so each block (sequence, kv
+// head: 4 warps, at most 64 registers so that batch 32 x 32 kv heads runs as
+// one wave) writes only the valid tokens [lo, hi) of the sequence's block
+// into its one or two pages; a token's page (page_a for lanes o + t below S,
+// else page_b) and lane are decided once, by comparisons: no division by a
+// runtime W, and D = 128 at compile time (a generic instance takes any
+// head_dim).  Every load of a round of 32 tokens is issued before its stores:
+// the K rows (a warp's lanes are the tokens: coalesced byte loads of each
+// W-byte ring row, byte stores at the arbitrary lane offset o), the params
+// row (2-byte lanes), and the V pieces, 16 bytes of a token's 128-byte row
+// with the page row they merge into; the nibbles merge on 32-bit words
+// ((old & 0xF0F0F0F0) | new below S/2, (old & 0x0F0F0F0F) | new << 4 above)
+// and go out 16 bytes at a time.  A V byte holds slots r and r + S/2, and
+// two tokens of one flush never share one (W <= S/2), nor do two sequences
+// share a page: no synchronisation between blocks.  Inactive sequences
+// return at once.  Bound: the ring read once, the page's K and params
+// written, its V rows read and written once (~16 MB per layer at batch 32,
+// 7B), every W-th step.
+
 // K11 replaces :533 paged_decode_attention_rotated (_decode_kernel :74, the page
 // step of :335, the finalize of :187): attention over the flushed pages alone,
 // returning also the online-softmax state m, l per query row so that the caller
@@ -104,57 +119,123 @@ constexpr int DH = D / 2;
 constexpr int GMAX = 8;  // query rows per kv head of K3 and of K11's decode rows
 constexpr float NEG_INF = -1e30f;
 
-__global__ void __launch_bounds__(256)
-flush_kernel(const int8_t* __restrict__ k_flush, const __nv_bfloat16* __restrict__ prm_flush,
-             const int8_t* __restrict__ v_flush, const int* __restrict__ page_a,
-             const int* __restrict__ page_b, const int* __restrict__ slot0, const int* __restrict__ o,
-             const int* __restrict__ lo, const int* __restrict__ hi, int8_t* __restrict__ k_pages,
-             __nv_bfloat16* __restrict__ params, int8_t* __restrict__ v_pages, int H, int S, int W,
-             int Dh) {
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int dhalf = Dh / 2;
-  const int start = slot0[b] + o[b];  // global slot of the block's token 0
-  const int g_lo = lo[b], g_hi = hi[b];
-  for (int pass = 0; pass < 2; ++pass) {
-    const size_t pg = (size_t)(pass ? page_b[b] : page_a[b]);
-    const int lane0 = slot0[b] + pass * S;  // global slot of this page's lane 0
-    for (int idx = tid; idx < dhalf * W; idx += blockDim.x) {
-      const int c = idx / W, t = idx % W;
-      const int gs = start + t, lane = gs - lane0;
-      if (lane >= 0 && lane < S && gs >= g_lo && gs < g_hi)
-        k_pages[((pg * H + h) * dhalf + c) * S + lane] = k_flush[(((size_t)b * H + h) * dhalf + c) * W + t];
-    }
-    for (int idx = tid; idx < 4 * W; idx += blockDim.x) {
-      const int j = idx / W, t = idx % W;
-      const int gs = start + t, lane = gs - lane0;
-      if (lane >= 0 && lane < S && gs >= g_lo && gs < g_hi)
-        params[((pg * 4 + j) * H + h) * S + lane] = prm_flush[(((size_t)b * 4 + j) * H + h) * W + t];
-    }
-    for (int idx = tid; idx < W * Dh; idx += blockDim.x) {
-      const int t = idx / Dh, d = idx % Dh;
-      const int gs = start + t, lane = gs - lane0;
-      if (lane >= 0 && lane < S && gs >= g_lo && gs < g_hi) {
-        const int r = lane % (S / 2);
-        uint8_t* dst = reinterpret_cast<uint8_t*>(v_pages) + ((pg * H + h) * (S / 2) + r) * Dh + d;
-        const uint8_t code = (uint8_t)v_flush[(((size_t)b * H + h) * W + t) * Dh + d] & 0x0F;
-        *dst = lane >= S / 2 ? (uint8_t)((*dst & 0x0F) | (code << 4)) : (uint8_t)((*dst & 0xF0) | code);
+constexpr int FLUSH_THREADS = 128;  // a block per (sequence, kv head): 4 warps
+// blocks an SM must hold at once, for the register budget: 8 (64 registers)
+// hold the 1,024 blocks of batch 32 x 32 kv heads in one wave (1 and 12
+// measured slower: PERF.md, scripts/torch_head_flush_variants.py)
+constexpr int FLUSH_MIN_BLOCKS = 8;
+constexpr int FLUSH_K = 16;         // K rows a thread loads before it stores them
+constexpr int FLUSH_V = 2;          // V pieces a thread loads before it stores them
+
+__device__ __forceinline__ uint32_t merge_nibbles(uint32_t old, uint32_t code, bool high) {
+  code &= 0x0F0F0F0Fu;
+  return high ? (old & 0x0F0F0F0Fu) | (code << 4) : (old & 0xF0F0F0F0u) | code;
+}
+
+// DC: head_dim at compile time (128), or 0 for any head_dim (byte pieces)
+template <int DC>
+__global__ void __launch_bounds__(FLUSH_THREADS, FLUSH_MIN_BLOCKS)
+flush_kernel(const int8_t* __restrict__ k_ring, const __nv_bfloat16* __restrict__ prm_ring,
+             const int8_t* __restrict__ v_ring, const int* __restrict__ page_a, const int* __restrict__ page_b,
+             const int* __restrict__ slot0, const int* __restrict__ o, const int* __restrict__ lo,
+             const int* __restrict__ hi, int8_t* __restrict__ k_pages, __nv_bfloat16* __restrict__ params,
+             int8_t* __restrict__ v_pages, int H, int S, int W, int d_any, int roll) {
+  const int Dv = DC ? DC : d_any, DHv = Dv / 2;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int lane0 = o[b];              // page lane of token 0 (page_a; from S on, page_b)
+  const int gs0 = slot0[b] + lane0;    // global slot of token 0
+  const int pa = page_a[b], pb = page_b[b];  // loaded beside the bookkeeping, not after it
+  const int t_lo = max(0, lo[b] - gs0), t_hi = min(W, hi[b] - gs0);
+  if (t_lo >= t_hi) return;            // inactive, or nothing pending
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // token t: its ring column, page and lane in it
+  auto col_of = [&](int t) { return roll + t < W ? roll + t : roll + t - W; };
+  auto page_of = [&](int t) { return (size_t)(lane0 + t < S ? pa : pb); };
+  auto lane_of = [&](int t) { return lane0 + t < S ? lane0 + t : lane0 + t - S; };
+  constexpr int PB = DC ? 16 : 1;  // bytes a V piece
+  const int pieces = Dv / PB;
+
+  // rounds of 32 tokens (one at W <= 32): a warp's lanes are tokens for the K
+  // rows (warp, warp + 4, ..) and the params row `warp`; the V pieces of the
+  // round's tokens go round the block's threads
+  for (int t0 = t_lo; t0 < t_hi; t0 += 32) {
+    const int t = t0 + lane;
+    const bool tok = t < t_hi;
+    const int col = tok ? col_of(t) : 0;
+    const int8_t* ksrc = k_ring + ((size_t)b * H + h) * DHv * W + col;
+    int8_t* kdst = k_pages + (page_of(t) * H + h) * DHv * S + (tok ? lane_of(t) : 0);
+    for (int r0 = warp; r0 < DHv; r0 += 4 * FLUSH_K) {
+      int8_t kb[FLUSH_K];
+      __nv_bfloat16 pv;
+      const bool prm_row = r0 == warp && tok;  // the first batch carries the params row
+      if (tok) {
+#pragma unroll
+        for (int i = 0; i < FLUSH_K; ++i)
+          if (r0 + 4 * i < DHv) kb[i] = ksrc[(size_t)(r0 + 4 * i) * W];
+      }
+      if (prm_row) pv = prm_ring[(((size_t)b * 4 + warp) * H + h) * W + col];
+      for (int p0 = 0; p0 < 32 * pieces; p0 += FLUSH_THREADS * FLUSH_V) {
+        uint4 nw[FLUSH_V], od[FLUSH_V];
+        size_t vdst[FLUSH_V];
+        bool vok[FLUSH_V], high[FLUSH_V];
+#pragma unroll
+        for (int j = 0; j < FLUSH_V; ++j) {
+          const int p = p0 + tid + j * FLUSH_THREADS, tv = t0 + p / pieces, piece = p % pieces;
+          vok[j] = r0 == warp && p < 32 * pieces && tv < t_hi;  // V with the first K batch
+          if (vok[j]) {
+            const int ln = lane_of(tv);
+            high[j] = ln >= S / 2;
+            const size_t src = (((size_t)b * H + h) * W + col_of(tv)) * Dv + piece * PB;
+            vdst[j] = ((page_of(tv) * H + h) * (S / 2) + (high[j] ? ln - S / 2 : ln)) * Dv + piece * PB;
+            if constexpr (DC) {
+              nw[j] = *reinterpret_cast<const uint4*>(v_ring + src);
+              od[j] = *reinterpret_cast<const uint4*>(v_pages + vdst[j]);
+            } else {
+              nw[j].x = (uint8_t)v_ring[src];
+              od[j].x = (uint8_t)v_pages[vdst[j]];
+            }
+          }
+        }
+        if (p0 == 0 && tok) {  // every load of the batch is issued: the K rows and params go out
+#pragma unroll
+          for (int i = 0; i < FLUSH_K; ++i)
+            if (r0 + 4 * i < DHv) kdst[(size_t)(r0 + 4 * i) * S] = kb[i];
+          if (prm_row) params[((page_of(t) * 4 + warp) * H + h) * S + lane_of(t)] = pv;
+        }
+#pragma unroll
+        for (int j = 0; j < FLUSH_V; ++j) {
+          if (!vok[j]) continue;
+          if constexpr (DC) {
+            const uint4 m = make_uint4(merge_nibbles(od[j].x, nw[j].x, high[j]), merge_nibbles(od[j].y, nw[j].y, high[j]),
+                                       merge_nibbles(od[j].z, nw[j].z, high[j]), merge_nibbles(od[j].w, nw[j].w, high[j]));
+            *reinterpret_cast<uint4*>(v_pages + vdst[j]) = m;
+          } else {
+            v_pages[vdst[j]] = (int8_t)(merge_nibbles(od[j].x, nw[j].x, high[j]) & 0xFFu);
+          }
+        }
+        if (r0 != warp) break;  // later K batches carry no V
       }
     }
-    __syncthreads();
   }
 }
 
 }  // namespace
 
-extern "C" int atom_flush_hot(const void* k_flush, const void* prm_flush, const void* v_flush,
+// The ring [B, H, D/2, W] / [B, 4, H, W] / [B, H, W, D] -> pages, block token
+// t from ring column (roll + t) mod W (roll in [0, W)).
+extern "C" int atom_flush_hot(const void* k_ring, const void* prm_ring, const void* v_ring,
                               const void* page_a, const void* page_b, const void* slot0,
                               const void* o, const void* lo, const void* hi, void* k_pages,
                               void* params, void* v_pages, int B, int H, int S, int W, int Dh,
-                              void* stream) {
-  flush_kernel<<<dim3(B, H), 256, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)k_flush, (const __nv_bfloat16*)prm_flush, (const int8_t*)v_flush,
-      (const int*)page_a, (const int*)page_b, (const int*)slot0, (const int*)o, (const int*)lo,
-      (const int*)hi, (int8_t*)k_pages, (__nv_bfloat16*)params, (int8_t*)v_pages, H, S, W, Dh);
+                              int roll, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || 2 * W > S || Dh < 2 || Dh % 2 || roll < 0 || roll >= W)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, H);
+  const auto kernel = Dh == D ? flush_kernel<D> : flush_kernel<0>;
+  kernel<<<grid, FLUSH_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)k_ring, (const __nv_bfloat16*)prm_ring, (const int8_t*)v_ring, (const int*)page_a,
+      (const int*)page_b, (const int*)slot0, (const int*)o, (const int*)lo, (const int*)hi, (int8_t*)k_pages,
+      (__nv_bfloat16*)params, (int8_t*)v_pages, H, S, W, Dh, roll);
   return (int)cudaGetLastError();
 }
 

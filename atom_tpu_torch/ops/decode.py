@@ -4,8 +4,10 @@
 ``paged_ring_decode_attention`` (K3) attends each sequence's query heads
 over its flushed pages and the valid suffix of the hot ring, on 4-bit codes
 with the affine dequantization folded into the scores and the probabilities.
-``flush_hot`` (K4) writes each active sequence's pending ring block
-``[lo, hi)`` into its one or two pages, in place.
+``flush_hot_ring`` (K4) writes each active sequence's pending ring block
+``[lo, hi)`` into its one or two pages, in place, reading the live ring in
+place (block token t is ring column ``(row + 1 + t) mod W``); ``flush_hot``
+takes the block pre-rolled into position order, as the JAX kernel does.
 ``paged_decode_attention_rotated`` (K11) is K3 without the ring: attention
 over the flushed pages alone, which can also return the softmax state (m, l)
 so that a caller merges it with another part (``kv_hot.merge_attention``);
@@ -29,7 +31,7 @@ import math
 import torch
 
 from atom_tpu_torch.ops import _build
-from atom_tpu_torch.ops.kv_hot import HotKV
+from atom_tpu_torch.ops.kv_hot import HotKV, hot_flush_blocks
 from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import check_kernel_input, on_cpu
 
@@ -46,7 +48,7 @@ def _lib():
     lib = _build.load("decode")
     lib.atom_paged_ring_decode.argtypes = [_P] * 11 + [_I] * 7 + [_F, _P]
     lib.atom_paged_ring_decode.restype = _I
-    lib.atom_flush_hot.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.atom_flush_hot.argtypes = [_P] * 12 + [_I] * 6 + [_P]
     lib.atom_flush_hot.restype = _I
     lib.atom_paged_decode.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
     lib.atom_paged_decode.restype = _I
@@ -201,6 +203,33 @@ def flush_hot_plain(pages: KVPages, k_flush, prm_flush, v_flush, page_a, page_b,
     return pages
 
 
+def _flush_launch(pages: KVPages, k_ring, prm_ring, v_ring, book, roll: int, path: str, name: str) -> KVPages:
+    """K4 on the card: block token t from ring column ``(roll + t) mod W``."""
+    bsz, h, _, w = k_ring.shape
+    s, d = pages.page_size, pages.head_dim
+    if 2 * w > s:
+        raise ValueError(f"{name}: ring width {w} must be at most half the page size {s}")
+    check_kernel_input(k_ring, "k ring", torch.int8, (bsz, h, d // 2, w))
+    check_kernel_input(prm_ring, "prm ring", torch.bfloat16, (bsz, 4, h, w))
+    check_kernel_input(v_ring, "v ring", torch.int8, (bsz, h, w, d))
+    for arg, t in zip(("page_a", "page_b", "slot0", "o", "lo", "hi"), book):
+        check_kernel_input(t, arg, torch.int32, (bsz,))
+    check_kernel_input(pages.k_pages, "k_pages", torch.int8)
+    check_kernel_input(pages.params, "params", torch.bfloat16)
+    check_kernel_input(pages.v_pages, "v_pages", torch.int8)
+    _build.check(
+        _lib().atom_flush_hot(
+            k_ring.data_ptr(), prm_ring.data_ptr(), v_ring.data_ptr(), *(t.data_ptr() for t in book),
+            pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
+            bsz, h, s, w, d, roll, _build.stream(),
+        ),
+        name,
+    )
+    flush_hot.launches += 1
+    flush_hot.launches_by_path[path] += 1
+    return pages
+
+
 def flush_hot(
     pages: KVPages,
     k_flush: torch.Tensor,  # int8 [B, H, D/2, W] channel-plane bytes, position order
@@ -213,38 +242,47 @@ def flush_hot(
     lo: torch.Tensor,  # int32 [B] — first slot to write (flushed before)
     hi: torch.Tensor,  # int32 [B] — one past the last (the sequence length)
 ) -> KVPages:
-    """Kernel K4: write each sequence's pending ring block into its page(s),
-    in place; returns ``pages``.  A sequence holds at most W ring tokens
-    (``lo >= hi - W``)."""
-    tensors = (*pages, k_flush, prm_flush, v_flush, page_a, page_b, slot0, o, lo, hi)
-    if on_cpu(*tensors):
-        return flush_hot_plain(pages, k_flush, prm_flush, v_flush, page_a, page_b, slot0, o, lo, hi)
-    bsz, h, dhalf, w = k_flush.shape
-    s, d = pages.page_size, pages.head_dim
-    if 2 * w > s:
-        raise ValueError(f"flush_hot: ring width {w} must be at most half the page size {s}")
-    check_kernel_input(k_flush, "k_flush", torch.int8, (bsz, h, d // 2, w))
-    check_kernel_input(prm_flush, "prm_flush", torch.bfloat16, (bsz, 4, h, w))
-    check_kernel_input(v_flush, "v_flush", torch.int8, (bsz, h, w, d))
-    for name, t in (("page_a", page_a), ("page_b", page_b), ("slot0", slot0), ("o", o), ("lo", lo), ("hi", hi)):
-        check_kernel_input(t, name, torch.int32, (bsz,))
-    check_kernel_input(pages.k_pages, "k_pages", torch.int8)
-    check_kernel_input(pages.params, "params", torch.bfloat16)
-    check_kernel_input(pages.v_pages, "v_pages", torch.int8)
-    _build.check(
-        _lib().atom_flush_hot(
-            k_flush.data_ptr(), prm_flush.data_ptr(), v_flush.data_ptr(), page_a.data_ptr(),
-            page_b.data_ptr(), slot0.data_ptr(), o.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            pages.k_pages.data_ptr(), pages.params.data_ptr(), pages.v_pages.data_ptr(),
-            bsz, h, s, w, d, _build.stream(),
-        ),
-        "flush_hot",
-    )
-    flush_hot.launches += 1
-    return pages
+    """Kernel K4 on pre-rolled blocks (the JAX kernel's signature): write
+    each sequence's pending ring block into its page(s), in place; returns
+    ``pages``.  A sequence holds at most W ring tokens (``lo >= hi - W``)."""
+    book = (page_a, page_b, slot0, o, lo, hi)
+    if on_cpu(*pages, k_flush, prm_flush, v_flush, *book):
+        return flush_hot_plain(pages, k_flush, prm_flush, v_flush, *book)
+    return _flush_launch(pages, k_flush, prm_flush, v_flush, book, 0, "rolled", "flush_hot")
 
 
 flush_hot.launches = 0
+flush_hot.launches_by_path = {"ring": 0, "rolled": 0}
+
+
+def flush_hot_ring_plain(pages: KVPages, hot: HotKV, row: int, page_a, page_b, slot0, o, lo, hi) -> KVPages:
+    """Plain version of :func:`flush_hot_ring`: the ring rolled into position
+    order (three copies), then the plain flush."""
+    return flush_hot_plain(pages, *hot_flush_blocks(hot, row), page_a, page_b, slot0, o, lo, hi)
+
+
+def flush_hot_ring(
+    pages: KVPages,
+    hot: HotKV,  # the live ring; ``row`` its newest column
+    row: int,
+    page_a: torch.Tensor,
+    page_b: torch.Tensor,
+    slot0: torch.Tensor,
+    o: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+) -> KVPages:
+    """Kernel K4 on the live ring: what ``flush_hot(pages,
+    *hot_flush_blocks(hot, row), ...)`` writes, bit for bit, with block token
+    t read from ring column ``(row + 1 + t) mod W`` in place of three rolled
+    copies of the ring.  Counts on ``flush_hot.launches`` (path "ring")."""
+    book = (page_a, page_b, slot0, o, lo, hi)
+    if on_cpu(*pages, *hot, *book):
+        return flush_hot_ring_plain(pages, hot, row, *book)
+    w = hot.window
+    if not 0 <= row < w:
+        raise ValueError(f"flush_hot_ring: ring row {row} outside [0, {w})")
+    return _flush_launch(pages, *hot, book, (row + 1) % w, "ring", "flush_hot_ring")
 
 
 def paged_decode_attention_rotated_plain(q, pages: KVPages, page_table, seq_lens, out_dtype=torch.bfloat16,

@@ -22,11 +22,14 @@ scale[n]`` with float32 accumulation; the per-column scale multiplies once,
 after the whole sum.  It is the serving lm_head's default precision.  int8
 codes are exact in bf16, so every product is exact in float32 and only the
 order of the float32 additions differs between implementations: the TPU
-kernel adds K blocks of 1024, the CUDA kernel (``csrc/gemm_w8a16.cu``)
-16-wide tensor-core steps split over 8 warps, the plain version whatever
-``torch.mm`` does.  They are held to each other within ``W8A16_RTOL`` of the
-largest output: no partial sum is ever rounded to bf16, which would cost
-2**-9.
+kernel adds K blocks of 1024, the CUDA kernel (``csrc/gemm_w8a16.cu``, a
+weight stream by TMA into ``wgmma`` with the converted weights as the
+register operand, each code split exactly into two terms ``16 * (c >> 4)``
+and ``c & 15``) 16-wide tensor-core steps term by term, the plain version
+whatever ``torch.mm`` does.  They are held to each other within
+``W8A16_RTOL`` of the largest output: no partial sum is ever rounded to
+bf16, which would cost 2**-9.  :func:`w8a16_plan` gives the kernel its
+launch: blocks of up to 64 activation rows by 256 columns over all of K.
 """
 from __future__ import annotations
 
@@ -45,8 +48,10 @@ from atom_tpu_torch.quant.core import div_exact
 # exact products taken in another order; a bf16-rounded partial sum would
 # show as ~2e-3)
 W8A16_RTOL = 1e-4
-_TN = 64  # output columns per CUDA block
+_TN = 64  # N is whole 64-column groups
 _TK = 16  # K step of the tensor-core instruction
+_W8_TILE = 256  # weight columns of a K5 block
+_W8_ROWS = (8, 16, 32, 40, 48, 64)  # activation rows of a K5 block (wgmma's N); above 64, passes of 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -246,10 +251,37 @@ def dequantize_w8a16(wq: W8A16Weight) -> torch.Tensor:
     return wq.codes.to(torch.float32) * wq.scale
 
 
+class W8A16Plan(NamedTuple):
+    """K5's launch for one shape, as the kernel takes it: blocks of ``rows``
+    activation rows by 256 weight columns over all of K, grid ``(column
+    tiles, row passes)``."""
+
+    rows: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def w8a16_plan(m: int, k: int, n: int) -> W8A16Plan:
+    """The launch K5 makes for an [m, k] x [k, n] product; raises on a shape
+    the kernel does not take (N not whole 64-column groups, K not whole
+    16-row steps).  The block holds the fewest of 8, 16, 32, 40, 48 or 64
+    rows that hold m, so up to 64 rows stream the weight once; above 64
+    rows, passes of 64.  A last column tile past N is zero-filled by TMA and
+    masked at the store."""
+    if m < 1:
+        raise ValueError(f"w8a16_gemm: M={m} has no row to launch")
+    if n <= 0 or n % _TN:
+        raise ValueError(f"w8a16_gemm: N={n} must be a positive multiple of {_TN}")
+    if k < 0 or k % _TK:
+        raise ValueError(f"w8a16_gemm: K={k} must be a multiple of {_TK}")
+    rows = next((r for r in _W8_ROWS if r >= m), _W8_ROWS[-1])
+    return W8A16Plan(rows, (-(-n // _W8_TILE), -(-m // rows)))
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("gemm_w8a16").atom_gemm_w8a16
-    fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
     fn.restype = _I
     return fn
 
@@ -277,9 +309,11 @@ def w8a16_gemm(a: torch.Tensor, wq: W8A16Weight) -> torch.Tensor:
     check_kernel_input(wq.codes, "codes", torch.int8, (k, n))
     check_kernel_input(wq.scale, "scale", torch.float32, (1, n))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m:
+    if m and n:
+        plan = w8a16_plan(m, k, n)
         _build.check(
-            _kernel()(ab.data_ptr(), wq.codes.data_ptr(), wq.scale.data_ptr(), out.data_ptr(), m, n, k, _build.stream()),
+            _kernel()(ab.data_ptr(), wq.codes.data_ptr(), wq.scale.data_ptr(), out.data_ptr(), m, n, k, plan.rows,
+                      *plan.grid, _build.stream()),
             "w8a16_gemm",
         )
         w8a16_gemm.launches += 1

@@ -43,7 +43,7 @@ from atom_tpu_torch.models.configs import ModelConfig
 from atom_tpu_torch.models.nn import apply_rope, rmsnorm, rope_tables
 from atom_tpu_torch.numerics import rms_rstd
 from atom_tpu_torch.ops import reference as R
-from atom_tpu_torch.ops.decode import flush_hot, paged_decode_attention_rotated, paged_ring_decode_attention
+from atom_tpu_torch.ops.decode import flush_hot_ring, paged_decode_attention_rotated, paged_ring_decode_attention
 from atom_tpu_torch.ops.formats import (
     KernelPackedWeight,
     pack_for_kernel,
@@ -69,7 +69,6 @@ from atom_tpu_torch.ops.kv_hot import (
     HOT_W,
     HotKV,
     hot_attention,
-    hot_flush_blocks,
     make_hot,
     merge_attention,
     write_hot,
@@ -372,7 +371,7 @@ def make_serving_state(
 
 def _flush_plan(state: ServingState, page_table, seq_lens, flush: bool):
     """Bookkeeping of a ring flush, shared by the decode and the mixed step ->
-    (``flush_hot``'s arguments after the ring blocks, or None; the new
+    (``flush_hot_ring``'s arguments after the ring and its row, or None; the new
     ``flushed`` counts).  On a flushing step every active sequence's pending
     block [flushed, lens) goes to the one or two pages it spans."""
     if not flush:
@@ -424,7 +423,7 @@ def decode_hidden(
         hot = state.hot[l]
         q = _attn_block_decode_ring(x, lp, cfg, spec, (cos, sin), hot, row)
         if flush:
-            flush_hot(state.pages[l], *hot_flush_blocks(hot, row), *flush_args)
+            flush_hot_ring(state.pages[l], hot, row, *flush_args)
         attn = paged_ring_decode_attention(q, state.pages[l], page_table, flushed_new, hot, n_hot, row)
         x = _post_attn(x, attn.reshape(b, cfg.num_heads * dh), lp, spec)
 
@@ -707,7 +706,7 @@ def mixed_step(
                           R.KVQuant(vq.codes[:b], vq.params[:b]))
         pg = state.pages[l_i]
         if flush:
-            flush_hot(pg, *hot_flush_blocks(hot_l, row), *flush_args)
+            flush_hot_ring(pg, hot_l, row, *flush_args)
 
         # decode rows: pages (K11) + ring, merged
         out1, m1, l1 = paged_decode_attention_rotated(

@@ -7,7 +7,11 @@ Phases, each fatal on failure:
   2. hold each kernel K1-K14 against its plain PyTorch version at the
      Llama-2-7B shapes of the decode step (batch 32, context 512), of prefill
      (K1 and K7 at the engine's buckets 128, 256 and 512 rows and at 1024, K12
-     at 1024 and 128), of the head (K5 at 32 rows and 1), of the mixed step (K1
+     at 1024 and 128), of the head (K5 at 32 rows, 1 and the mixed step's 33,
+     and a ragged shape; two launches bitwise), of the ring flush (K4 reading
+     the live ring in place at three ring rows, and on pre-rolled blocks, with
+     the three torch.roll copies + kernel timed beside it; also at head dims 64
+     and 256), of the mixed step (K1
      and K7 at its 288 rows, K11 on the decode rows and on a chunk's prefix),
      of the fused post-attention half (K9, K10; also at 288 rows; K9 and K10
      given the reorder index bitwise with index_select and the kernel; K10's
@@ -24,7 +28,8 @@ Phases, each fatal on failure:
   3. drive the W4A4 decode path at full width (32 layers, hidden 4096,
      ATOM_W4A4, random weights from a seed): ``decode_burst`` over 2 ring
      windows, which flush, with every kernel's launch count read; then decode
-     tok/s by the slope between burst lengths (median of positive samples), with
+     tok/s by the slope between burst lengths (median of positive samples; the
+     profiled window must run no torch.roll kernel), with
      the W8A16 head, the bf16 head and the W4A16 head (K13); then the same with
      ``ATOM_TPU_FUSED_MLP=1`` (K9 and K10 in place of K1 and its glue; the
      profiled window counts the K1 family's kernels and the reorder gathers);
@@ -216,7 +221,8 @@ def idle_slots(torch, dev):
 ATTN_TOL = dict(atol=2e-3, rtol=2**-7)  # K3 vs plain: f32 sums in another order, then one bf16 rounding
 
 
-def kv_inputs(torch, gen, dev, batch: int, heads: int, window: int = 32, max_pages: int = MAX_PAGES):
+def kv_inputs(torch, gen, dev, batch: int, heads: int, window: int = 32, max_pages: int = MAX_PAGES,
+              head_dim: int = 128):
     """Random KV pages (page 0 the sink, then MAX_PAGES per sequence), their
     page table and a hot ring.  K is centred like real codes (zero = -7.5
     scale); V's offsets are not, so attention outputs are of order 1."""
@@ -235,10 +241,11 @@ def kv_inputs(torch, gen, dev, batch: int, heads: int, window: int = 32, max_pag
         return torch.stack([ks, -7.5 * ks, vs, vz], dim=1).to(torch.bfloat16)
 
     n_pages = 1 + batch * max_pages
-    pages = KVPages(codes(-128, 128, (n_pages, heads, 64, PAGE)), codes(-128, 128, (n_pages, heads, PAGE // 2, 128)),
-                    planes(n_pages, PAGE))
-    hot = HotKV(codes(-128, 128, (batch, heads, 64, window)), planes(batch, window),
-                codes(0, 16, (batch, heads, window, 128)))
+    dh = head_dim // 2
+    pages = KVPages(codes(-128, 128, (n_pages, heads, dh, PAGE)),
+                    codes(-128, 128, (n_pages, heads, PAGE // 2, head_dim)), planes(n_pages, PAGE))
+    hot = HotKV(codes(-128, 128, (batch, heads, dh, window)), planes(batch, window),
+                codes(0, 16, (batch, heads, window, head_dim)))
     table = (1 + torch.arange(batch * max_pages, device=dev, dtype=torch.int32)).reshape(batch, max_pages)
     return pages, hot, table
 
@@ -487,35 +494,50 @@ def check_kernels(torch, dev) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape="a int8 [32,4096], N=12288, ring [32,32,64,32]",
     )
 
-    # --- K5 w8a16_gemm at the padded 7B head, decode batch (timed row) and one row (prefill)
+    # --- K5 w8a16_gemm at the padded 7B head: the decode batch (timed row), one row (prefill), the mixed
+    # step's 33 rows, then a ragged shape (N not whole 256-column tiles, K not whole 128-row stages); each
+    # within W8A16_RTOL of the plain version, and two launches bitwise equal
     kh, nh = HID, HEAD_N
     head = normal((kh, nh), 0.02, torch.bfloat16)
     head[:, VOCAB:] = 0
     wq = gw.quantize_w8a16(head.to(torch.float32))
-    k5 = {}
-    for m in (BATCH, 1):
-        x = normal((m, kh), 1.0, torch.bfloat16)
-        got, want = gw.w8a16_gemm(x, wq), gw.w8a16_gemm_plain(x, wq)
+
+    def k5_check(x, w8, what):
+        got, want = gw.w8a16_gemm(x, w8), gw.w8a16_gemm_plain(x, w8)
         err, top = (got - want).abs().max().item(), want.abs().max().item()
-        require(err <= gw.W8A16_RTOL * top, f"w8a16_gemm at M={m}: max |diff| {err} beyond {gw.W8A16_RTOL} x {top}")
+        require(err <= gw.W8A16_RTOL * top, f"w8a16_gemm {what}: max |diff| {err} beyond {gw.W8A16_RTOL} x {top}")
+        require(torch.equal(gw.w8a16_gemm(x, w8), got), f"w8a16_gemm {what}: two launches on the same inputs differ")
+        return err
+
+    k5 = {}
+    for m in (BATCH, 1, BATCH + 1):
+        x = normal((m, kh), 1.0, torch.bfloat16)
+        err = k5_check(x, wq, f"at M={m}")
         nbytes = x.numel() * 2 + wq.codes.numel() + 4 * nh + 4 * m * nh
         b_ms, b_by = bound(nbytes, 2 * m * nh * kh, PEAK_BF16_OPS)
+        ms = timer(lambda: gw.w8a16_gemm(x, wq))
         k5[m] = dict(
-            max_abs_err=err,
-            ms=timer(lambda: gw.w8a16_gemm(x, wq)),
+            max_abs_err=err, ms=ms, host_us=timer.host_us,
+            device_us=timer.device(lambda: gw.w8a16_gemm(x, wq))["us"],
+            plan=gw.w8a16_plan(m, kh, nh)._asdict(),
             plain_ms=timer(lambda: gw.w8a16_gemm_plain(x, wq), n=5),
             # no single PyTorch call multiplies bf16 by int8: the bf16 product of the
             # unquantized head stands beside it for scale; it reads twice the bytes
             library_ms=timer(lambda: torch.mm(x, head, out_dtype=torch.float32)),
             bound_ms=b_ms, bound_by=b_by,
         )
+    kr, nr, mr = HID - 96, 4160, 17  # K = 4000, N = 16.25 column tiles
+    wr = gw.quantize_w8a16(normal((kr, nr), 0.02))
+    ragged = dict(shape=f"a [{mr},{kr}] x int8 [{kr},{nr}]", plan=gw.w8a16_plan(mr, kr, nr)._asdict(),
+                  max_abs_err=k5_check(normal((mr, kr), 1.0, torch.bfloat16), wr, "at a ragged shape"))
     res["w8a16_gemm"] = dict(
-        k5[BATCH], shape="a bf16 [32,4096] x int8 [4096,32256], scale [1,32256]; m1_*: one row (prefill)",
+        k5[BATCH], shape="a bf16 [32,4096] x int8 [4096,32256], scale [1,32256]; m1_*: one row (prefill); "
+        "m33_*: the mixed step's 33 rows", ragged=ragged,
         library_note="torch.mm of the unquantized bf16 head (twice the weight bytes); no one call does bf16 x int8",
-        tolerance=f"|diff| <= {gw.W8A16_RTOL} x max|out| (float32 sums in another order)",
-        **{f"m1_{k_}": v_ for k_, v_ in k5[1].items()},
+        tolerance=f"|diff| <= {gw.W8A16_RTOL} x max|out| (float32 sums in another order); two launches bitwise",
+        **{f"m{m}_{k_}": v_ for m in (1, BATCH + 1) for k_, v_ in k5[m].items()},
     )
-    del head, wq
+    del head, wq, wr
     torch.cuda.empty_cache()
 
     # --- K3 paged_ring_decode_attention: MHA at 7B, GQA (8 q heads per kv
@@ -571,7 +593,8 @@ def check_kernels(torch, dev) -> dict:
     k3_row["mha_max_abs_err"] = k3_row["max_abs_err"]  # the timed case; the row's error is the worst case's
     k3_row["max_abs_err"] = max([k3_row["max_abs_err"]] + [c["max_abs_err"] for c in k3.values()])
 
-    # --- K4 flush_hot: blocks crossing page 2's start, two inactive sequences: bitwise
+    # --- K4 flush: the live ring read in place (flush_hot_ring) at ring rows 0, 5 and W - 1, and pre-rolled
+    # blocks (flush_hot); blocks crossing page 2's start, two inactive sequences: bitwise
     pages, hot, table = kv_inputs(torch, gen, dev, BATCH, h, w)
     lens = (CTX - 12 + torch.arange(BATCH, device=dev, dtype=torch.int32)).to(torch.int32)
     fl = (lens - w).to(torch.int32)
@@ -584,22 +607,51 @@ def check_kernels(torch, dev) -> dict:
     pg_a = torch.where(active & (page_lo >= 0), pick(page_lo), 0).to(torch.int32)
     pg_b = torch.where(active & ((page_lo + 1) * PAGE < lens), pick(page_lo + 1), 0).to(torch.int32)
     require(bool((pg_b > 0).any()), "flush check has no page-crossing block")
-    blocks = hot_flush_blocks(hot, 5)
     book = (pg_a, pg_b, slot0, o_lane, fl, lens)
-    pk = KVPages(*(t.clone() for t in pages))
-    pp = KVPages(*(t.clone() for t in pages))
-    dec.flush_hot(pk, *blocks, *book)
-    dec.flush_hot_plain(pp, *blocks, *book)
-    for a_, b_ in zip(pk, pp):
-        require(torch.equal(bits(a_), bits(b_)), "flush_hot differs from its plain version")
+    forms = {f"ring_row_{r}": (lambda p_, r=r: dec.flush_hot_ring(p_, hot, r, *book),
+                               lambda p_, r=r: dec.flush_hot_ring_plain(p_, hot, r, *book)) for r in (0, 5, w - 1)}
+    blocks = hot_flush_blocks(hot, 5)
+    forms["rolled"] = (lambda p_: dec.flush_hot(p_, *blocks, *book), lambda p_: dec.flush_hot_plain(p_, *blocks, *book))
+
+    def flush_check(pages_, forms_, what):
+        for form, (kernel, plain) in forms_.items():
+            pk = KVPages(*(t.clone() for t in pages_))
+            pp = KVPages(*(t.clone() for t in pages_))
+            kernel(pk)
+            plain(pp)
+            for a_, b_ in zip(pk, pp):
+                require(torch.equal(bits(a_), bits(b_)), f"flush_hot ({what}{form}) differs from its plain version")
+            require(torch.equal(bits(pk.k_pages[0]), bits(pages_.k_pages[0])), f"flush_hot ({what}{form}) wrote the sink page")
+        return pk, pp
+
+    pk, pp = flush_check(pages, forms, "")
+    # the generic instance (flush_kernel<0>, byte pieces) at head dims other than 128: 64, and 256 (two K batches
+    # a warp), on 8 kv heads, live ring at row 5 and pre-rolled
+    for d in (64, 256):
+        pages_d, hot_d, _ = kv_inputs(torch, gen, dev, BATCH, 8, w, head_dim=d)
+        blocks_d = hot_flush_blocks(hot_d, 5)
+        flush_check(pages_d, {
+            "ring_row_5": (lambda p_: dec.flush_hot_ring(p_, hot_d, 5, *book),
+                           lambda p_: dec.flush_hot_ring_plain(p_, hot_d, 5, *book)),
+            "rolled": (lambda p_: dec.flush_hot(p_, *blocks_d, *book), lambda p_: dec.flush_hot_plain(p_, *blocks_d, *book)),
+        }, f"head_dim {d}, ")
+        del pages_d, hot_d, blocks_d
     tokens = (lens - fl).clamp_min(0).sum().item()
-    b_ms, b_by = bound(2 * tokens * h * (64 + 8 + 128) + 6 * BATCH * 4, 0, PEAK_F32_OPS)
+    # per token and kv head: the ring's K, params and V (64 + 8 + 128 bytes) read once, the page's K and params
+    # written, and the V page row (128 bytes) read for the nibble merge and written
+    b_ms, b_by = bound(tokens * h * (2 * (64 + 8 + 128) + 128) + 6 * BATCH * 4, 0, PEAK_F32_OPS)
+    ring = lambda: dec.flush_hot_ring(pk, hot, 5, *book)  # noqa: E731
+    rolled = lambda: dec.flush_hot(pk, *hot_flush_blocks(hot, 5), *book)  # noqa: E731
+    ms = timer(ring)
     res["flush_hot"] = dict(
-        max_abs_err=0.0,
-        ms=timer(lambda: dec.flush_hot(pk, *blocks, *book)),
-        plain_ms=timer(lambda: dec.flush_hot_plain(pp, *blocks, *book), n=5),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        shape="ring [32,32,64,32] -> pages [129,32,64,256], 30 active sequences, blocks crossing slot 512",
+        max_abs_err=0.0, ms=ms, host_us=timer.host_us, device_us=timer.device(ring)["us"],
+        plain_ms=timer(lambda: dec.flush_hot_ring_plain(pp, hot, 5, *book), n=5),
+        # the call sequence of the pre-rolled form: three torch.roll copies of the ring, then the kernel
+        rolls_then_kernel_ms=timer(rolled), rolls_then_kernel_device=timer.device(rolled),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, checked=sorted(forms),
+        checked_head_dims={"64": ["ring_row_5", "rolled"], "256": ["ring_row_5", "rolled"]},
+        shape="ring [32,32,64,32] -> pages [129,32,64,256], 30 active sequences, blocks crossing slot 512; "
+        "ring rows 0, 5, 31 read in place and the pre-rolled form; head dims 64 and 256 (8 kv heads) bitwise too",
     )
     del pages, hot, pk, pp
     torch.cuda.empty_cache()
@@ -1136,11 +1188,11 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each kernel's launches, and K1's, K10's and K11's split by path (K1:
-    decode core, prefill GEMM; K10: the cluster epilogue, four launches;
-    K11: stream, tile)."""
+    """Each kernel's launches, and K1's, K4's, K10's and K11's split by path
+    (K1: decode core, prefill GEMM; K4: the live ring read in place, pre-rolled
+    blocks; K10: the cluster epilogue, four launches; K11: stream, tile)."""
     counts = {name: fn.launches for name, fn in counters().items()}
-    for name in ("packed_w4_gemm", "fused_mlp_packed", "paged_decode_attention_rotated"):
+    for name in ("packed_w4_gemm", "flush_hot", "fused_mlp_packed", "paged_decode_attention_rotated"):
         counts[f"{name}_by_path"] = dict(counters()[name].launches_by_path)
     return counts
 
@@ -1245,12 +1297,17 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
     # events in some runs) is reported beside it and may not exceed it
     require(k3_counted == cfg.num_layers, f"K3 launched {k3_counted} times per profiled step, not once per layer")
     require(k3_per_step <= k3_counted, f"the profiler saw {k3_per_step} K3 kernels per step, more than launched")
+    # the ring flush reads the ring in place: no torch.roll copies, no pre-rolled launches
+    rolls = gemm.pop("roll", dict(launches_per_step=0.0))["launches_per_step"]
+    require(rolls == 0, f"the profiled window ran {rolls} torch.roll kernels a step")
+    require(counts["flush_hot_by_path"]["rolled"] == 0, "the decode path flushed pre-rolled blocks")
     first = stats[heads[0][0]]
     step_ms = first["step_ms"]
     first.update(
         host_enqueue_ms_per_step=t_enqueue / w * 1e3, window_ms_per_step=t_window / w * 1e3,
         device_ms_per_step_profiled=device_ms, device_busy_share=device_ms / step_ms, device_kernels_per_step=kernels,
         k3_kernels_per_step=k3_per_step, k3_launches_per_step=k3_counted, k1_family_kernels_per_step=gemm,
+        roll_kernels_per_step=rolls,
     )
     log(f"step {step_ms:.3f} ms ({heads[0][0]} head): host enqueue {t_enqueue / w * 1e3:.3f} ms, device {device_ms:.3f} ms "
         f"(busy share {device_ms / step_ms:.3f}), {kernels:.0f} kernels")
@@ -1747,6 +1804,7 @@ K11_KERNELS = {"stream": "paged_ring_stream_kernel", "tile": "paged_tile_kernel"
 CORE_EPILOGUES = ("f32", "resid", "row_scale", "ring", "resid_f32", "row_scale_f32", "silu_quant")
 # the reorder gathers' kernels, as the profiler names them (index_select on the card)
 GATHER_KERNELS = ("_scatter_gather_elementwise_kernel", "indexSelect")
+ROLL_KERNEL = "roll_cuda_kernel"  # torch.roll on the card
 
 
 def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple:
@@ -1784,13 +1842,14 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
     k3 = sum(e.count for e in kernels if K3_KERNEL in e.key and ", true>" in e.key)
     # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the prefill
     # GEMM, the activation prologue (K2's first launch; also K9's and K10's), SiLU (K10's four-launch form);
-    # and the reorder gathers (index_select) that feed them
+    # the reorder gathers (index_select) that feed them; and torch.roll's copies (none: the flush reads the ring)
     gemm = {}
     for e in kernels:
         core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)>", e.key)
         name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
                 next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None)
-                or ("gather" if any(g_ in e.key for g_ in GATHER_KERNELS) else None))
+                or ("gather" if any(g_ in e.key for g_ in GATHER_KERNELS) else None)
+                or ("roll" if ROLL_KERNEL in e.key else None))
         if name:
             ms, cnt = gemm.get(name, (0.0, 0.0))
             gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
@@ -1823,7 +1882,7 @@ def plain_path():
         (sm, "packed_w4_gemm_qkv", gp.packed_w4_gemm_qkv_plain),
         (sm, "packed_w4_gemm_qkv_ring", gp.packed_w4_gemm_qkv_ring_plain),
         (sm, "w8a16_gemm", gw.w8a16_gemm_plain),
-        (sm, "flush_hot", dec.flush_hot_plain),
+        (sm, "flush_hot_ring", dec.flush_hot_ring_plain),
         (sm, "paged_ring_decode_attention", dec.paged_ring_decode_attention_plain),
         (gp, "packed_w4_gemm", gp.packed_w4_gemm_plain),
         (sm, "w4a16_gemm", gw.w4a16_gemm_plain),
@@ -2292,6 +2351,10 @@ def main() -> int:
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=launches, launches_on=path,
                          launches_by_phase={k_: v_ for k_, v_ in by_phase.items() if v_}, **k))
+        if name == "flush_hot":  # K4's launches by form: the live ring in place, pre-rolled blocks
+            rows[-1]["launches_by_path"] = dict(engine=engine_counts["flush_hot_by_path"],
+                                                decode_burst=decode_counts["flush_hot_by_path"],
+                                                mixed_engine=mixed_counts["flush_hot_by_path"])
         if name == "packed_w4_gemm":  # K1's launches by kernel: the decode core (M <= 64), the prefill GEMM above
             rows[-1]["launches_by_path"] = dict(engine=engine_counts["packed_w4_gemm_by_path"],
                                                 decode_burst=decode_counts["packed_w4_gemm_by_path"],

@@ -10,7 +10,10 @@ fault C3 was found in: 64 x 64 blocks at 256 rows, 32 x 64 and 32 x 128 at
 at 128 rows; K2 (the core with the ring epilogue) at 64, 96 and 128 rows
 (32-row head blocks).  Each is launched ``--launches`` times on the same
 inputs, and a launch whose outputs are not ``torch.equal`` to the plain
-version's counts as differing.  One line per case; exit 1 if any launch
+version's counts as differing.  K5 (the W8A16 head, ``w8a16_plan``'s
+launches: the Llama-2-7B head at 1, 32, 33, 64 and 65 rows, and a ragged
+shape) is held within ``W8A16_RTOL`` of its plain version once, and every
+launch bit for bit to the first.  One line per case; exit 1 if any launch
 differs.
 """
 from __future__ import annotations
@@ -29,6 +32,8 @@ K1_PLANNED = [(32, QKV, None, None, None), (32, GATE_UP, None, None, None), (64,
               (128, QKV, "core", 32, 128), (256, QKV, "core", 16, None), (128, QKV, None, None, None),
               (288, GATE_UP, None, None, None), (1024, O_PROJ, None, None, None)]
 K2_PLANNED = (64, 96, 128)
+VOCAB, HEAD_N = 32000, 32256  # the head padded to whole 64-column tiles
+K5_PLANNED = [(m, HID, HEAD_N) for m in (1, 32, 33, 64, 65)] + [(17, 4000, 4160)]
 
 
 def main() -> int:
@@ -39,6 +44,7 @@ def main() -> int:
 
     from atom_tpu_torch.models.nn import rope_tables
     from atom_tpu_torch.ops import gemm_packed as gp
+    from atom_tpu_torch.ops import gemm_w4a16 as gw
 
     if not torch.cuda.is_available():
         print("torch_gemm_stress: no CUDA card", file=sys.stderr)
@@ -100,6 +106,14 @@ def main() -> int:
     for m in K2_PLANNED:
         launch, want = k2_case(m)
         differ += count(f"K2 M={m} under {gp.packed_w4_plan(m, *QKV, head=True)}", launch, want)
+    for m, k, n in K5_PLANNED:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        wq = gw.quantize_w8a16(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        first, want = gw.w8a16_gemm(x, wq), gw.w8a16_gemm_plain(x, wq)
+        err, top = (first - want).abs().max().item(), want.abs().max().item()
+        print(f"K5 M={m} K={k} N={n}: max |diff| {err} against {gw.W8A16_RTOL} x {top}", flush=True)
+        differ += int(err > gw.W8A16_RTOL * top)
+        differ += count(f"K5 M={m} K={k} N={n} under {gw.w8a16_plan(m, k, n)}", lambda: gw.w8a16_gemm(x, wq), first)
     print(f"planned launches: {differ} differ", flush=True)
     return int(differ > 0)
 
