@@ -125,9 +125,23 @@
 // instruction issue, and at 1,024 rows the blocks re-read the activations
 // from L2 once per column tile.
 //
-// The int8 operand loads, the s8 mma and its byte transposes and the per-head
-// u4 quantizer live in int8_mma.cuh, shared with the grouped int8 GEMMs (K14,
-// gemm_int8.cu).
+// The s8 mma and the per-head u4 quantizer live in int8_mma.cuh.
+//
+// K14, the grouped int8 GEMMs on int8-carrier weights, replaces
+// atom_tpu/ops/pallas_gemm.py:77 grouped_int8_gemm (K14a, _gemm_kernel :47)
+// and :203 grouped_int8_gemm_o4 (K14b, _gemm_o4_kernel :157): K1's function
+// on other bytes, w int8 [(ng + 1) * 128, N] with the keeper as its last
+// group, so both kernels above run it in an int8-weight form (template
+// parameter I8; false is the K1 family's form).  Every group's 128 int8 rows
+// take one ring slot, one TMA box of 128 rows x tile_n, and its fragments are
+// built as the keeper's, by the same loads and permutes, no nibble masks; the activation scales are staged as they are (the codes
+// enter the product unscaled), and the chain is never K-blocked: the TPU
+// kernel adds every group to its output in order at any depth, so K14 takes
+// the unblocked order at 223 groups too (ops/gemm.py::grouped_int8_plan; at
+// K 28,672 in 128-row tiles the staged scales take 115 KB).  Bound: at
+// decode rows the weight stream (K*N bytes, twice K1's), at 1,024 rows the
+// int8 tensor cores.  K14b is two launches, as K7: K14a's product into an
+// f32 scratch, then head_codes_kernel, K7's per-head quantizer without RoPE.
 //
 // K2 runs as two launches on one stream: the RMSNorm + dual-path quantization
 // prologue (every output tile needs the whole quantized row, so it finishes
@@ -390,10 +404,12 @@ struct CoreParams {
 };
 
 // Dynamic shared memory of a core block (ops/gemm_packed.py::core_smem); paired
-// (EPI_SILU_QUANT): the partial maxima of up to 4 cluster ranks, MAX_RANKS x tile_m floats.
+// (EPI_SILU_QUANT): the partial maxima of up to 4 cluster ranks, MAX_RANKS x tile_m floats;
+// wrows: weight byte rows a slot (128 for K14's one-slot int8 groups).
 constexpr int MAX_RANKS = 4;
-__host__ __device__ constexpr int core_smem(int tile_m, int tile_n, int stages, int ng, bool head, bool paired = false) {
-  return 1024 + stages * (tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16) + (ng + 1) * tile_m * 4 +
+__host__ __device__ constexpr int core_smem(int tile_m, int tile_n, int stages, int ng, bool head, bool paired = false,
+                                            int wrows = HALF) {
+  return 1024 + stages * (tile_m * GROUP + tile_n * wrows + tile_n * 4 + 16) + (ng + 1) * tile_m * 4 +
          (head ? tile_m * (HT + 2 * HEAD) * 4 : 0) + (paired ? MAX_RANKS * tile_m * 4 : 0);
 }
 
@@ -463,12 +479,17 @@ static_assert(64 * (128 + 4) * 4 <= 3 * (64 * GROUP + 128 * HALF), "the SiLU-qua
 // [rows][2][inter]), its weight scales one more (tmS, [ng + 1][2][inter]
 // float32), so a slot still takes three copies; the block is one rank of a
 // cluster of 256 / tile_n (see the K10 note).  tmS is unused otherwise.
-template <int NT, int EPI, bool KBLK>
+// I8 (K14): tmW maps the whole int8 w [(ng + 1) * 128, N] in boxes of 128 rows,
+// a group a slot, every group read as the keeper is (tmK unused), the one
+// unblocked chain.
+template <int NT, int EPI, bool KBLK, bool I8 = false>
 __global__ void __launch_bounds__(32 * (1 + MAX_CONSUMERS), 1)
 gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                  const __grid_constant__ CUtensorMap tmK, const __grid_constant__ CUtensorMap tmS,
                  const CoreParams p) {
+  static_assert(!I8 || (EPI == EPI_F32 && !KBLK), "K14: the unblocked chain, f32 out");
   constexpr int BM = 8 * NT;
+  constexpr int WR = I8 ? GROUP : HALF;  // weight byte rows a slot
   constexpr bool PAIRED = EPI == EPI_SILU_QUANT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
@@ -476,8 +497,8 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
   const int BW = PAIRED ? BN / 2 : BN;  // the block's output columns: the tile, or its gate (and up) channels
   const int consumers = BN / 16;
   unsigned char* ringA = base;                                     // S x BM x 128, 128-byte swizzle
-  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x 64 rows x BN, swizzled (w_offset)
-  float* ringS = reinterpret_cast<float*>(ringW + S * BN * HALF);  // S x BN weight scales
+  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x WR rows x BN, swizzled (w_offset)
+  float* ringS = reinterpret_cast<float*>(ringW + S * BN * WR);    // S x BN weight scales
   float* sa_s = ringS + S * BN;                                    // (ng + 1) x BM activation scales
   float* ht = sa_s + (ng + 1) * BM;                                // BM x HT (ring epilogue)
   float* cos_s = ht + BM * HT;                                     // BM x 128 each (ring epilogue)
@@ -501,7 +522,21 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
   if (warp == 0) {
     // producer: slot j < ng body group j, slot ng the keeper's rows 0-63 with
     // its activation tile and scale row, slot ng + 1 its rows 64-127; paired,
-    // the weights and the scale row as the gate and the up columns' 3D boxes
+    // the weights and the scale row as the gate and the up columns' 3D boxes;
+    // I8: slot j group j's 128 rows (the keeper the last) with its
+    // activation tile and scale row
+    if constexpr (I8) {
+      if (lane == 0) {
+        for (int j = 0, s = 0, ph = 0; j < ng + 1; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
+          if (j >= S) mbar_wait(empty + s, ph ^ 1);
+          mbar_expect(full + s, BN * GROUP + BM * GROUP + BN * 4);
+          tma_load(ringW + s * BN * GROUP, &tmW, n0, j * GROUP, full + s);
+          tma_load(ringA + s * BM * GROUP, &tmA, j * GROUP, m0, full + s);
+          bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, BN * 4, full + s);
+        }
+      }
+      return;
+    }
     if (lane == 0) {
       for (int j = 0, s = 0, ph = 0; j < ng + 2; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
         if (j >= S) mbar_wait(empty + s, ph ^ 1);
@@ -528,8 +563,9 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
   }
   // while the ring fills, the consumers stage the block rows' activation
   // scales, group-major, the body groups' times 1/16 (their codes enter the
-  // product as 16 x code), exactly; and for the ring epilogue the rows' RoPE
-  // tables.  Loads first, then stores, so their latencies overlap.
+  // product as 16 x code), exactly (I8: every group's as it is); and for the
+  // ring epilogue the rows' RoPE tables.  Loads first, then stores, so their
+  // latencies overlap.
   {
     constexpr int PER = 8;
     const int ct = tid - 32, nct = consumers * 32, total = BM * (ng + 1);
@@ -543,7 +579,7 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
 #pragma unroll
       for (int u = 0; u < PER; ++u) {
         const int i = i0 + u * nct, r = i / (ng + 1), g = i % (ng + 1);
-        if (i < total) sa_s[g * BM + r] = g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
+        if (i < total) sa_s[g * BM + r] = !I8 && g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
       }
     }
     if (EPI == EPI_RING)
@@ -594,7 +630,9 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
 
   // slot j's int32 dots into d, its scales into w2 / s2, then the slot is
   // released: body group j's k-step (plane, sh) takes weight rows sh*32..
-  // (4-row steps 2sh, 2sh + 1) and activation chunks plane*4 + sh*2, +1
+  // (4-row steps 2sh, 2sh + 1) and activation chunks plane*4 + sh*2, +1.
+  // I8: group j from its slot, each k-step st its int8 rows 32 st .. as the
+  // keeper's below
   int fs = 0, fph = 0;  // ring stage and phase of the next slot fetch reads
   auto fetch = [&](int j, int (&d)[NT][4], float2& w2, float2 (&s2)[NT]) {
     const int s = fs;
@@ -603,28 +641,45 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
       fs = 0;
       fph ^= 1;
     }
-    const unsigned char* ws = ringW + s * BN * HALF;
+    const unsigned char* ws = ringW + s * BN * WR;
     const unsigned at = smem_u32(ringA + s * BM * GROUP);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) d[nt][e] = 0;
+    if constexpr (I8) {
 #pragma unroll
-    for (int sh = 0; sh < 2; ++sh) {
-      uint32_t t[4];  // a0..a3 of the k-step: columns c0, c0 + 1 of rows 4tig.., then of rows 16 + 4tig..
-      load_cols(ws, woff[2 * sh], sel0, sel1, t[0], t[1]);
-      load_cols(ws, woff[2 * sh + 1], sel0, sel1, t[2], t[3]);
-#pragma unroll
-      for (int plane = 0; plane < 2; ++plane) {
+      for (int st = 0; st < 4; ++st) {
+        const unsigned char* wst = ws + (st >> 1) * HALF * BN;
         uint32_t a[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[q] = plane ? (t[q] & 0xF0F0F0F0u) : ((t[q] << 4) & 0xF0F0F0F0u);
+        load_cols(wst, woff[2 * (st & 1)], sel0, sel1, a[0], a[1]);
+        load_cols(wst, woff[2 * (st & 1) + 1], sel0, sel1, a[2], a[3]);
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t b[4];
-          ldsm_x4(b, b_addr(at, np * 16 + lrow, plane * 4 + sh * 2));
+          ldsm_x4(b, b_addr(at, np * 16 + lrow, 2 * st));
           mma_s8(d[2 * np], a, b[0], b[1]);
           mma_s8(d[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int sh = 0; sh < 2; ++sh) {
+        uint32_t t[4];  // a0..a3 of the k-step: columns c0, c0 + 1 of rows 4tig.., then of rows 16 + 4tig..
+        load_cols(ws, woff[2 * sh], sel0, sel1, t[0], t[1]);
+        load_cols(ws, woff[2 * sh + 1], sel0, sel1, t[2], t[3]);
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane) {
+          uint32_t a[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[q] = plane ? (t[q] & 0xF0F0F0F0u) : ((t[q] << 4) & 0xF0F0F0F0u);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, b_addr(at, np * 16 + lrow, plane * 4 + sh * 2));
+            mma_s8(d[2 * np], a, b[0], b[1]);
+            mma_s8(d[2 * np + 1], a, b[2], b[3]);
+          }
         }
       }
     }
@@ -646,18 +701,21 @@ gemm_core_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant_
         if (block_end) acc[nt][e].block_end();
       }
   };
-  // software pipeline: group j + 1's dots are issued before group j's float chain
+  // software pipeline: group j + 1's dots are issued before group j's float
+  // chain (I8: over every group, the keeper the last: unblocked, its term is
+  // one more add)
+  const int nfetch = I8 ? ng + 1 : ng;
   int dA[NT][4], dB[NT][4];
   float2 wA, wB, sA[NT], sB[NT];
   fetch(0, dA, wA, sA);
-  for (int j = 0; j < ng; j += 2) {
-    if (j + 1 < ng) fetch(j + 1, dB, wB, sB);
+  for (int j = 0; j < nfetch; j += 2) {
+    if (j + 1 < nfetch) fetch(j + 1, dB, wB, sB);
     chain(dA, wA, sA, j);
-    if (j + 1 >= ng) break;
-    if (j + 2 < ng) fetch(j + 2, dA, wA, sA);
+    if (j + 1 >= nfetch) break;
+    if (j + 2 < nfetch) fetch(j + 2, dA, wA, sA);
     chain(dB, wB, sB, j + 1);
   }
-  {  // the keeper: int8 rows 0-63 in slot ng, 64-127 in slot ng + 1
+  if constexpr (!I8) {  // the keeper: int8 rows 0-63 in slot ng, 64-127 in slot ng + 1
     const int s0 = fs, s1 = fs + 1 == S ? 0 : fs + 1;
     mbar_wait(full + s0, fph);
     mbar_wait(full + s1, fph ^ (s1 == 0));
@@ -842,19 +900,22 @@ struct Frag {
 // per 64 columns (tile_n = 64 NWG); KBLK: the K-blocked order (ng > 112).
 // Warps 0 .. 4 NWG - 1 consume, warp 4 NWG is the producer (a warpgroup's
 // warps must be 4 aligned ones).  Unit (g, h): group g (ng the keeper) on rows
-// 64h .. 64h + 63 of the block; the units run in order g-major.
-template <int H, int NWG, int EPI, bool KBLK>
+// 64h .. 64h + 63 of the block; the units run in order g-major.  I8 (K14):
+// as the core's, a group a 128-row slot, every group built as the keeper is.
+template <int H, int NWG, int EPI, bool KBLK, bool I8 = false>
 __global__ void __launch_bounds__(128 * NWG + 32, 1)
 gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                     const __grid_constant__ CUtensorMap tmK, const CoreParams p) {
   constexpr int BM = 64 * H, BN = 64 * NWG, CW = 4 * NWG;
+  constexpr int WR = I8 ? GROUP : HALF;  // weight byte rows a slot
   static_assert(!(KBLK && H > 1), "the K-blocked order's partial chains fit registers at 64 rows");
+  static_assert(!I8 || (EPI == EPI_F32 && !KBLK), "K14: the unblocked chain, f32 out");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   const int S = p.stages, ng = p.ng;
   unsigned char* ringA = base;                                     // S x BM x 128, 128-byte swizzle
-  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x 64 rows x BN, swizzled (w_offset)
-  float* ringS = reinterpret_cast<float*>(ringW + S * BN * HALF);  // S x BN weight scales
+  unsigned char* ringW = ringA + S * BM * GROUP;                   // S x WR rows x BN, swizzled (w_offset)
+  float* ringS = reinterpret_cast<float*>(ringW + S * BN * WR);    // S x BN weight scales
   float* sa_s = ringS + S * BN;                                    // (ng + 1) x BM activation scales
   uint64_t* full = reinterpret_cast<uint64_t*>(sa_s + (ng + 1) * BM);
   uint64_t* empty = full + S;
@@ -871,7 +932,21 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
 
   if (warp == CW) {
     // producer: slot j < ng body group j, slot ng the keeper's rows 0-63 with
-    // its activation tile and scale row, slot ng + 1 its rows 64-127
+    // its activation tile and scale row, slot ng + 1 its rows 64-127; I8 as
+    // the core's producer
+    if constexpr (I8) {
+      if (lane == 0) {
+        const int sw_bytes = min(BN, p.N - n0) * 4;
+        for (int j = 0, s = 0, ph = 0; j < ng + 1; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
+          if (j >= S) mbar_wait(empty + s, ph ^ 1);
+          mbar_expect(full + s, BN * GROUP + BM * GROUP + sw_bytes);
+          tma_load(ringW + s * BN * GROUP, &tmW, n0, j * GROUP, full + s);
+          tma_load(ringA + s * BM * GROUP, &tmA, j * GROUP, m0, full + s);
+          bulk_load(ringS + s * BN, p.sw + (size_t)j * p.N + n0, sw_bytes, full + s);
+        }
+      }
+      return;
+    }
     if (lane == 0) {
       const int sw_bytes = min(BN, p.N - n0) * 4;
       for (int j = 0, s = 0, ph = 0; j < ng + 2; ++j, s = s + 1 == S ? 0 : s + 1, ph ^= s == 0) {
@@ -888,7 +963,8 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
     return;
   }
   // while the ring fills, the consumers stage the block rows' activation
-  // scales, group-major, the body groups' times 1/16 (as the decode core)
+  // scales, group-major, the body groups' times 1/16 (as the decode core;
+  // I8: every group's as it is)
   {
     constexpr int PER = 8, nct = CW * 32;
     const int total = BM * (ng + 1);
@@ -902,7 +978,7 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
 #pragma unroll
       for (int u = 0; u < PER; ++u) {
         const int i = i0 + u * nct, r = i / (ng + 1), g = i % (ng + 1);
-        if (i < total) sa_s[g * BM + r] = g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
+        if (i < total) sa_s[g * BM + r] = !I8 && g < ng ? __fmul_rn(v[u], 0.0625f) : v[u];
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"r"(nct) : "memory");
@@ -944,7 +1020,16 @@ gemm_prefill_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_consta
     const int s = next_full();
     F.s = s;
     uint32_t o0[4], o1[4];
-    if (g < ng) {
+    if constexpr (I8) {  // every group as the keeper below
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const unsigned char* ws = ringW + s * BN * GROUP + (st >> 1) * HALF * BN;
+        woff(2 * (st & 1), o0);
+        woff(2 * (st & 1) + 1, o1);
+        load_cols(ws, o0, sel0, sel1, F.a[st][0], F.a[st][1]);
+        load_cols(ws, o1, sel0, sel1, F.a[st][2], F.a[st][3]);
+      }
+    } else if (g < ng) {
       const unsigned char* ws = ringW + s * BN * HALF;
 #pragma unroll
       for (int sh = 0; sh < 2; ++sh) {
@@ -1267,6 +1352,24 @@ qkv_codes_epilogue_kernel(const float* __restrict__ qkv, const float* __restrict
   }
 }
 
+// K14b's second launch: the per-head asymmetric u4 quantization of the f32
+// product x [M, N] (head_rope_quant without RoPE, a block per row and head),
+// one byte per code [M, N] and float32 params [M, N / 128, 2] = (scale, zero
+// value), both bf16-rounded.
+__global__ void __launch_bounds__(HEAD)
+head_codes_kernel(const float* __restrict__ x, int8_t* __restrict__ codes, float* __restrict__ prm, int N) {
+  __shared__ float red[4];
+  const int m = blockIdx.x, hb = blockIdx.y, d = threadIdx.x;
+  const size_t o = (size_t)m * N + (size_t)hb * HEAD;
+  const HeadValue hv = head_rope_quant(x + o, nullptr, nullptr, m, d, false, true, red);
+  codes[o + d] = (int8_t)hv.code;
+  if (d == 0) {
+    float* pr = prm + ((size_t)m * (N / HEAD) + hb) * 2;
+    pr[0] = hv.scale;
+    pr[1] = hv.zero_val;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
@@ -1416,10 +1519,10 @@ int launch_core(const void* a, const void* wp, const void* wk, const void* sa, c
   return launch_core_nt<8, EPI>(ta, tw, tk, ts, p, pl, smem, st);
 }
 
-template <int H, int NWG, int EPI, bool KBLK>
+template <int H, int NWG, int EPI, bool KBLK, bool I8 = false>
 int launch_prefill_k(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tk, const CoreParams& p,
                      int smem, cudaStream_t st) {
-  auto kernel = gemm_prefill_kernel<H, NWG, EPI, KBLK>;
+  auto kernel = gemm_prefill_kernel<H, NWG, EPI, KBLK, I8>;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
@@ -1539,6 +1642,64 @@ int launch_gate_up_silu(const void* a, const void* wp, const void* wk, const voi
   p.abits = abits;
   p.a_clip = a_clip;
   return launch_core<EPI_SILU_QUANT>(a, wp, wk, sa, sw, p, M, 2 * inter, D / GROUP - 1, pl, st);
+}
+
+// K14: the core's int8-weight form in blocks of 8 NT rows (tmW as tmK and tmS: unused there).
+template <int NT>
+int launch_core_i8(const CUtensorMap& ta, const CUtensorMap& tw, const CoreParams& p, int smem, cudaStream_t st) {
+  auto kernel = gemm_core_kernel<NT, EPI_F32, false, true>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const dim3 grid(p.N / p.tile_n, (p.M + p.tile_m - 1) / p.tile_m, 1);
+  kernel<<<grid, 32 * (1 + p.tile_n / 16), smem, st>>>(ta, tw, tw, tw, p);
+  return (int)cudaGetLastError();
+}
+
+// K14a on the plan's kernel (the core or the prefill GEMM, ops/gemm.py::grouped_int8_plan):
+// a int8 [M, (ng + 1) * 128], w int8 [(ng + 1) * 128, N] a group a slot, sa f32 [M, ng + 1],
+// sw f32 [ng + 1, N] -> out f32 [M, N], the unblocked order at any ng.  A plan the kernels
+// cannot run is refused.
+int launch_int8(const void* a, const void* w, const void* sa, const void* sw, void* out, int M, int N, int ng,
+                const Plan& pl, cudaStream_t st) {
+  const bool core_ok = (pl.tile_m == 16 || pl.tile_m == 32 || pl.tile_m == 64) &&
+                       (pl.tile_n == 32 || pl.tile_n == 64 || pl.tile_n == 128) && N % pl.tile_n == 0;
+  const bool prefill_ok = (pl.tile_m == 64 || pl.tile_m == 128) && (pl.tile_n == 64 || pl.tile_n == 128) &&
+                          N % 32 == 0;
+  if (ng < 0 || pl.stages < 3 || !(pl.core ? core_ok : prefill_ok)) return (int)cudaErrorInvalidValue;
+  const int smem = core_smem(pl.tile_m, pl.tile_n, pl.stages, ng, false, false, GROUP);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const CUtensorMapSwizzle wsw = pl.tile_n == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : pl.tile_n == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap ta, tw;
+  int e = encode_map(&ta, a, (ng + 1) * GROUP, M, GROUP, pl.tile_m, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!e) e = encode_map(&tw, w, N, (ng + 1) * GROUP, pl.tile_n, GROUP, wsw);
+  if (e) return e;
+  CoreParams p = {};
+  p.out = out;
+  p.sa = (const float*)sa;
+  p.sw = (const float*)sw;
+  p.M = M;
+  p.N = N;
+  p.ng = ng;
+  p.tile_m = pl.tile_m;
+  p.tile_n = pl.tile_n;
+  p.stages = pl.stages;
+  if (pl.core) {
+    switch (pl.tile_m) {
+      case 16: return launch_core_i8<2>(ta, tw, p, smem, st);
+      case 32: return launch_core_i8<4>(ta, tw, p, smem, st);
+    }
+    return launch_core_i8<8>(ta, tw, p, smem, st);
+  }
+  if (pl.tile_m == 64)
+    return pl.tile_n == 64 ? launch_prefill_k<1, 1, EPI_F32, false, true>(ta, tw, tw, p, smem, st)
+                           : launch_prefill_k<1, 2, EPI_F32, false, true>(ta, tw, tw, p, smem, st);
+  return pl.tile_n == 64 ? launch_prefill_k<2, 1, EPI_F32, false, true>(ta, tw, tw, p, smem, st)
+                         : launch_prefill_k<2, 2, EPI_F32, false, true>(ta, tw, tw, p, smem, st);
 }
 
 template <int NT>
@@ -1662,4 +1823,24 @@ extern "C" int atom_silu_quant_max_clusters(const int* plan, int ng, int* cluste
     case 32: return silu_max_clusters_nt<4>(pl, ng, clusters);
   }
   return silu_max_clusters_nt<8>(pl, ng, clusters);
+}
+
+// K14a: a int8 [M, (ng + 1) * 128] x w int8 [(ng + 1) * 128, N] (body groups, then the keeper),
+// sa f32 [M, ng + 1], sw f32 [ng + 1, N] -> out f32 [M, N] on the plan's kernel.
+extern "C" int atom_grouped_int8_gemm(const void* a, const void* w, const void* sa, const void* sw, void* out, int M,
+                                      int N, int ng, const int* plan, void* stream) {
+  return launch_int8(a, w, sa, sw, out, M, N, ng, plan_of(plan), (cudaStream_t)stream);
+}
+
+// K14b: K14a into scratch f32 [M, N], then per 128-column head the u4 codes int8 [M, N] in
+// [0, 15] and params f32 [M, N / 128, 2].
+extern "C" int atom_grouped_int8_gemm_o4(const void* a, const void* w, const void* sa, const void* sw, void* scratch,
+                                         void* codes, void* params, int M, int N, int ng, const int* plan,
+                                         void* stream) {
+  if (N % HEAD) return (int)cudaErrorInvalidValue;
+  const int e = atom_grouped_int8_gemm(a, w, sa, sw, scratch, M, N, ng, plan, stream);
+  if (e) return e;
+  head_codes_kernel<<<dim3(M, N / HEAD), HEAD, 0, (cudaStream_t)stream>>>((const float*)scratch, (int8_t*)codes,
+                                                                         (float*)params, N);
+  return (int)cudaGetLastError();
 }

@@ -66,6 +66,10 @@ HEAD = 128  # columns of a head: the ring epilogue's block owns one
 _CORE_ROWS = (16, 32, 64)  # block rows of the core (tile_m)
 _CORE_COLS = (32, 64, 128)  # block columns of the core (tile_n): a consumer warp per 16
 _STAGES = 8  # ring slots of the core (3 to 35 measured within a few per cent on the H100; 8 the best or equal)
+# K14's core ring (128-row int8 slots, twice K1's bytes a slot) in blocks taller than 16 rows: 4 slots, K1's
+# bytes in flight, faster there than 8; 16-row blocks keep 8, faster there than 4 (NVIDIA H100 80GB HBM3,
+# scripts/torch_int8_carrier_compare.py --stages; PERF.md section 6)
+_INT8_TALL_STAGES = 4
 _PAIRED_COLS = (64, 128)  # the SiLU-quant gate/up core's block columns: t = 32 or 64 gate + as many up columns
 _PAIRED_TILE_N = 64  # its default: 4-block clusters (PERF.md section 6 holds both layouts' times)
 _PREFILL_ROWS = (64, 128)  # block rows of the prefill GEMM: one or two 64-row wgmma units a group
@@ -113,14 +117,16 @@ class PackedW4Plan(NamedTuple):
 _MAX_RANKS = 4  # the SiLU-quant epilogue's largest cluster (t = 32)
 
 
-def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool, paired: bool = False) -> int:
+def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool, paired: bool = False,
+              wrows: int = HALF) -> int:
     """Dynamic shared memory of a core or prefill block
     (``gemm_packed.cu::core_smem``): per ring stage the activation tile, the
-    weight slot (64 byte rows), the scale row and two barriers; the
-    activation scales of all groups; the head epilogue's f32 tile and its
-    rows' cos and sin; the SiLU-quant epilogue's partial maxima of up to 4
-    cluster ranks (``paired``); 1 KB to align the ring."""
-    stage = tile_m * GROUP + tile_n * HALF + tile_n * 4 + 16
+    weight slot (``wrows`` byte rows: 64, or K14's 128-row int8 slot), the
+    scale row and two barriers; the activation scales of all groups; the
+    head epilogue's f32 tile and its rows' cos and sin; the SiLU-quant
+    epilogue's partial maxima of up to 4 cluster ranks (``paired``); 1 KB to
+    align the ring."""
+    stage = tile_m * GROUP + tile_n * wrows + tile_n * 4 + 16
     return (1024 + stages * stage + (ng + 1) * tile_m * 4 + (tile_m * (3 * HEAD + 4) * 4 if head else 0)
             + (_MAX_RANKS * tile_m * 4 if paired else 0))
 
@@ -128,7 +134,7 @@ def core_smem(tile_m: int, tile_n: int, stages: int, ng: int, head: bool, paired
 @functools.lru_cache(maxsize=512)
 def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | None = None,
                    tile_m: int | None = None, stages: int | None = None, path: str | None = None,
-                   paired: bool = False) -> PackedW4Plan:
+                   paired: bool = False, int8: bool = False) -> PackedW4Plan:
     """The launch for an [m, k] x [k, n] product (k = body groups * 128 +
     the 128 keeper rows); raises on a shape the kernels do not take (N not
     whole 32-column tiles, K not whole groups).  ``head``: the ring epilogue,
@@ -139,6 +145,9 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     128-channel groups; the core only): a block of ``tile_n`` weight columns
     holds ``tile_n / 2`` gate columns and the matching up columns, 64 (the
     default) or 128 of them, in clusters of ``256 / tile_n`` blocks.
+    ``int8``: K14's launch on int8 weights (k rows, the keeper's last), a
+    group a 128-row ring slot, never K-blocked, so the prefill GEMM may take
+    128-row blocks at any depth (``ops/gemm.py::grouped_int8_plan``).
 
     Core (M <= 64 with a body group, or ``head``): 64 columns a block where
     N allows (rows of 64 bytes a weight copy), else 32; the fewest of 16, 32
@@ -146,7 +155,8 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     than SMs (at M <= 64 there is no split of K to fill the card with: the
     column tiles, and row tiles that read the same weights, are the
     parallelism; not for ``head``, whose 96 blocks of 32 rows measured
-    faster than 192 of 16); a ring of 8 group slots.  Above 64 rows (``head``
+    faster than 192 of 16); a ring of 8 group slots (``int8`` in blocks
+    taller than 16 rows: ``_INT8_TALL_STAGES``).  Above 64 rows (``head``
     at a decode batch over 64, or the core asked for) the same rule (fault
     C3, which made 32- and 64-row blocks there differ now and then, is
     closed: ``ROADMAP.md`` section C).  Prefill (above 64 rows, or no body
@@ -156,6 +166,8 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     if k < GROUP or k % GROUP:
         raise ValueError(f"packed_w4_gemm: K={k} must be a positive multiple of {GROUP}")
     ng = k // GROUP - 1
+    if int8 and (head or paired):
+        raise ValueError("packed_w4_gemm: no head or paired launch for int8 weights")
     if paired:
         if head or n % (2 * GROUP) or (tile_n or _PAIRED_TILE_N) not in _PAIRED_COLS or path == "prefill":
             raise ValueError(f"packed_w4_gemm: no paired SiLU-quant launch for N={n} in {tile_n} columns")
@@ -164,7 +176,7 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
     if path is None:
         path = "core" if head or (m <= CORE_MAX_M and ng > 0) else "prefill"
     if path == "prefill" and not head:
-        return _prefill_plan(m, ng, n, tile_m, tile_n, stages)
+        return _prefill_plan(m, ng, n, tile_m, tile_n, stages, int8)
     if path != "core" or ng == 0:
         raise ValueError(f"packed_w4_gemm: no {path} launch for K={k}{' with the ring epilogue' if head else ''}")
     if head and n % HEAD:
@@ -177,15 +189,15 @@ def packed_w4_plan(m: int, k: int, n: int, head: bool = False, tile_n: int | Non
             rows //= 2
     if rows not in _CORE_ROWS or (head and rows > 32) or tn not in _CORE_COLS or n % tn:
         raise ValueError(f"packed_w4_gemm: N={n} in {rows} x {tn} blocks is not a core layout")
-    stages = stages or min(ng + 2, _STAGES)
-    smem = core_smem(rows, tn, stages, ng, head, paired)
+    stages = stages or min(ng + 2, _INT8_TALL_STAGES if int8 and rows > _CORE_ROWS[0] else _STAGES)
+    smem = core_smem(rows, tn, stages, ng, head, paired, GROUP if int8 else HALF)
     if stages < 3 or smem > _SMEM_BLOCK:
         raise ValueError(f"packed_w4_gemm: K={k} at {rows} x {tn} leaves no room for a ring of {stages} stages")
     return PackedW4Plan("core", rows, tn, stages, smem, (n // tn, -(-m // rows)), 2 * GROUP // tn if paired else 1)
 
 
 def _prefill_plan(m: int, ng: int, n: int, tile_m: int | None = None, tile_n: int | None = None,
-                  stages: int | None = None) -> PackedW4Plan:
+                  stages: int | None = None, int8: bool = False) -> PackedW4Plan:
     """The prefill GEMM's launch for M rows, ``ng`` body groups and N
     columns: of the blocks of 64 or 128 rows x 64 or 128 columns (a last
     tile past M or N reads zeros and stores nothing), the one whose waves
@@ -195,8 +207,10 @@ def _prefill_plan(m: int, ng: int, n: int, tile_m: int | None = None, tile_n: in
     group, so small grids take small blocks; 64 rows above
     ``KBLK_THRESHOLD`` groups (the K-blocked order's partial chains would
     not fit a thread's registers at 128); a ring of ``_PREFILL_STAGES``
-    group slots, or as many as shared memory holds (at least 3)."""
-    kblk = ng > KBLK_THRESHOLD
+    group slots, or as many as shared memory holds (at least 3).
+    ``int8``: K14's 128-row int8 weight slots (never K-blocked)."""
+    kblk = ng > KBLK_THRESHOLD and not int8
+    wrows = GROUP if int8 else HALF
 
     def cost(layout):
         rows, cols = layout
@@ -210,9 +224,9 @@ def _prefill_plan(m: int, ng: int, n: int, tile_m: int | None = None, tile_n: in
     tm, tn = min(layouts, key=lambda lay: (cost(lay), -lay[0] * lay[1]))
     if stages is None:
         stages = max(3, min(ng + 2, _PREFILL_STAGES))
-        while stages > 3 and core_smem(tm, tn, stages, ng, False) > _SMEM_BLOCK:
+        while stages > 3 and core_smem(tm, tn, stages, ng, False, wrows=wrows) > _SMEM_BLOCK:
             stages -= 1
-    smem = core_smem(tm, tn, stages, ng, False)
+    smem = core_smem(tm, tn, stages, ng, False, wrows=wrows)
     if stages < 3 or smem > _SMEM_BLOCK:
         raise ValueError(f"packed_w4_gemm: {ng} groups at {tm} x {tn} leave no room for a ring of {stages} stages")
     return PackedW4Plan("prefill", tm, tn, stages, smem, (-(-m // tm), -(-n // tn)))

@@ -13,8 +13,12 @@ inputs, and a launch whose outputs are not ``torch.equal`` to the plain
 version's counts as differing.  K5 (the W8A16 head, ``w8a16_plan``'s
 launches: the Llama-2-7B head at 1, 32, 33, 64 and 65 rows, and a ragged
 shape) is held within ``W8A16_RTOL`` of its plain version once, and every
-launch bit for bit to the first.  One line per case; exit 1 if any launch
-differs.
+launch bit for bit to the first.  K14a and K14b (the int8-carrier GEMMs on
+K1's two kernels in their int8-weight form, ``grouped_int8_plan``'s
+launches: 1 to 65 rows and 288 at N 4,096, K14a also at N 11,008 and the
+70B down depth) are held bit for bit against their plain versions once, and
+every launch bit for bit to the first.  One line per case; exit 1 if any
+launch differs.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ K1_PLANNED = [(32, QKV, None, None, None), (32, GATE_UP, None, None, None), (64,
 K2_PLANNED = (64, 96, 128)
 VOCAB, HEAD_N = 32000, 32256  # the head padded to whole 64-column tiles
 K5_PLANNED = [(m, HID, HEAD_N) for m in (1, 32, 33, 64, 65)] + [(17, 4000, 4160)]
+# K14a (M, K, N) and K14b (M, N at K 4,096)
+K14A_PLANNED = [(m, HID, HID) for m in (1, 17, 32, 48, 64, 65, 288)] + [(32, HID, INTER), (32, 28672, 1024)]
+K14B_PLANNED = [(m, HID) for m in (1, 17, 32, 64, 65, 288)]
 
 
 def main() -> int:
@@ -43,6 +50,7 @@ def main() -> int:
     import torch
 
     from atom_tpu_torch.models.nn import rope_tables
+    from atom_tpu_torch.ops import gemm as g8
     from atom_tpu_torch.ops import gemm_packed as gp
     from atom_tpu_torch.ops import gemm_w4a16 as gw
 
@@ -64,6 +72,11 @@ def main() -> int:
         a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
         return (a, randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n)), uniform(0.01, 0.2, (m, ng + 1)),
                 uniform(0.001, 0.02, (ng + 1, n)))
+
+    def int8_inputs(m, k, n):
+        ng = k // 128
+        a = torch.cat([randint(-128, 128, (m, (ng - 1) * 128)), randint(-127, 128, (m, 128))], dim=1)
+        return a, randint(-128, 128, (k, n)), uniform(0.01, 0.2, (m, ng)), uniform(0.001, 0.02, (ng, n))
 
     def same(got, want):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -114,6 +127,17 @@ def main() -> int:
         print(f"K5 M={m} K={k} N={n}: max |diff| {err} against {gw.W8A16_RTOL} x {top}", flush=True)
         differ += int(err > gw.W8A16_RTOL * top)
         differ += count(f"K5 M={m} K={k} N={n} under {gw.w8a16_plan(m, k, n)}", lambda: gw.w8a16_gemm(x, wq), first)
+    for m, k, n in K14A_PLANNED:
+        ops = int8_inputs(m, k, n)
+        first = g8.grouped_int8_gemm(*ops)
+        differ += int(not same(first, g8.grouped_int8_gemm_plain(*ops)))
+        differ += count(f"K14a M={m} K={k} N={n} under {g8.grouped_int8_plan(m, k, n)}",
+                        lambda: g8.grouped_int8_gemm(*ops), first)
+    for m, n in K14B_PLANNED:
+        ops = int8_inputs(m, HID, n)
+        first = g8.grouped_int8_gemm_o4(*ops)
+        differ += int(not same(first, g8.grouped_int8_gemm_o4_plain(*ops)))
+        differ += count(f"K14b M={m} K={HID} N={n}", lambda: g8.grouped_int8_gemm_o4(*ops), first)
     print(f"planned launches: {differ} differ", flush=True)
     return int(differ > 0)
 

@@ -4,6 +4,13 @@
 the JAX package on shared seeded inputs: the Pallas kernels in interpret mode
 and the jnp oracle (``ops/reference.py``).
 
+Above 112 body groups (the 70B MLP down depth) the TPU kernel still adds
+every group in order, where K1 K-blocks: a numpy emulation of its float32
+order, with the multiply-add XLA contracts, equals the interpreted kernel bit
+for bit without K-blocks and differs from it with K1's; the same emulation
+with each multiply and add rounded equals K14a's plain version bit for bit
+without K-blocks and differs from it with K1's.
+
 The CUDA kernels themselves are held against the same plain versions on the
 card by ``chip_smoke.py``.
 """
@@ -143,3 +150,95 @@ def test_wrappers_refuse_other_devices_and_shapes():
     codes, params = tg.grouped_int8_gemm_o4(torch.zeros((2, 256), dtype=torch.int8), torch.zeros((256, 128),
                                             dtype=torch.int8), torch.ones((2, 2)), torch.ones((2, 128)), head_dim=64)
     assert codes.shape == (2, 128) and params.shape == (2, 2, 2)
+
+
+def _fma32(x, y, z):
+    """float32 ``x * y + z`` rounded once, as a fused multiply-add: ``x * y``
+    is exact in float64; where the float64 sum lands on a float32 midpoint
+    its own rounding error (TwoSum) decides the direction."""
+    p = x.astype(np.float64) * y.astype(np.float64)
+    z64 = z.astype(np.float64)
+    s = p + z64
+    bb = s - p
+    err = (p - (s - bb)) + (z64 - bb)  # s + err == p + z exactly
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    other = np.where(s > r64, np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf)))
+    midpoint = (s != r64) & (2 * np.abs(s - r64) == np.abs(other.astype(np.float64) - r64))
+    return np.where(midpoint & (err != 0) & (np.sign(err) == np.sign(s - r64)), other, r)
+
+
+def _mul_add32(x, y, z):
+    """float32 ``x * y + z`` rounded twice: the multiply, then the add."""
+    return x * y + z
+
+
+def _emulate(a, w, sa, sw, kblk: bool, fma=_fma32):
+    """A float32 order of K14: term ``float(dot_g) * sa``, then
+    ``fma(term, sw, acc)``, group by group, keeper last; with ``kblk`` K1's
+    K-blocked order in the same arithmetic (partial chains of ``KBLK_G``
+    groups, each added to the output in turn, the keeper's term before the
+    last block's partial).  ``fma`` is ``_fma32`` for the interpreted
+    kernel (XLA's contraction) and ``_mul_add32`` for K14a's plain version
+    (``acc + dot * sa * sw``, each operation rounded)."""
+    m, k = a.shape
+    ng = k // 128
+    dots = np.matmul(a.reshape(m, ng, 128).transpose(1, 0, 2).astype(np.float64),
+                     w.reshape(ng, 128, -1).astype(np.float64)).astype(np.float32)  # exact: |dot| < 2**24
+    terms = [dots[g] * sa[:, g : g + 1] for g in range(ng)]
+    acc = np.zeros(dots.shape[1:], np.float32)
+    if not kblk:
+        for g in range(ng):
+            acc = fma(terms[g], sw[g : g + 1], acc)
+        return acc
+    body = ng - 1
+    for g0 in range(0, body, gp.KBLK_G):
+        part = np.zeros_like(acc)
+        for g in range(g0, min(g0 + gp.KBLK_G, body)):
+            part = fma(terms[g], sw[g : g + 1], part)
+        if g0 + gp.KBLK_G >= body:
+            acc = fma(terms[body], sw[body : body + 1], acc)
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("k", [15488, 28672])
+def test_deep_k_matches_pallas_unblocked(k):
+    """Above ``KBLK_THRESHOLD`` body groups (120 and 223 + the keeper): the
+    TPU kernel is never K-blocked.  Its interpreted output equals the numpy
+    emulation of the unblocked order bit for bit and differs from K1's
+    K-blocked order in the same arithmetic; K14a's plain version (the
+    written order, no contraction) is within 1e-6 x max|out| of it (at this
+    depth the fused multiply-add's roundings add up past the shallow cases'
+    elementwise rtol 1e-5, atol 1e-6: measured 1.7e-7 and 1.9e-7 of
+    max|out|), and K14b's codes and params equal the interpreted kernel's."""
+    m, n = 16, 128
+    qa, pw, tqa, tpw = _operands(k + 5, m, k, n)
+    a, w, sa, sw = jg._assemble_operands(qa, pw)
+    assert k // 128 - 1 > gp.KBLK_THRESHOLD
+    want = np.asarray(jg.grouped_int8_gemm(a, w, sa, sw, interpret=True))
+    an, wn, san, swn = (np.asarray(x) for x in (a, w, sa, sw))
+    np.testing.assert_array_equal(_emulate(an, wn, san, swn, kblk=False), want)
+    assert np.any(_emulate(an, wn, san, swn, kblk=True) != want)
+    got = tg.grouped_int8_gemm(*tg._assemble_operands(tqa, tpw)).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    wc, wprm = jg.grouped_int8_gemm_o4(a, w, sa, sw, interpret=True)
+    codes, params = tg.grouped_int8_gemm_o4(*tg._assemble_operands(tqa, tpw))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(wc))
+    np.testing.assert_array_equal(params.numpy(), np.asarray(wprm))
+
+
+@pytest.mark.parametrize("k", [15488, 28672])
+def test_deep_k_plain_version_is_unblocked(k):
+    """K14a's plain version (the order the CUDA kernel is held to bit for bit
+    on the card) at 120 and 223 body groups + the keeper equals the numpy
+    emulation of the unblocked order with each multiply and add rounded, bit
+    for bit, and differs from K1's K-blocked order in the same arithmetic:
+    the order is pinned exactly, and the interpreted kernel's bound above
+    covers only the fused multiply-add's roundings."""
+    qa, pw, tqa, tpw = _operands(k + 5, 16, k, 128)
+    a, w, sa, sw = tg._assemble_operands(tqa, tpw)
+    got = tg.grouped_int8_gemm(a, w, sa, sw).numpy()
+    an, wn, san, swn = (x.numpy() for x in (a, w, sa, sw))
+    np.testing.assert_array_equal(_emulate(an, wn, san, swn, kblk=False, fma=_mul_add32), got)
+    assert np.any(_emulate(an, wn, san, swn, kblk=True, fma=_mul_add32) != got)
