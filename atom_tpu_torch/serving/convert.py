@@ -1,5 +1,5 @@
-"""The JAX package's serving params and state and its baseline stacks' params
-and dense KV, as numpy trees, -> the port's.
+"""The JAX package's serving params (Llama and MoE) and state and its
+baseline stacks' params and dense KV, as numpy trees, -> the port's.
 
 Byte layouts are identical in both packages (nibble-plane weights, KV pages,
 hot ring), so the same integer codes flow through both.  The input is any
@@ -19,6 +19,7 @@ from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import resolve_device
 from atom_tpu_torch.serving import baselines as bl
 from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams, ServingState
+from atom_tpu_torch.serving.moe import MoEServingLayerParams, MoEServingParams
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -31,8 +32,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def _kpw(kw, dev) -> KernelPackedWeight:
     """The JAX package keeps body and keeper scales apart; the port merges
-    them, keeper scale last."""
-    scales = np.concatenate([kw.body_scale, kw.keeper_scale[None, :]], axis=0)
+    them, keeper scale last, on the group axis: axis 0 of one weight's
+    [ng, N] body scales, axis 1 of stacked experts' [E, ng, N]."""
+    scales = np.concatenate([kw.body_scale, np.asarray(kw.keeper_scale)[..., None, :]], axis=-2)
     return KernelPackedWeight(
         body_packed=tensor_from_numpy(kw.body_packed, dev),
         keeper=tensor_from_numpy(kw.keeper, dev),
@@ -63,6 +65,28 @@ def serving_params_from_numpy(params, device=None) -> ServingParams:
         embed=tensor_from_numpy(params.embed, dev),
         final_norm=tensor_from_numpy(params.final_norm, dev),
         lm_head=lm_head,
+        layers=layers,
+    )
+
+
+def moe_serving_params_from_numpy(params, device=None) -> MoEServingParams:
+    """Numpy tree of the JAX ``MoEServingParams`` -> the port's, bit for bit
+    (the stacked expert weights' scales merged per expert), with
+    ``ln_attn_g = ln_attn[attn_reorder]``, which the JAX package takes at
+    call time."""
+    dev = resolve_device(device)
+    layers = []
+    for lp in params.layers:
+        fields = {}
+        for f in MoEServingLayerParams._fields[:-1]:
+            v = getattr(lp, f)
+            fields[f] = _kpw(v, dev) if f.startswith("w") else tensor_from_numpy(v, dev)
+        fields["ln_attn_g"] = tensor_from_numpy(np.asarray(lp.ln_attn)[np.asarray(lp.attn_reorder)], dev)
+        layers.append(MoEServingLayerParams(**fields))
+    return MoEServingParams(
+        embed=tensor_from_numpy(params.embed, dev),
+        final_norm=tensor_from_numpy(params.final_norm, dev),
+        lm_head=tensor_from_numpy(params.lm_head, dev),
         layers=layers,
     )
 

@@ -27,6 +27,11 @@ Phases, each fatal on failure:
      order), each shape timed on its own and under other layouts of the core;
      K1's prefill GEMM bit for bit at o_proj, gate/up and down from 100 to
      1024 rows and at the 70B depth at 288 rows, K7 at every prefill row count;
+     and at Mixtral-8x7B's shapes (each row's ``moe``): K1 at the experts'
+     gate/up (N 28,672) and down (K 14,336) at 32 rows and on the prefill GEMM
+     at the routed capacity (256 rows), K2 and K7 at GQA 32/8 (N 6,144), K3
+     at GQA 32/8, K4 on 8 kv heads, K10 at inter 14,336 with row_scale on a
+     float32 residual;
   3. drive the W4A4 decode path at full width (32 layers, hidden 4096,
      ATOM_W4A4, random weights from a seed): ``decode_burst`` over 2 ring
      windows, which flush, with every kernel's launch count read; then decode
@@ -59,6 +64,16 @@ Phases, each fatal on failure:
      W4A16 stack at 2 layers, kernel path against plain path (a decode step, a
      prefill, the engine with a dozen requests); and the W4A4 stack's ratios
      against each baseline, burst and engine.
+  8. Mixtral-8x7B (``serving/moe.py``) at full width and all 32 layers,
+     ``ATOM_W4A4``, random weights from a seed, the bf16 head, after the
+     baselines' params are freed: ``decode_burst_moe`` at batch 32, context
+     512 (launches over 2 flushing windows checked per layer and expert,
+     tok/s by the slope between 1 and 4 windows, device time and kernels a
+     step over 4 profiled steps, peak memory), the same under ``ATOM_TPU_FUSED_MLP=1`` (K9 and eight K10 a
+     layer, no K1); the engine cell of phase 4 over ``make_moe_step_fns`` at
+     8 layers (the 512 bucket's prompts on the routed experts); at 2 layers
+     the kernel path against the plain path (a flushing decode step unfused
+     and fused, prefills at 256 rows, dense, and 512, routed).
 
 stdout ends with the kernels line, the results line, the ratios line, the card
 line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -101,6 +116,9 @@ MIXED_M = BATCH + PAGE  # rows of a mixed step: the decode batch and one page-si
 # K1 and K7 on the prefill GEMM: the engine's buckets, the largest, the mixed
 # step's rows, and (K1) an M that is not a multiple of the row tile
 PREFILL_GEMM_MS = (128, 256, 512, 1024, MIXED_M, 100)
+# Mixtral-8x7B's expert width and kv heads, and an expert's rows in the routed
+# prefill at the 512-token bucket (``serving.moe._moe_capacity(512)``)
+MOE_INTER, MOE_KV, MOE_CAPACITY = 14336, 8, 256
 
 
 class SmokeError(RuntimeError):
@@ -338,7 +356,7 @@ def check_kernels(torch, dev) -> dict:
               layouts={})
     k1_bytes = k1_ops = 0
     k1_shapes = (("o_proj", HID, HID), ("gate_up", HID, 2 * INTER), ("down", INTER, HID), ("qkv", HID, 3 * HID),
-                 ("down_70b_depth", 28672, 1024))
+                 ("down_70b_depth", 28672, 1024), ("moe_gate_up", HID, 2 * MOE_INTER), ("moe_down", MOE_INTER, HID))
     for tag, ktot, n in k1_shapes:
         args = k1_inputs(BATCH, ktot, n)
         got, want = gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)
@@ -353,7 +371,7 @@ def check_kernels(torch, dev) -> dict:
             k1["ms"] += ms
             k1["plain_ms"] += timer(lambda: gp.packed_w4_gemm_plain(*args), n=5)
             k1_bytes, k1_ops = k1_bytes + nbytes, k1_ops + ops
-        if tag != "down_70b_depth":  # other layouts of the core: (tile_n, tile_m, stages)
+        if tag in ("o_proj", "gate_up", "down", "qkv"):  # other layouts of the core: (tile_n, tile_m, stages)
             for tn, tm, st in ((32, 32, None), (32, 16, None), (64, 32, None), (64, 16, None), (128, 32, None),
                                (128, 16, None), (64, 16, 8), (64, 32, 8)):
                 alt = gp.packed_w4_plan(BATCH, ktot, n, tile_n=tn, tile_m=tm, stages=st)
@@ -372,9 +390,11 @@ def check_kernels(torch, dev) -> dict:
     res["packed_w4_gemm"] = dict(
         k1, library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape="M=32; (K,N) = o_proj (4096,4096) + gate/up (4096,22016) + down (11008,4096), times summed; "
-              "ms_by_shape also qkv (4096,12288) and the 70B down depth (28672,1024)",
-        checked="decode core bitwise at M=32 (the five shapes, every layout), M=1, 8, 17, 48, 64; prefill GEMM "
-                "bitwise at M=100, 128, 256, 288, 512, 1024 (o_proj, gate/up, down) and the 70B depth at M=288",
+              "ms_by_shape also qkv (4096,12288), the 70B down depth (28672,1024) and Mixtral's expert gate/up "
+              "(4096,28672) and down (14336,4096); moe: the expert shapes on the prefill GEMM at the routed capacity",
+        checked="decode core bitwise at M=32 (the seven shapes; the first four under every layout), M=1, 8, 17, 48, 64; "
+                "prefill GEMM bitwise at M=100, 128, 256, 288, 512, 1024 (o_proj, gate/up, down), the 70B depth at "
+                "M=288 and Mixtral's expert shapes at M=256",
     )
     # K1 above 64 rows, on the prefill GEMM: o_proj, gate/up and down (summed) at every row count of
     # PREFILL_GEMM_MS, and the 70B down projection's depth (223 groups, the K-blocked order) at the mixed
@@ -457,6 +477,8 @@ def check_kernels(torch, dev) -> dict:
         ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused(y, norm_w, wp, wk, sw, cos, sin, *rk, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd)),
         plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused_plain(y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_q, abits=4, a_clip=0.9, rstd=rstd), n=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape="y [32,4096] bf16, N=12288, ring [32,32,64,32]",
+        device_us=timer.device(lambda: gp.packed_w4_gemm_qkv_ring_fused(y, norm_w, wp, wk, sw, cos, sin, *rk, row, n_q, n_q,
+                                                                         abits=4, a_clip=0.9, rstd=rstd))["us"],
         plan=gp.packed_w4_plan(BATCH, hid, n, head=True)._asdict(),
         checked="q and the whole ring bitwise at M=32, 8, 64, 96 and 128",
     )
@@ -568,6 +590,7 @@ def check_kernels(torch, dev) -> dict:
     first = torch.arange(BATCH, device=dev) == 0
     cases = {  # name: (q heads, kv heads, flushed, n_hot)
         "mha": (h, h, flushed, n_hot), "gqa_64q_8kv": (2 * h, h // 4, flushed, n_hot),
+        "gqa_32q_8kv": (h, MOE_KV, flushed, n_hot),  # Mixtral-8x7B: 4 query heads a kv head
         "ring_only": (h, h, none, n_hot), "pages_only": (h, h, flushed, none),
         # the engine steps idle slots too: nothing flushed, nothing in the ring
         "idle_rows": (h, h, torch.where(idle_slots(torch, dev), none, flushed), torch.where(idle_slots(torch, dev), none, n_hot)),
@@ -593,7 +616,7 @@ def check_kernels(torch, dev) -> dict:
             idle = idle_slots(torch, dev)
             require(bool(torch.isfinite(got.float()).all()) and not bool(got[idle].any()),
                     "attention of idle rows is not a finite zero row")
-        if case in ("mha", "gqa_64q_8kv", "lone_2048", "ctx_1024", "mha_8_columns"):
+        if case in ("mha", "gqa_64q_8kv", "gqa_32q_8kv", "lone_2048", "ctx_1024", "mha_8_columns"):
             tokens = (fl_ + nh_).sum().item()
             nbytes = tokens * hkv * (128 + 8) + 2 * q.numel() * 2 + table.numel() * 4 + 2 * BATCH * 4
             b_ms, b_by = bound(nbytes, 4 * hq * 128 * tokens, PEAK_BF16_OPS)
@@ -654,6 +677,10 @@ def check_kernels(torch, dev) -> dict:
             "rolled": (lambda p_: dec.flush_hot(p_, *blocks_d, *book), lambda p_: dec.flush_hot_plain(p_, *blocks_d, *book)),
         }, f"head_dim {d}, ")
         del pages_d, hot_d, blocks_d
+    # Mixtral-8x7B's flush: 8 kv heads of 128, the live ring at row 5, timed below
+    pages_8, hot_8, _ = kv_inputs(torch, gen, dev, BATCH, MOE_KV, w)
+    pk8, _ = flush_check(pages_8, {"ring_row_5": (lambda p_: dec.flush_hot_ring(p_, hot_8, 5, *book),
+                                                  lambda p_: dec.flush_hot_ring_plain(p_, hot_8, 5, *book))}, "8 kv heads, ")
     tokens = (lens - fl).clamp_min(0).sum().item()
     # per token and kv head: the ring's K, params and V (64 + 8 + 128 bytes) read once, the page's K and params
     # written, and the V page row (128 bytes) read for the nibble merge and written
@@ -669,12 +696,18 @@ def check_kernels(torch, dev) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, checked=sorted(forms),
         checked_head_dims={"64": ["ring_row_5", "rolled"], "256": ["ring_row_5", "rolled"]},
         shape="ring [32,32,64,32] -> pages [129,32,64,256], 30 active sequences, blocks crossing slot 512; "
-        "ring rows 0, 5, 31 read in place and the pre-rolled form; head dims 64 and 256 (8 kv heads) bitwise too",
+        "ring rows 0, 5, 31 read in place and the pre-rolled form; head dims 64 and 256 (8 kv heads) bitwise too; "
+        "moe: Mixtral-8x7B's 8 kv heads of 128, ring row 5",
     )
-    del pages, hot, pk, pp
+    ring8 = lambda: dec.flush_hot_ring(pk8, hot_8, 5, *book)  # noqa: E731
+    b_ms, b_by = bound(tokens * MOE_KV * (2 * (64 + 8 + 128) + 128) + 6 * BATCH * 4, 0, PEAK_F32_OPS)
+    res["flush_hot"]["moe"] = dict(shape="ring [32,8,64,32] -> pages [129,8,64,256], ring row 5", max_abs_err=0.0,
+                                   ms=timer(ring8), device_us=timer.device(ring8)["us"], bound_ms=b_ms, bound_by=b_by)
+    del pages, hot, pk, pp, pages_8, hot_8, pk8
     torch.cuda.empty_cache()
     res.update(check_new_kernels(torch, dev, timer, gen))
     res.update(check_slice4_kernels(torch, dev, timer, gen))
+    check_moe_kernels(torch, dev, timer, gen, res)
     return res
 
 
@@ -1182,6 +1215,132 @@ def check_slice4_kernels(torch, dev, timer, gen) -> dict:
         **{f"{case}_{k_}": v_ for case, r in k14b.items() for k_, v_ in r.items()})
     torch.cuda.empty_cache()
     return res
+
+
+def check_moe_kernels(torch, dev, timer, gen, res: dict) -> None:
+    """Phase 2, continued: K1, K2, K7 and K10 at Mixtral-8x7B's shapes (the
+    MoE phase's), each into its row's ``moe`` entry: K1's expert gate/up and
+    down on the prefill GEMM at the routed capacity, K2 and K7 at GQA 32/8
+    (N 6,144), K10 at inter 14,336 with ``row_scale`` on a float32 residual
+    (MoE's fused chain).  K1 at 32 rows is in ``check_kernels``' shapes, K3
+    and K4 in their own checks there."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.models.nn import rope_tables
+    from atom_tpu_torch.numerics import rms_rstd
+    from atom_tpu_torch.ops import gemm_packed as gp
+    from atom_tpu_torch.ops import mlp
+    from atom_tpu_torch.serving.model import _rand_packed
+
+    def randint(lo, hi, shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(dtype)
+
+    def uniform(lo, hi, shape, dtype=torch.float32):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo).to(dtype)
+
+    def normal(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # --- K1 on the prefill GEMM at the routed prefill's rows: the experts' gate/up and down, bitwise
+    k1 = {}
+    for tag, ktot, n in (("gate_up", HID, 2 * MOE_INTER), ("down", MOE_INTER, HID)):
+        args = k1_operands(torch, gen, dev, MOE_CAPACITY, ktot, n)
+        require(torch.equal(gp.packed_w4_gemm(*args), gp.packed_w4_gemm_plain(*args)),
+                f"packed_w4_gemm at M={MOE_CAPACITY}, K={ktot}, N={n} (MoE {tag}) is not bitwise its plain version")
+        plan = gp.packed_w4_plan(MOE_CAPACITY, ktot, n)
+        b_ms, b_by = bound(*k1_bound(MOE_CAPACITY, ktot, n), PEAK_INT8_OPS)
+        k1[f"m{MOE_CAPACITY}_{tag}"] = dict(
+            ms=timer(lambda: gp.packed_w4_gemm(*args), n=10), plain_ms=timer(lambda: gp.packed_w4_gemm_plain(*args), n=3, warm=1),
+            bound_ms=b_ms, bound_by=b_by, plan=f"{plan.path} {plan.tile_m}x{plan.tile_n} st{plan.stages}")
+        del args
+    res["packed_w4_gemm"]["moe"] = dict(k1, shape=f"the expert gate/up (K 4096, N 28672) and down (K 14336, N 4096) at "
+                                        f"M={MOE_CAPACITY}, the routed prefill's capacity at 512 tokens; M=32 under "
+                                        "ms_by_shape moe_gate_up / moe_down")
+    torch.cuda.empty_cache()
+
+    # --- K2 at GQA 32/8: q and the whole ring bitwise; K7 at the engine's buckets: bitwise
+    hid, n_q, n_kv, w, row = HID, HID, MOE_KV * 128, 32, 17
+    n = n_q + 2 * n_kv
+    ng = hid // 128 - 1
+    y = normal((BATCH, hid), 1.0, torch.bfloat16)
+    norm_w = uniform(0.7, 1.3, (hid,), torch.bfloat16)
+    wp, wk = randint(-128, 128, (ng * 64, n)), randint(-127, 128, (128, n))
+    sw = uniform(0.0005, 0.004, (ng + 1, n))
+    cos, sin = rope_tables(randint(0, 2048, (BATCH,), torch.int32), 128, 1e6)
+    rstd = rms_rstd(y)
+    ring0 = (randint(-128, 128, (BATCH, MOE_KV, 64, w)), uniform(0.01, 0.1, (BATCH, 4, MOE_KV, w), torch.bfloat16),
+             randint(0, 16, (BATCH, MOE_KV, w, 128)))
+    rk, rp_ = [r.clone() for r in ring0], [r.clone() for r in ring0]
+    k2 = lambda ring: gp.packed_w4_gemm_qkv_ring_fused(y, norm_w, wp, wk, sw, cos, sin, *ring, row, n_q, n_kv,  # noqa: E731
+                                                       abits=4, a_clip=0.9, rstd=rstd)
+    qk = k2(rk)
+    qp = gp.packed_w4_gemm_qkv_ring_fused_plain(y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_kv, abits=4, a_clip=0.9,
+                                                rstd=rstd)
+    require(torch.equal(bits(qk), bits(qp)) and all(torch.equal(bits(a_), bits(b_)) for a_, b_ in zip(rk, rp_)),
+            "qkv_ring_fused at GQA 32/8 differs from its plain version")
+    nbytes = (y.numel() * 2 + hid * 2 + BATCH * 4 + wp.numel() + wk.numel() + 4 * sw.numel() + 2 * 4 * BATCH * 128
+              + BATCH * n_q * 2 + BATCH * MOE_KV * (64 + 8 + 128))
+    b_ms, b_by = bound(nbytes, 2 * BATCH * n * hid, PEAK_INT8_OPS)
+    res["packed_w4_gemm_qkv_ring_fused"]["moe"] = dict(
+        shape="y [32,4096] bf16, N=6144 (32 query + 2 x 8 kv heads of 128), ring [32,8,64,32]", max_abs_err=0.0,
+        ms=timer(lambda: k2(rk)), host_us=timer.host_us, device_us=timer.device(lambda: k2(rk))["us"],
+        plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_ring_fused_plain(
+            y, norm_w, wp, wk, sw, cos, sin, *rp_, row, n_q, n_kv, abits=4, a_clip=0.9, rstd=rstd), n=5),
+        bound_ms=b_ms, bound_by=b_by, plan=gp.packed_w4_plan(BATCH, hid, n, head=True)._asdict())
+    k7 = {}
+    for m in (128, 256, 512):
+        a = torch.cat([randint(-8, 8, (m, ng * 128)), randint(-127, 128, (m, 128))], dim=1)
+        sa = uniform(0.01, 0.2, (m, ng + 1))
+        c7, s7 = rope_tables(torch.arange(m, device=dev), 128, 1e6)
+        got = gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, c7, s7, n_q, n_kv)
+        want = gp.packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, c7, s7, n_q, n_kv)
+        for name, g_, w_ in zip(("q", "k_codes", "k_prm", "v_codes", "v_prm"), got, want):
+            require(torch.equal(bits(g_), bits(w_)), f"packed_w4_gemm_qkv at M={m}, GQA 32/8: {name} differs from its plain version")
+        nbytes = (a.numel() + wp.numel() + wk.numel() + 4 * (sa.numel() + sw.numel()) + 2 * 4 * m * 128 + m * n_q * 2
+                  + 2 * m * MOE_KV * (128 + 8))
+        b_ms, b_by = bound(nbytes, 2 * m * n * hid, PEAK_INT8_OPS)
+        k7[f"m{m}"] = dict(ms=timer(lambda: gp.packed_w4_gemm_qkv(a, wp, wk, sa, sw, c7, s7, n_q, n_kv), n=10),
+                           plain_ms=timer(lambda: gp.packed_w4_gemm_qkv_plain(a, wp, wk, sa, sw, c7, s7, n_q, n_kv), n=3, warm=1),
+                           bound_ms=b_ms, bound_by=b_by)
+        del got, want
+    res["packed_w4_gemm_qkv"]["moe"] = dict(k7, max_abs_err=0.0,
+                                           shape="a int8 [M,4096], N=6144 (GQA 32/8), M = the buckets 128, 256, 512")
+    log(f"MoE shapes: K1 {k1}, K2 {res['packed_w4_gemm_qkv_ring_fused']['moe']['ms']:.4f} ms, K7 {k7}")
+    del wp, wk, sw, ring0, rk, rp_
+    torch.cuda.empty_cache()
+
+    # --- K10 at inter 14,336, no norm, row_scale on a float32 residual (one expert of MoE's fused chain): act codes
+    # against the plain version (flips counted), the down half on the kernel's act codes bitwise, and bitwise with
+    # its four-launch form
+    spec = ATOM_W4A4
+    gu = _rand_packed(gen, HID, 2 * MOE_INTER, spec, dev)
+    dn = _rand_packed(gen, MOE_INTER, HID, spec, dev)
+    h_r = normal((BATCH, HID), 1.0, torch.bfloat16)
+    acc = normal((BATCH, HID))
+    row_scale = uniform(0.0, 1.0, (BATCH,))
+    kwargs = dict(row_scale=row_scale, abits=spec.abits, a_clip=spec.a_clip_ratio)
+    out, act, act_s = mlp.fused_mlp_packed_stages(h_r, acc, gu, dn, **kwargs)
+    four = mlp.fused_mlp_packed_stages(h_r, acc, gu, dn, path=mlp.FOUR_LAUNCH, **kwargs)
+    require(out.dtype == torch.float32 and all(torch.equal(bits(g_), bits(w_)) for g_, w_ in zip((out, act, act_s), four)),
+            "fused_mlp_packed at inter 14336: the cluster epilogue differs from the four-launch form")
+    act_p, act_sp = mlp.fused_mlp_act_plain(h_r, gu, abits=spec.abits, a_clip=spec.a_clip_ratio)
+    flips, scale_flips = act.ne(act_p).float().mean().item(), act_s.ne(act_sp).float().mean().item()
+    require(flips <= 1e-3 and scale_flips <= 1e-3,
+            f"fused_mlp_packed at inter 14336: {flips:.4%} of act codes and {scale_flips:.4%} of act scales differ")
+    require(torch.equal(out, mlp.fused_mlp_down_plain(act, act_s, acc, dn, row_scale)),
+            "fused_mlp_packed at inter 14336: down half differs from its plain version")
+    whole = mlp.fused_mlp_packed_plain(h_r, acc, gu, dn, **kwargs)
+    fused = lambda: mlp.fused_mlp_packed(h_r, acc, gu, dn, **kwargs)  # noqa: E731
+    nbytes = 2 * h_r.numel() + 2 * 4 * acc.numel() + 4 * BATCH + sum(t.numel() * t.element_size() for t in (*gu, *dn))
+    b_ms, b_by = bound(nbytes, 2 * BATCH * HID * 3 * MOE_INTER, PEAK_INT8_OPS)
+    res["fused_mlp_packed"]["moe"] = dict(
+        shape="h_r bf16 [32,4096], no norm, gate/up N 28672, down K 14336, row_scale [32], acc float32 [32,4096]",
+        act_code_flips=flips, act_scale_flips=scale_flips, max_abs_err=(out - whole).abs().max().item(),
+        equal_to_four_launch=True, ms=timer(fused), device_us=timer.device(fused)["us"],
+        plain_ms=timer(lambda: mlp.fused_mlp_packed_plain(h_r, acc, gu, dn, **kwargs), n=3, warm=1),
+        bound_ms=b_ms, bound_by=b_by, gu_plan=gp.packed_w4_plan(BATCH, HID, 2 * MOE_INTER, paired=True)._asdict())
+    log(f"K10 at inter {MOE_INTER}: {res['fused_mlp_packed']['moe']}")
+    del gu, dn
+    torch.cuda.empty_cache()
 
 
 def llama7b(layers: int):
@@ -1844,6 +2003,25 @@ GATHER_KERNELS = ("_scatter_gather_elementwise_kernel", "indexSelect")
 ROLL_KERNEL = "roll_cuda_kernel"  # torch.roll on the card
 
 
+def k1_family(kernels, steps: int) -> dict:
+    """The K1 family's kernels among profiler events (ms and launches per
+    step): the decode core by its epilogue, the prefill GEMM, the activation
+    prologue (K2's first launch; also K9's and K10's), SiLU (K10's four-launch
+    form); the reorder gathers (index_select) that feed them; and torch.roll's
+    copies."""
+    gemm = {}
+    for e in kernels:
+        core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)(?:, (?:true|false))?>", e.key)
+        name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
+                next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None)
+                or ("gather" if any(g_ in e.key for g_ in GATHER_KERNELS) else None)
+                or ("roll" if ROLL_KERNEL in e.key else None))
+        if name:
+            ms, cnt = gemm.get(name, (0.0, 0.0))
+            gemm[name] = (ms + e.self_device_time_total / steps / 1e3, cnt + e.count / steps)
+    return {k: dict(ms_per_step=v[0], launches_per_step=v[1]) for k, v in gemm.items()}
+
+
 def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_file="profile.txt") -> tuple:
     """One profiled ring window: device time by kernel, written to
     ``OUT / out_file``; returns device ms, kernels and K3 kernels per
@@ -1877,20 +2055,8 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
         f"{n_kernels} device kernels\n{table_txt}\n")
     require(dev_us > 0, "the profiler recorded no device time")
     k3 = sum(e.count for e in kernels if K3_KERNEL in e.key and ", true>" in e.key)
-    # the K1 family's kernels (ms and launches per step): the decode core by its epilogue, the prefill
-    # GEMM, the activation prologue (K2's first launch; also K9's and K10's), SiLU (K10's four-launch form);
-    # the reorder gathers (index_select) that feed them; and torch.roll's copies (none: the flush reads the ring)
-    gemm = {}
-    for e in kernels:
-        core = re.search(r"gemm_core_kernel<(\d+), (\d+), (?:true|false)>", e.key)
-        name = (f"core_{CORE_EPILOGUES[int(core.group(2))]}" if core else
-                next((n for n in ("gemm_prefill_kernel", "quant_prologue_kernel", "silu_mul_quant_kernel") if n in e.key), None)
-                or ("gather" if any(g_ in e.key for g_ in GATHER_KERNELS) else None)
-                or ("roll" if ROLL_KERNEL in e.key else None))
-        if name:
-            ms, cnt = gemm.get(name, (0.0, 0.0))
-            gemm[name] = (ms + e.self_device_time_total / w / 1e3, cnt + e.count / w)
-    gemm = {k: dict(ms_per_step=v[0], launches_per_step=v[1]) for k, v in gemm.items()}
+    # the K1 family's kernels; torch.roll's copies must be none: the flush reads the ring
+    gemm = k1_family(kernels, w)
     log(f"profiled window: {n_kernels / w:.0f} device kernels per step, {k3 / w:.0f} of them K3 ({k3_counted:.0f} "
         f"launched); K1 family {gemm}")
     return dev_us / w / 1e3, n_kernels / w, k3 / w, k3_counted, gemm
@@ -1898,10 +2064,11 @@ def profile_decode(torch, params, state, ids, table, full, cfg, spec, w, out_fil
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the serving model, the baseline stacks and the int8-carrier
-    drop-ins through the plain PyTorch versions."""
+    """Route the serving model (Llama and MoE), the baseline stacks and the
+    int8-carrier drop-ins through the plain PyTorch versions."""
     import atom_tpu_torch.serving.baselines as bl
     import atom_tpu_torch.serving.model as sm
+    import atom_tpu_torch.serving.moe as moe
     from atom_tpu_torch.ops import decode as dec
     from atom_tpu_torch.ops import gemm as g8
     from atom_tpu_torch.ops import gemm_packed as gp
@@ -1921,6 +2088,10 @@ def plain_path():
         (sm, "w8a16_gemm", gw.w8a16_gemm_plain),
         (sm, "flush_hot_ring", dec.flush_hot_ring_plain),
         (sm, "paged_ring_decode_attention", dec.paged_ring_decode_attention_plain),
+        (moe, "packed_w4_gemm_fused_in", gp.packed_w4_gemm_fused_in_plain),
+        (moe, "fused_mlp_packed", mlp.fused_mlp_packed_plain),
+        (moe, "flush_hot_ring", dec.flush_hot_ring_plain),
+        (moe, "paged_ring_decode_attention", dec.paged_ring_decode_attention_plain),
         (gp, "packed_w4_gemm", gp.packed_w4_gemm_plain),
         (sm, "w4a16_gemm", gw.w4a16_gemm_plain),
         (bl, "w4a16_gemm", gw.w4a16_gemm_plain),
@@ -1944,15 +2115,19 @@ def entries_differing(a_layers, b_layers) -> float:
                            for la, lb in zip(a_layers, b_layers) for a, b in zip(la, lb))
 
 
-def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch: tuple, fused: bool = False) -> dict:
+def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch: tuple, fused: bool = False,
+                         cfg=None, hidden_fn=None) -> dict:
     """Phase 5: one flushing decode step at 2 layers, kernels vs plain, on the
     decode branch that ``batch`` and ``spec`` select; with ``fused`` the
-    post-attention half as K9 + K10 (``ATOM_TPU_FUSED_MLP=1``)."""
+    post-attention half as K9 + K10 (``ATOM_TPU_FUSED_MLP=1``).  ``cfg`` and
+    ``hidden_fn`` (the 2-layer Llama-2-7B and ``decode_hidden`` by default):
+    another model's and its layer stack (the MoE phase's)."""
     from atom_tpu_torch.ops.kv_hot import HotKV
     from atom_tpu_torch.ops.kv_layout import KVPages
     from atom_tpu_torch.serving.model import ServingState, _lm_head_logits, decode_hidden
 
-    cfg = llama7b(2)
+    cfg = cfg or llama7b(2)
+    hidden_fn = hidden_fn or decode_hidden
     gen = torch.Generator(device=dev).manual_seed(4)
     w = 32
     pages, hot, table = random_kv_state(torch, gen, dev, cfg, batch, w)
@@ -1965,7 +2140,7 @@ def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch
         st = ServingState([KVPages(*(t.clone() for t in p)) for p in pages],
                           [HotKV(*(t.clone() for t in r)) for r in hot], w - 1, flushed.clone())
         with fused_flag() if fused else contextlib.nullcontext():
-            x, st = decode_hidden(params, st, ids, table, lens, cfg, spec, flush=True)
+            x, st = hidden_fn(params, st, ids, table, lens, cfg, spec, flush=True)
         nxt = torch.argmax(_lm_head_logits(x, head, cfg.vocab_size), -1)
         return x.float(), nxt, st
 
@@ -2206,6 +2381,242 @@ def engine_kernel_vs_plain(torch, dev, qparams, mixed: bool = False) -> dict:
                 launches={k: v for k, v in counts.items() if v})
 
 
+# the Mixtral phase: the kernels each MoE path must launch, the engine's depth (``bench_textgen.py``'s MoE
+# depth) and the profiled decode steps (a whole window runs ~7,000 kernels a step)
+MOE_DECODE_KERNELS = ("packed_w4_gemm", "packed_w4_gemm_qkv_ring_fused", "paged_ring_decode_attention", "flush_hot",
+                      "embed_gather")
+MOE_FUSED_KERNELS = ("packed_w4_gemm_fused_in", "fused_mlp_packed") + MOE_DECODE_KERNELS[1:]
+MOE_ENGINE_KERNELS = MOE_DECODE_KERNELS + ("packed_w4_gemm_qkv",)
+MOE_ENGINE_LAYERS, MOE_PROFILE_STEPS = 8, 4
+
+
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count the calls of ``module.name`` for the duration -> a list, one entry a call."""
+    calls, real = [], getattr(module, name)
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def moe_decode_path(torch, dev, params, cfg, fused: bool, profile_file: str) -> tuple[dict, dict]:
+    """The Mixtral phase's decode burst (batch 32, context 512, page 256, W
+    32; with ``fused`` under ``ATOM_TPU_FUSED_MLP=1``): 2 flushing windows and
+    one step with every launch counted and checked per layer and expert, then
+    tok/s by the slope between 1 and 4 windows (median of the positive
+    samples), device time and kernels a step over a few profiled steps (the
+    experts' GEMMs among the K1 family's kernels), peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.model import make_serving_state
+    from atom_tpu_torch.serving.moe import decode_burst_moe, decode_hidden_moe, decode_step_moe
+
+    spec = ATOM_W4A4
+    n_layers, n_exp = cfg.num_layers, cfg.num_experts
+    torch.cuda.reset_peak_memory_stats()
+    n_pages = BATCH * MAX_PAGES + 1
+    table = (1 + torch.arange(BATCH * MAX_PAGES, device=dev, dtype=torch.int32)).reshape(BATCH, MAX_PAGES)
+    full = lambda v: torch.full((BATCH,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    state = make_serving_state(n_layers, n_pages, BATCH, cfg.num_kv_heads, PAGE, cfg.head_dim, device=dev)
+    state = state._replace(flushed=full(CTX))
+    ids = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+    what = "fused MoE decode burst" if fused else "MoE decode burst"
+    with fused_flag() if fused else contextlib.nullcontext():
+        zero_counts()
+        t0 = time.perf_counter()
+        ids, state, lens = decode_burst_moe(params, state, ids, table, full(CTX), 2, cfg, spec)
+        x, state = decode_hidden_moe(params, state, ids, table, lens + 1, cfg, spec)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"{what}: 2 windows + 1 step in {time.perf_counter() - t0:.1f} s, launches {counts}")
+        w = state.hot[0].window
+        steps = 2 * w + 1
+        per = steps * n_layers
+        want = {"packed_w4_gemm_qkv_ring_fused": per, "paged_ring_decode_attention": per, "flush_hot": 2 * n_layers,
+                "embed_gather": steps, "packed_w4_gemm_qkv": 0}
+        # unfused: o_proj and every expert's gate/up and down on K1; fused: K9 for o_proj and one K10 an expert
+        want.update(dict(packed_w4_gemm_fused_in=per, fused_mlp_packed=per * n_exp, packed_w4_gemm=0) if fused else
+                    dict(packed_w4_gemm_fused_in=0, fused_mlp_packed=0, packed_w4_gemm=per * (1 + 2 * n_exp)))
+        for name, n in want.items():
+            require(counts[name] == n, f"{what}: {counts[name]} launches of {name} in {steps} steps, {n} expected")
+        require(counts["flush_hot_by_path"]["rolled"] == 0, f"{what} flushed pre-rolled blocks")
+        require(counts["packed_w4_gemm_by_path"]["prefill"] == 0, f"{what} ran the prefill GEMM")
+        require(not fused or counts["fused_mlp_packed_by_path"]["four_launch"] == 0, f"{what} ran K10's four-launch form")
+        require(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{what}: next ids out of range")
+        require(bool(torch.isfinite(x.float()).all()), f"{what}: hidden states not finite")
+        require(bool((lens == CTX + 2 * w).all()), f"{what}: sequence lengths did not advance by {2 * w}")
+
+        def timed(n):
+            nonlocal state, ids
+            state = state._replace(flushed=full(CTX), row=0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, state, _ = decode_burst_moe(params, state, ids, table, full(CTX), n, cfg, spec)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        samples = []
+        for _ in range(3):
+            t_lo, t_hi = timed(1), timed(4)
+            samples.append((t_hi - t_lo) / (3 * w))
+            log(f"  {what} step time sample: {samples[-1] * 1e3:.3f} ms")
+        positive = [s for s in samples if s > 0]
+        require(len(positive) > 0, f"{what}: no positive step-time sample")
+        step_ms = statistics.median(positive) * 1e3
+
+        # a few non-flushing steps under the profiler, from ring row 0
+        state = state._replace(flushed=full(CTX), row=0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(MOE_PROFILE_STEPS):
+                ids, state = decode_step_moe(params, state, ids, table, full(CTX + 1 + i), cfg, spec)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / MOE_PROFILE_STEPS / 1e3
+        n_kernels = sum(e.count for e in kernels) / MOE_PROFILE_STEPS
+        OUT.mkdir(exist_ok=True)
+        (OUT / profile_file).write_text(
+            f"{MOE_PROFILE_STEPS} {what} steps: device {dev_ms:.3f} ms a step, {n_kernels:.0f} kernels a step\n"
+            + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40) + "\n")
+        require(dev_ms > 0, f"{what}: the profiler recorded no device time")
+    stats = dict(decode_tok_s=BATCH / step_ms * 1e3, step_ms=step_ms, step_ms_samples=[s * 1e3 for s in samples],
+                 device_ms_per_step_profiled=dev_ms, device_busy_share=dev_ms / step_ms, device_kernels_per_step=n_kernels,
+                 k1_family_kernels_per_step=k1_family(kernels, MOE_PROFILE_STEPS), profiled_steps=MOE_PROFILE_STEPS,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{what}: step {step_ms:.3f} ms, device {dev_ms:.3f} ms ({n_kernels:.0f} kernels), K1 family "
+        f"{stats['k1_family_kernels_per_step']}")
+    return counts, stats
+
+
+def moe_engine_path(torch, dev, params, cfg) -> tuple[dict, dict]:
+    """The serving engine over ``make_moe_step_fns`` at ``MOE_ENGINE_LAYERS``
+    layers in the engine cell's configuration (``engine_setup``): launch
+    counts, every request's tokens, the pool; the prompts of the 512 bucket
+    take the routed experts in every layer, the others the dense ones."""
+    import atom_tpu_torch.serving.moe as moe
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving import TextGenEngine, make_moe_step_fns
+    from atom_tpu_torch.serving.model import make_serving_state
+
+    cfg = cfg.replace(num_layers=MOE_ENGINE_LAYERS)
+    params = params._replace(layers=params.layers[:MOE_ENGINE_LAYERS])
+    tg, pool, n_pages, rs = engine_setup(torch, dev, cfg)
+    state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size, cfg.head_dim,
+                               device=dev)
+    engine = TextGenEngine(tg, pool, *make_moe_step_fns(params, cfg, ATOM_W4A4), state)
+    with count_calls(moe, "_moe_mlp_routed") as routed:
+        counts, res = drive_engine(torch, engine, pool, n_pages, rs, cfg, "MoE engine", MOE_ENGINE_KERNELS)
+    n_512 = sum(1 for b, _ in engine.last_prefill_s if b >= moe.MOE_ROUTED_THRESHOLD)
+    require(n_512 > 0 and len(routed) == n_512 * cfg.num_layers,
+            f"MoE engine: {len(routed)} routed expert blocks for {n_512} prompts of the 512 bucket at {cfg.num_layers} layers")
+    check_recorded(engine, pool, n_pages, cfg, "MoE engine")
+    res.update(layers=cfg.num_layers, routed_prefills=n_512, routed_capacity=moe._moe_capacity(512, cfg))
+    return counts, res
+
+
+def moe_prefill_kernel_vs_plain(torch, dev, params, cfg, bucket: int, true_len: int) -> dict:
+    """A 2-layer MoE prefill at ``bucket`` rows (dense experts below
+    ``MOE_ROUTED_THRESHOLD``, routed from it on), kernel path against plain
+    path: layer 0's pages bitwise, the hidden rows within the decode gates'
+    structural bound, the share of page entries differing and the token."""
+    import atom_tpu_torch.serving.moe as moe
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.model import _lm_head_logits, make_serving_state
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(1, cfg.vocab_size, (bucket,), generator=gen, device=dev, dtype=torch.int32)
+    ids[true_len:] = 0
+    table_row = torch.zeros((4,), dtype=torch.int32, device=dev)
+    table_row[: bucket // PAGE] = torch.arange(bucket // PAGE, 0, -1, dtype=torch.int32, device=dev)
+
+    def run():
+        state = make_serving_state(cfg.num_layers, 4, 2, cfg.num_kv_heads, PAGE, cfg.head_dim, device=dev)
+        with count_calls(moe, "_moe_mlp_routed") as routed:
+            x, pages = moe.prefill_hidden_moe(params, state.pages, ids, table_row, cfg, ATOM_W4A4)
+        require(len(routed) == (cfg.num_layers if bucket >= moe.MOE_ROUTED_THRESHOLD else 0),
+                f"MoE prefill at {bucket} rows: {len(routed)} routed expert blocks")
+        tok = int(torch.argmax(_lm_head_logits(x[true_len - 1][None], params.lm_head, cfg.vocab_size)[0]))
+        return x[:true_len].float(), pages, tok
+
+    zero_counts()
+    xk, pk, tk = run()
+    counts = read_counts()
+    require(counts["packed_w4_gemm_qkv"] == cfg.num_layers and counts["packed_w4_gemm"] > 0,
+            f"MoE prefill at {bucket} rows: launches {counts}")
+    with plain_path():
+        xp, pp, tp = run()
+    require(read_counts() == counts, "the plain path launched a kernel")
+    require(all(torch.equal(bits(a), bits(b)) for a, b in zip(pk[0], pp[0])),
+            f"MoE prefill at {bucket} rows: layer 0's pages differ between the paths")
+    diff = (xk - xp).abs()
+    moved, dmax = (diff > 0.05).float().mean().item(), diff.max().item()
+    page_diff = entries_differing(pk, pp)
+    log(f"MoE prefill at {bucket} rows ({true_len} true), kernel vs plain path: {moved:.4%} of hidden moved > 0.05, max "
+        f"{dmax:.4f}, page entries differing {page_diff:.6f}, token {tk} / {tp}")
+    require(bool(torch.isfinite(xk).all()), f"MoE prefill at {bucket} rows: hidden states not finite")
+    require(moved < 0.25 and dmax < 1.5, f"MoE prefill at {bucket} rows: kernel path diverges: {moved:.2%} moved, max {dmax}")
+    return dict(moved_gt_0p05=moved, max_abs=dmax, hidden_bitwise_equal=bool(torch.equal(xk, xp)),
+                page_entries_differing=page_diff, token_equal=tk == tp, launches={k: v for k, v in counts.items() if v})
+
+
+def mixtral_phase(torch, dev) -> tuple[dict, dict]:
+    """Phase 8: Mixtral-8x7B at full width and all 32 layers (``ATOM_W4A4``,
+    random weights from a seed, the bf16 head), one device: the decode burst
+    unfused and fused, the engine at ``MOE_ENGINE_LAYERS`` layers (its first
+    layers), and at 2 layers the kernel path against the plain path (a
+    flushing decode step unfused and fused, prefills at 256 and 512 rows)."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.models.configs import MIXTRAL_8X7B
+    from atom_tpu_torch.serving.moe import decode_hidden_moe, init_moe_serving_params
+
+    cfg = MIXTRAL_8X7B
+    t0 = time.perf_counter()
+    params = init_moe_serving_params(cfg, ATOM_W4A4, seed=0, device=dev)
+    torch.cuda.synchronize()
+    params_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    expert_bytes = sum(t.numel() * t.element_size() for lp in params.layers for t in (*lp.wgateup, *lp.wdown))
+    layer_bytes = sum(t.numel() * t.element_size() for lp in params.layers for t in _leaves(lp))
+    res = dict(params_gb=params_gb, init_s=time.perf_counter() - t0,
+               # dense routing reads every expert every step: their bytes, and every layer's and the head's, at HBM rate
+               experts_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
+               weights_bound_ms=(layer_bytes + params.lm_head.numel() * 2) / HBM_BYTES_PER_S * 1e3)
+    log(f"Mixtral-8x7B params ({params_gb:.2f} GB) in {res['init_s']:.1f} s; experts' byte bound "
+        f"{res['experts_bound_ms']:.3f} ms a step")
+    counts = {}
+    counts["moe_decode_burst"], res["decode"] = moe_decode_path(torch, dev, params, cfg, False, "profile_moe.txt")
+    torch.cuda.empty_cache()
+    counts["moe_fused_decode_burst"], res["decode_fused"] = moe_decode_path(torch, dev, params, cfg, True,
+                                                                             "profile_moe_fused.txt")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts["moe_engine"], res["engine"] = moe_engine_path(torch, dev, params, cfg)
+    torch.cuda.empty_cache()
+    log(f"MoE engine in {time.perf_counter() - t1:.1f} s")
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = params._replace(layers=params.layers[:2])
+    res["path_parity_2_layers"] = {
+        "decode_step": kernel_vs_plain_path(torch, dev, p2, BATCH, ATOM_W4A4, p2.lm_head, MOE_DECODE_KERNELS[:4],
+                                            cfg=cfg2, hidden_fn=decode_hidden_moe),
+        "decode_step_fused": kernel_vs_plain_path(torch, dev, p2, BATCH, ATOM_W4A4, p2.lm_head, MOE_FUSED_KERNELS[:2],
+                                                  fused=True, cfg=cfg2, hidden_fn=decode_hidden_moe),
+        "prefill_256_dense": moe_prefill_kernel_vs_plain(torch, dev, p2, cfg2, 256, 200),
+        "prefill_512_routed": moe_prefill_kernel_vs_plain(torch, dev, p2, cfg2, 512, 400),
+    }
+    res["model"] = ("Mixtral-8x7B (hidden 4096, 32 / 8 heads of 128, 8 experts of 14336, top-2), ATOM_W4A4, bf16 head; "
+                    f"bursts at 32 layers, engine at {MOE_ENGINE_LAYERS}, parity at 2")
+    del params, p2
+    torch.cuda.empty_cache()
+    return counts, res
+
+
 SOURCES = {
     "packed_w4_gemm": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:284"),
     "packed_w4_gemm_qkv_ring_fused": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:1261"),
@@ -2241,6 +2652,9 @@ MAIN_PATH = {
     "grouped_int8_gemm": "int8_carrier_layer",
     "grouped_int8_gemm_o4": "int8_carrier_layer",
 }
+# the Mixtral phase's path that must launch each kernel of its table
+MOE_PATH = dict({k: "moe_decode_burst" for k in MOE_DECODE_KERNELS}, packed_w4_gemm_qkv="moe_engine",
+                **{k: "moe_fused_decode_burst" for k in MOE_FUSED_KERNELS[:2]})
 BASELINE_STACKS = ("bf16", "w8a8", "w4a16")
 
 
@@ -2365,6 +2779,9 @@ def main() -> int:
     parity["w4a16_stack_2_layers"] = w4a16_stack_vs_plain(torch, dev)
     torch.cuda.empty_cache()
     log(f"W4A16 stack vs plain path in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_counts, mixtral = mixtral_phase(torch, dev)
+    log(f"Mixtral-8x7B phase in {time.perf_counter() - t0:.1f} s")
 
     w4a4_burst, w4a4_engine = decode_stats["w8a16"]["decode_tok_s"], engine_res["throughput_tok_s"]
     ratios = {b: dict(decode_burst=w4a4_burst / baselines[b]["burst"]["decode_tok_s"],
@@ -2382,10 +2799,13 @@ def main() -> int:
                         mixed_engine=mixed_counts[name], int_input_ring_branch=branch_counts.get(name, 0),
                         kernel_prefill=kernel_prefill_launches if name == "flash_code_attention" else 0,
                         int8_carrier_layer=int8_counts[name],
-                        **{f"{b}_stack_{ph}": base_counts[b][ph][name] for b in BASELINE_STACKS for ph in ("burst", "engine")})
+                        **{f"{b}_stack_{ph}": base_counts[b][ph][name] for b in BASELINE_STACKS for ph in ("burst", "engine")},
+                        **{ph: c[name] for ph, c in moe_counts.items()})
         path = MAIN_PATH.get(name, "engine")
         launches = by_phase[path]
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
+        if name in MOE_PATH:
+            require(by_phase[MOE_PATH[name]] > 0, f"kernel {name} was launched no time on its MoE path ({MOE_PATH[name]})")
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=launches, launches_on=path,
                          launches_by_phase={k_: v_ for k_, v_ in by_phase.items() if v_}, **k))
         if name == "flush_hot":  # K4's launches by form: the live ring in place, pre-rolled blocks
@@ -2417,7 +2837,9 @@ def main() -> int:
                           f"positive ones, batch {BATCH}, context {CTX}, dense KV of {CTX + BURST_HI * 3 + 64} rows",
                           engine_config=engine_config),
         "int8_carrier_layer": int8_res,
-        "model": "Llama-2-7B width, 32 layers; W4A4 and the baseline stacks bf16, W8A8, W4A16", "card": card,
+        "mixtral": dict(mixtral, launches=moe_counts),
+        "model": "Llama-2-7B width, 32 layers; W4A4 and the baseline stacks bf16, W8A8, W4A16; Mixtral-8x7B W4A4",
+        "card": card,
         "path_parity_2_layers": parity, "wall_s": time.perf_counter() - t_all,
     }), flush=True)
     print(json.dumps({"w4a4_ratios": ratios, "w4a4_burst_head": "w8a16", "w4a4_engine_head": "bf16", "card": card}), flush=True)

@@ -307,7 +307,7 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     assert len(names) > 25
     for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
-                "ops/prefill.py", "ops/gemm.py", "serving/baselines.py"):
+                "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
