@@ -1,14 +1,27 @@
 """Serving stack (port of ``atom_tpu/serving``): paged-KV pool, quantized
 serving model (prefill, decode and the mixed prefill+decode step), the MoE
-(Mixtral) serving model on one device, continuous batcher with serial or
-mixed prefill.
+(Mixtral) serving model on one device, multi-adapter LoRA serving,
+continuous batcher with serial or mixed prefill.
 
-The scheduler and the page allocator are host-side Python; every per-step
-computation is PyTorch around hand-written CUDA kernels, and the KV cache
+The scheduler and the page allocator run on the host, in Python or (with
+``TextGenEngine(native=True)``) in the C++ scheduler of
+``atom_tpu_torch/native``; every per-step computation is PyTorch around
+hand-written CUDA kernels, and the KV cache
 lives in the nibble-plane layout the decode-attention kernel reads.
 """
 from atom_tpu_torch.serving.engine import TextGenConfig, TextGenEngine
 from atom_tpu_torch.serving.kvpool import KvPool, SeqKvCache
+from atom_tpu_torch.serving.lora import (
+    LlamaLora,
+    LoraManager,
+    LoraSite,
+    add_lora,
+    init_llama_lora,
+    lora_decode_burst,
+    lora_decode_step,
+    lora_prefill_step,
+    make_lora_step_fns,
+)
 from atom_tpu_torch.serving.model import (
     decode_step,
     init_serving_params,

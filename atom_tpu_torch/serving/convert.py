@@ -1,5 +1,6 @@
-"""The JAX package's serving params (Llama and MoE) and state and its
-baseline stacks' params and dense KV, as numpy trees, -> the port's.
+"""The JAX package's serving params (Llama and MoE), state and LoRA adapter
+store and its baseline stacks' params and dense KV, as numpy trees, -> the
+port's.
 
 Byte layouts are identical in both packages (nibble-plane weights, KV pages,
 hot ring), so the same integer codes flow through both.  The input is any
@@ -18,6 +19,7 @@ from atom_tpu_torch.ops.kv_hot import HotKV
 from atom_tpu_torch.ops.kv_layout import KVPages
 from atom_tpu_torch.ops.runtime import resolve_device
 from atom_tpu_torch.serving import baselines as bl
+from atom_tpu_torch.serving.lora import LlamaLora, LoraSite
 from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams, ServingState
 from atom_tpu_torch.serving.moe import MoEServingLayerParams, MoEServingParams
 
@@ -89,6 +91,12 @@ def moe_serving_params_from_numpy(params, device=None) -> MoEServingParams:
         lm_head=tensor_from_numpy(params.lm_head, dev),
         layers=layers,
     )
+
+
+def lora_from_numpy(lw, device=None) -> LlamaLora:
+    """Numpy tree of the JAX ``LlamaLora`` -> the port's, bit for bit."""
+    dev = resolve_device(device)
+    return LlamaLora(*(LoraSite(tensor_from_numpy(site.wa, dev), tensor_from_numpy(site.wb, dev)) for site in lw))
 
 
 def serving_state_from_numpy(state, device=None) -> ServingState:

@@ -17,13 +17,18 @@ prefill's (or a prompt's last chunk's) token before its time-to-first-token
 is stamped, on steps where a sequence finishes before ``finish_t`` is
 stamped, and once at the end.
 
-Not ported yet: LoRA serving and the native C++ scheduler.  ``lora=True``
-and ``native=True`` raise ``NotImplementedError``; ``native="auto"`` ("use it
-if it builds", as in the JAX engine) takes the Python pool.
+LoRA serving (``lora=True``, step functions from
+``serving/lora.py::make_lora_step_fns``): a per-slot adapter table, filled
+from ``RequestSet.adapter_ids`` at admission and sent up only when it
+changes; serial prefill only.  ``native``: True requires the C++ scheduler
+(``atom_tpu_torch/native``: page allocation and per-step table assembly),
+"auto" uses it if it builds and takes the Python pool otherwise, anything
+false is the Python pool; both assign pages in the same order.
 """
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 from typing import Callable, List, Optional
 
@@ -96,7 +101,9 @@ class TextGenEngine:
     int32 tensors on the engine's device, ``true_len``, ``slot``, ``pos0``,
     ``chunk_len`` and ``chunk_slot`` Python ints, ``token`` and
     ``chunk_token`` 0-dim tensors.  ``chunk_fn`` (optional) selects mixed
-    scheduling; its chunk size is the page size.  ``state`` is an opaque tree
+    scheduling; its chunk size is the page size.  With ``lora=True``,
+    ``prefill_fn`` takes a trailing adapter index (int) and ``decode_fn`` the
+    per-slot adapters (int32 [B] on the device).  ``state`` is an opaque tree
     owned by the model (for the W4A4 stack: KV pages + hot ring + flush
     counters).  The engine runs on the device its state lies on; a state
     without tensors means the card.
@@ -113,14 +120,11 @@ class TextGenEngine:
         native: object = False,
         lora: bool = False,
     ):
-        if lora:
-            raise NotImplementedError("LoRA serving (serving/lora.py) is a later slice of the port")
-        # ``native``: True requires the C++ scheduler, "auto" uses it if it
-        # builds, anything false (False, None, 0) is the Python pool.  The port
-        # has no native scheduler yet, so "auto" takes the Python pool, which
-        # assigns pages in the same order and gives the same tables.
-        if native is True:
-            raise NotImplementedError("the native C++ scheduler (atom_tpu/native) is a later slice of the port")
+        # LoRA: the step functions take a trailing adapter argument (an int for
+        # a prefill, the per-slot table for a decode step)
+        if lora and chunk_fn is not None:
+            raise ValueError("the LoRA engine prefills serially: chunk_fn is not wired for adapters")
+        self.lora = lora
         self.cfg = cfg
         self.pool = pool
         self.prefill_fn = prefill_fn
@@ -129,6 +133,17 @@ class TextGenEngine:
         self.state = state
         self.device = _state_device(state) or resolve_device(None)
         self.max_pages = -(-cfg.max_seq_len // cfg.page_size)
+        # ``native``: True requires the C++ scheduler, "auto" uses it if it
+        # builds, anything false (False, None, 0) is the Python pool
+        self.nat = None
+        if native:
+            try:
+                from atom_tpu_torch.native import NativeScheduler
+
+                self.nat = NativeScheduler(cfg.batch_size, pool.n_pages, cfg.page_size, self.max_pages)
+            except (OSError, subprocess.CalledProcessError):  # no compiler, a failed build or load
+                if native is True:
+                    raise
         # (bucket, seconds from dispatch to the token on the host) per prefill of the last run
         self.last_prefill_s: List[tuple] = []
 
@@ -145,6 +160,21 @@ class TextGenEngine:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _table_row(self, slot: int, kv: Optional[SeqKvCache]) -> np.ndarray:
+        """A sequence's page-table row, padded with page 0."""
+        if self.nat is not None:
+            return self.nat.table_row(slot).copy()
+        row = np.zeros((self.max_pages,), np.int32)
+        row[: len(kv.page_ids)] = kv.page_ids
+        return row
+
+    def _release(self, slot: int, kv: Optional[SeqKvCache]) -> None:
+        """Return a sequence's pages that no decode step will retire."""
+        if self.nat is not None:
+            self.nat.release(slot)
+        else:
+            kv.release()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -167,6 +197,10 @@ class TextGenEngine:
         n_req = len(rs)
         # per-slot current token ids live on the device [bsz]
         ids_dev = torch.zeros((bsz,), dtype=torch.int32, device=self.device)
+        # per-slot adapter indices (LoRA), sent up when an admission changes them
+        slot_adapters = np.zeros((bsz,), np.int32)
+        adapters_dev = self._upload(slot_adapters.copy()) if self.lora else None
+        nat = self.nat
 
         tokens = {r: [] for r in range(n_req)} if record else None
         self.last_prefill_s = []
@@ -184,11 +218,23 @@ class TextGenEngine:
                 if workset[slot] is not None or slot in prefilling or next_req >= n_req:
                     continue
                 r = next_req
+                if nat is not None:
+                    got = nat.admit_hold(r, len(rs.prompts[r]), int(rs.output_lens[r]))
+                    if got == -2 and not prefilling and not any(workset):
+                        raise RuntimeError(f"KV pool exhausted: request {r}'s prompt does not fit the empty pool")
+                    if got in (-1, -2):
+                        break  # no slot / pool drained: retry next iteration
+                    if got == -3:
+                        raise ValueError(
+                            f"request {r} unservable: prompt ({len(rs.prompts[r])}) + output "
+                            f"({int(rs.output_lens[r])}) tokens exceed max_seq_len ({cfg.max_seq_len})"
+                        )
+                    assert got == slot, f"native slot {got} != python {slot}"
                 next_req += 1
                 stats[r].submit_t = now
                 prompt = rs.prompts[r]
                 t_true = len(prompt)
-                kv = SeqKvCache(self.pool, t_true)
+                kv = None if nat is not None else SeqKvCache(self.pool, t_true)
                 seq = _ActiveSeq(r, kv, int(rs.output_lens[r]), stats[r])
                 if self.chunk_fn is not None:
                     # mixed scheduling: the prompt rides the following steps in
@@ -198,10 +244,16 @@ class TextGenEngine:
                 bucket = self._bucket(t_true)
                 ids = np.zeros((bucket,), np.int32)
                 ids[:t_true] = prompt
-                table_row = np.zeros((self.max_pages,), np.int32)
-                table_row[: len(kv.page_ids)] = kv.page_ids
+                table_row = self._table_row(slot, kv)
                 t_p = time.perf_counter()
-                tok, state = self.prefill_fn(state, self._upload(ids), self._upload(table_row), t_true, slot)
+                if self.lora:
+                    aid = int(rs.adapter_ids[r]) if rs.adapter_ids is not None else 0
+                    if slot_adapters[slot] != aid:
+                        slot_adapters[slot] = aid
+                        adapters_dev = self._upload(slot_adapters.copy())
+                    tok, state = self.prefill_fn(state, self._upload(ids), self._upload(table_row), t_true, slot, aid)
+                else:
+                    tok, state = self.prefill_fn(state, self._upload(ids), self._upload(table_row), t_true, slot)
                 ids_dev[slot] = tok
                 # TTFT is stamped on device completion of the prefill (not
                 # its dispatch): fetch the produced token first.
@@ -213,9 +265,11 @@ class TextGenEngine:
                 seq.remaining -= 1
                 if seq.remaining == 0:  # single-token outputs finish here
                     stats[r].finish_t = stats[r].first_token_t
-                    kv.release()
+                    self._release(slot, kv)
                     done += 1
                 else:
+                    if nat is not None:
+                        nat.activate(slot, seq.remaining)
                     workset[slot] = seq
 
             # slots that decode this step (a prefill completing below joins the
@@ -226,9 +280,14 @@ class TextGenEngine:
 
             # --- one step: whole-workset decode (+ one prefill chunk) ---
             t_h = time.perf_counter()
-            for slot in stepped:
-                workset[slot].kv.acquire_one()  # extend; allocate page on boundary
-            table, lens = batch_page_table([s.kv if s else None for s in workset], self.max_pages)
+            if nat is not None:
+                # extends the stepped slots and retires (frees) those that finish now
+                table, lens, _ = nat.decode_step()
+                table, lens = table.copy(), lens.copy()  # the scheduler reuses its buffers
+            else:
+                for slot in stepped:
+                    workset[slot].kv.acquire_one()  # extend; allocate page on boundary
+                table, lens = batch_page_table([s.kv if s else None for s in workset], self.max_pages)
             table_dev = self._upload(table)
             lens_dev = self._upload(lens)
             host_sched_s += time.perf_counter() - t_h
@@ -241,8 +300,7 @@ class TextGenEngine:
                 clen = min(chunk, t_true - pos)
                 cids = np.zeros((chunk,), np.int32)
                 cids[:clen] = prompt[pos : pos + clen]
-                table_row = np.zeros((self.max_pages,), np.int32)
-                table_row[: len(seq_p.kv.page_ids)] = seq_p.kv.page_ids
+                table_row = self._table_row(slot_p, seq_p.kv)
                 ids_dev, chunk_tok, state = self.chunk_fn(
                     state, ids_dev, table_dev, lens_dev, self._upload(cids), self._upload(table_row), pos, clen, slot_p
                 )
@@ -257,14 +315,18 @@ class TextGenEngine:
                     del prefilling[slot_p]
                     if seq_p.remaining == 0:
                         seq_p.stat.finish_t = seq_p.stat.first_token_t
-                        seq_p.kv.release()
+                        self._release(slot_p, seq_p.kv)
                         done += 1
                     else:
+                        if nat is not None:
+                            nat.activate(slot_p, seq_p.remaining)
                         workset[slot_p] = seq_p
                 else:
                     prefilling[slot_p][1] = pos
                 if stepped:
                     n_mixed_steps += 1
+            elif self.lora:
+                ids_dev, state = self.decode_fn(state, ids_dev, table_dev, lens_dev, adapters_dev)
             else:
                 ids_dev, state = self.decode_fn(state, ids_dev, table_dev, lens_dev)
             if stepped:
@@ -286,7 +348,8 @@ class TextGenEngine:
                 s.remaining -= 1
                 if s.remaining == 0:
                     s.stat.finish_t = now
-                    s.kv.release()
+                    if s.kv is not None:
+                        s.kv.release()  # the native scheduler freed its pages in decode_step
                     workset[slot] = None
                     done += 1
             host_sched_s += time.perf_counter() - now
@@ -314,7 +377,7 @@ class TextGenEngine:
             "ttft_p90_s": float(np.percentile(ttfts, 90)),
             "decode_ms_per_token_avg": float(ptls.mean() * 1e3),
             "decode_ms_per_token_p90": float(np.percentile(ptls, 90) * 1e3),
-            "scheduler": "python",
+            "scheduler": "native" if nat is not None else "python",
             "host_sched_ms_per_step": host_sched_s / max(n_decode_steps, 1) * 1e3,
         }
         if record:

@@ -27,8 +27,10 @@ prefill attention runs as one flash kernel over the codes (K12).
 
 The head is bf16 or, after ``quantize_lm_head``, weight-only INT8 (K5) or
 INT4 with 128-row groups (``bits=4``, K13); all steps share it.  The ring
-and the pages are updated in place (the JAX version donates them).  The
-LoRA / tensor-parallel hooks of the JAX step functions are not ported yet.
+and the pages are updated in place (the JAX version donates them).
+``decode_hidden`` and ``prefill_hidden`` take the JAX package's block hooks
+(``attn_block_fn``, ``post_attn_fn``), through which ``serving/lora.py``
+serves adapters; the tensor-parallel ``gather`` is not ported.
 """
 from __future__ import annotations
 
@@ -402,11 +404,20 @@ def decode_hidden(
     cfg: ModelConfig,
     spec: QuantSpec,
     flush: bool = False,
+    attn_block_fn=None,
+    post_attn_fn=None,
 ):
     """Layer stack of one decode step -> (final-norm hidden [B, D], state).
 
     ``flush`` must be True exactly when the ring wraps this step: every
     active sequence's pending block [flushed, lens) then moves to its pages.
+
+    ``attn_block_fn(x, lp, layer, rope, hot, row) -> (q, hot')`` and
+    ``post_attn_fn(x, attn, lp, layer, gather) -> x'`` replace the base
+    blocks (LoRA serving adds its adapter deltas there, ``serving/lora.py``;
+    ``gather`` is always None: the port has no tensor parallelism).  The
+    flush and the attention read the ring the hook returns.  None keeps the
+    base path.
     """
     b = ids.shape[0]
     dh = cfg.head_dim
@@ -419,15 +430,21 @@ def decode_hidden(
     flush_args, flushed_new = _flush_plan(state, page_table, seq_lens, flush)
     n_hot = seq_lens - flushed_new  # ring-resident suffix per sequence
 
+    new_hot = []
     for l, lp in enumerate(params.layers):
-        hot = state.hot[l]
-        q = _attn_block_decode_ring(x, lp, cfg, spec, (cos, sin), hot, row)
+        if attn_block_fn is None:
+            hot = state.hot[l]
+            q = _attn_block_decode_ring(x, lp, cfg, spec, (cos, sin), hot, row)
+        else:
+            q, hot = attn_block_fn(x, lp, l, (cos, sin), state.hot[l], row)
+        new_hot.append(hot)
         if flush:
             flush_hot_ring(state.pages[l], hot, row, *flush_args)
         attn = paged_ring_decode_attention(q, state.pages[l], page_table, flushed_new, hot, n_hot, row)
-        x = _post_attn(x, attn.reshape(b, cfg.num_heads * dh), lp, spec)
+        attn = attn.reshape(b, cfg.num_heads * dh)
+        x = _post_attn(x, attn, lp, spec) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, None)
 
-    new_state = ServingState(pages=state.pages, hot=state.hot, row=(row + 1) % w, flushed=flushed_new)
+    new_state = ServingState(pages=state.pages, hot=new_hot, row=(row + 1) % w, flushed=flushed_new)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), new_state
 
 
@@ -545,11 +562,16 @@ def prefill_hidden(
     table_row: torch.Tensor,  # int32 [max_pages]
     cfg: ModelConfig,
     spec: QuantSpec,
+    attn_block_fn=None,
+    post_attn_fn=None,
 ):
     """Layer stack of a prefill -> (final-norm hidden [T, D], pages).
 
     The sequence's K/V land in its pages (in place); attention runs over the
-    just-quantized post-RoPE codes with the decode kernel's numerics."""
+    just-quantized post-RoPE codes with the decode kernel's numerics.
+    ``attn_block_fn(x, lp, layer, rope) -> (q, kq, vq)`` and
+    ``post_attn_fn(x, attn, lp, layer, gather)`` replace the base blocks, as
+    in ``decode_hidden``."""
     t = ids.shape[0]
     dh = cfg.head_dim
     x = _embed_lookup(params.embed, ids)  # [T, D]
@@ -557,11 +579,14 @@ def prefill_hidden(
     key_block = PREFILL_KEY_BLOCK if t > PREFILL_SCAN_THRESHOLD else 0
     use_kernel = t > PREFILL_KERNEL_THRESHOLD and dh == 128
     for l, lp in enumerate(params.layers):
-        q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
+        if attn_block_fn is None:
+            q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
+        else:
+            q, kq, vq = attn_block_fn(x, lp, l, (cos, sin))
         append_kv_prefill_kernel(pages[l], kq, vq, table_row)
         attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, key_block=key_block, kernel=use_kernel)
         del q, kq, vq  # the one-pass scores and f32 code copies are per layer
-        x = _post_attn(x, attn, lp, spec)
+        x = _post_attn(x, attn, lp, spec) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, None)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), pages
 
 

@@ -18,7 +18,7 @@ class RequestSet:
     prompt_lens: np.ndarray  # int32 [N]
     output_lens: np.ndarray  # int32 [N]
     prompts: List[np.ndarray]  # random token ids per request
-    # per-request LoRA adapter index; None = all base/0 (LoRA serving is not ported yet)
+    # per-request LoRA adapter index (``TextGenEngine(lora=True)``); None = adapter 0 for all
     adapter_ids: Optional[np.ndarray] = None
 
     def __len__(self) -> int:

@@ -74,6 +74,19 @@ Phases, each fatal on failure:
      8 layers (the 512 bucket's prompts on the routed experts); at 2 layers
      the kernel path against the plain path (a flushing decode step unfused
      and fused, prefills at 256 rows, dense, and 512, routed).
+  9. LoRA serving (``serving/lora.py``; run right after phase 4, on its
+     32-layer W4A4 params with the W8A16 head) at rank 16 with a store of 32
+     adapters (2.56 GB): ``lora_decode_burst`` at batch 32, context 512,
+     every sequence its own adapter (launches over a flushing window: K1,
+     K3, K4, K5, K6 and no K2, K7-K10; tok/s by the slope between 1 and 2
+     windows; device time and kernels a step over 4 profiled steps; the
+     adapter path alone against its byte floor; peak memory); the engine
+     cell over ``make_lora_step_fns`` at 8 layers, 8 adapters; at 2 layers
+     the kernel path against the plain path (a flushing decode step over a
+     zero-delta store under the gates' bounds and over the burst's adapters
+     with layer 0 bitwise, a 512-row prefill); then the native C++ scheduler (``native=True``)
+     against the Python pool in the 2-layer engine cell: equal tokens and
+     page tables, host scheduling ms a step of each.
 
 stdout ends with the kernels line, the results line, the ratios line, the card
 line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -2115,13 +2128,12 @@ def entries_differing(a_layers, b_layers) -> float:
                            for la, lb in zip(a_layers, b_layers) for a, b in zip(la, lb))
 
 
-def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch: tuple, fused: bool = False,
-                         cfg=None, hidden_fn=None) -> dict:
-    """Phase 5: one flushing decode step at 2 layers, kernels vs plain, on the
-    decode branch that ``batch`` and ``spec`` select; with ``fused`` the
-    post-attention half as K9 + K10 (``ATOM_TPU_FUSED_MLP=1``).  ``cfg`` and
-    ``hidden_fn`` (the 2-layer Llama-2-7B and ``decode_hidden`` by default):
-    another model's and its layer stack (the MoE phase's)."""
+def kernel_and_plain_step(torch, dev, params, batch: int, spec, head, must_launch: tuple, fused: bool = False,
+                          cfg=None, hidden_fn=None) -> tuple:
+    """One flushing decode step at 2 layers on the kernel path and on the
+    plain path from the same state -> (launch counts, (hidden, next ids,
+    state) of the kernel path, the same of the plain path).  ``cfg`` and
+    ``hidden_fn``: as ``kernel_vs_plain_path``."""
     from atom_tpu_torch.ops.kv_hot import HotKV
     from atom_tpu_torch.ops.kv_layout import KVPages
     from atom_tpu_torch.serving.model import ServingState, _lm_head_logits, decode_hidden
@@ -2145,14 +2157,26 @@ def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch
         return x.float(), nxt, st
 
     zero_counts()
-    xk, nk, sk = run()
+    kernel = run()
     counts = read_counts()
     for name in must_launch:
         require(counts[name] > 0, f"kernel {name} was not launched on the batch-{batch} branch")
     with plain_path():
-        xp, np_, sp = run()
+        plain = run()
     torch.cuda.synchronize()
     require(read_counts() == counts, "the plain path launched a kernel")
+    return counts, kernel, plain
+
+
+def kernel_vs_plain_path(torch, dev, params, batch: int, spec, head, must_launch: tuple, fused: bool = False,
+                         cfg=None, hidden_fn=None) -> dict:
+    """Phase 5: one flushing decode step at 2 layers, kernels vs plain, on the
+    decode branch that ``batch`` and ``spec`` select; with ``fused`` the
+    post-attention half as K9 + K10 (``ATOM_TPU_FUSED_MLP=1``).  ``cfg`` and
+    ``hidden_fn`` (the 2-layer Llama-2-7B and ``decode_hidden`` by default):
+    another model's and its layer stack (the MoE phase's)."""
+    counts, (xk, nk, sk), (xp, np_, sp) = kernel_and_plain_step(torch, dev, params, batch, spec, head, must_launch,
+                                                                fused, cfg, hidden_fn)
     diff = (xk - xp).abs()
     moved, dmax = (diff > 0.05).float().mean().item(), diff.max().item()
     agree = (nk == np_).float().mean().item()
@@ -2617,6 +2641,357 @@ def mixtral_phase(torch, dev) -> tuple[dict, dict]:
     return counts, res
 
 
+# the LoRA phase: ``bench_textgen.py`` burst_throughput_lora's cell (rank 16, a store of 32 adapters, every
+# sequence its own), the engine's depth and adapters, and the kernels LoRA decode must and must not launch
+# (LoRA runs the unfused qkv path and the unfused post-attention half: no K2, K7-K10)
+LORA_RANK, LORA_CAPACITY, LORA_ENGINE_LAYERS, LORA_ENGINE_ADAPTERS = 16, 32, 8, 8
+LORA_BURST_LO, LORA_BURST_HI = 1, 2  # ring windows of the LoRA burst's slope (its steps run ~3x the W4A4 burst's kernels)
+LORA_DECODE_KERNELS = ("packed_w4_gemm", "paged_ring_decode_attention", "flush_hot", "w8a16_gemm", "embed_gather")
+LORA_NEVER = ("packed_w4_gemm_qkv_ring_fused", "packed_w4_gemm_qkv", "packed_w4_gemm_qkv_ring", "packed_w4_gemm_fused_in",
+              "fused_mlp_packed")
+
+
+def require_not_launched(counts: dict, what: str) -> None:
+    for name in LORA_NEVER:
+        require(counts[name] == 0, f"{what} launched {name} {counts[name]} times")
+
+
+def lora_store_cut(lw, adapters: int, layers: int):
+    """The first ``adapters`` adapters' first ``layers`` layers of a store (views)."""
+    from atom_tpu_torch.serving.lora import LlamaLora, LoraSite
+
+    return LlamaLora(*(LoraSite(s.wa[:adapters, :layers], s.wb[:adapters, :layers]) for s in lw))
+
+
+def lora_decode_path(torch, dev, qparams, lw, w4a4: dict) -> tuple[dict, dict]:
+    """The LoRA burst at full width and all 32 layers (batch 32, context 512,
+    the W8A16 head, every sequence its own adapter): launches over one
+    flushing window checked (K1; K3 once a layer and step; K4, K5, K6; no K2,
+    K7-K10), tok/s by the slope between ``LORA_BURST_LO`` and
+    ``LORA_BURST_HI`` windows (median of positive samples), a few profiled
+    steps (device time, kernels a step), the adapter
+    path alone under the profiler against its byte floor (the store read once
+    a step), peak memory; beside the W4A4 burst's figures ``w4a4``."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.lora import add_lora, lora_decode_burst, lora_decode_step, lora_site_dims
+    from atom_tpu_torch.serving.model import make_serving_state
+
+    cfg = llama7b(32)
+    n_pages = BATCH * MAX_PAGES + 1
+    table = (1 + torch.arange(BATCH * MAX_PAGES, device=dev, dtype=torch.int32)).reshape(BATCH, MAX_PAGES)
+    full = lambda v: torch.full((BATCH,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    state = make_serving_state(cfg.num_layers, n_pages, BATCH, cfg.num_kv_heads, PAGE, cfg.head_dim, device=dev)
+    state = state._replace(flushed=full(CTX))
+    ids = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+    adapters = torch.arange(BATCH, dtype=torch.int32, device=dev)  # every sequence its own adapter
+    w = state.hot[0].window
+
+    def burst(n):
+        nonlocal ids, state
+        # pinned context: every burst starts at lens = flushed = CTX and ring row 0
+        state = state._replace(flushed=full(CTX), row=0)
+        ids, state, lens = lora_decode_burst(qparams, lw, state, ids, table, full(CTX), n, adapters, cfg, ATOM_W4A4)
+        return lens
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    lens = burst(1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"LoRA decode path: 1 window in {time.perf_counter() - t0:.1f} s, launches {counts}")
+    for name in LORA_DECODE_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on the LoRA decode path")
+    require_not_launched(counts, "the LoRA decode path")
+    require(counts["paged_ring_decode_attention"] == w * cfg.num_layers, "LoRA decode: K3 not once per layer and step")
+    require(counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the LoRA burst ran the prefill GEMM")
+    require(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()) and bool((lens == CTX + w).all()),
+            "LoRA decode: next ids out of range or lengths not advanced")
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        burst(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    samples = []
+    for _ in range(3):
+        t_lo, t_hi = timed(LORA_BURST_LO), timed(LORA_BURST_HI)
+        samples.append((t_hi - t_lo) / ((LORA_BURST_HI - LORA_BURST_LO) * w))
+        log(f"  LoRA step time sample: {samples[-1] * 1e3:.3f} ms")
+    positive = [x for x in samples if x > 0]
+    require(len(positive) > 0, "no positive LoRA step-time sample")
+    step_ms = statistics.median(positive) * 1e3
+
+    # a few profiled steps (a whole window's ~226,000 kernel events take the profiler minutes to sum)
+    from torch.profiler import ProfilerActivity, profile
+
+    state = state._replace(flushed=full(CTX), row=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(MOE_PROFILE_STEPS):
+            ids, state = lora_decode_step(qparams, lw, state, ids, table, full(CTX + 1 + i), adapters, cfg, ATOM_W4A4,
+                                          1.0)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / MOE_PROFILE_STEPS
+    n_kernels = sum(e.count for e in kernels) / MOE_PROFILE_STEPS
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_lora.txt").write_text(f"{MOE_PROFILE_STEPS} LoRA decode steps, 32 layers: device {dev_ms:.3f} ms, "
+                                          f"{n_kernels:.0f} device kernels a step\n"
+                                          f"{events.table(sort_by='self_device_time_total', row_limit=50)}\n")
+    require(dev_ms > 0, "the profiler recorded no device time for the LoRA steps")
+    k1_ms = sum(e.self_device_time_total for e in kernels if "gemm_core_kernel" in e.key) / 1e3 / MOE_PROFILE_STEPS
+    k3_ms = sum(e.self_device_time_total for e in kernels if K3_KERNEL in e.key and ", true>" in e.key) / 1e3 / MOE_PROFILE_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the adapter path alone: one step's 7 deltas in each of the 32 layers, at the step's shapes
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dims = lora_site_dims(cfg)
+    xs = {d: torch.randn((BATCH, d), generator=gen, device=dev) for d in {d_in for d_in, _ in dims.values()}}
+    store_bytes = sum(t.numel() * t.element_size() for s in lw for t in s)
+    step_bytes = store_bytes * BATCH / lw.q.wa.shape[0]  # every sequence reads its own adapter's rows
+
+    def adapter_step():
+        out = None
+        for layer in range(cfg.num_layers):
+            for name, (d_in, _) in dims.items():
+                out = add_lora(xs[d_in], getattr(lw, name), adapters, layer, 1.0)
+        out.sum().item()
+
+    adapter = profile_once(torch, adapter_step, "profile_lora_adapters.txt",
+                           f"one step's adapter deltas (7 sites x 32 layers, batch {BATCH}, rank {LORA_RANK})")
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    res = dict(
+        decode_tok_s=BATCH * 1e3 / step_ms, step_ms=step_ms, step_ms_samples=[x * 1e3 for x in samples],
+        protocol=f"slope between {LORA_BURST_LO} and {LORA_BURST_HI} ring windows, 3 samples, median of positive ones",
+        device_ms_per_step_profiled=dev_ms, device_kernels_per_step=n_kernels, device_busy_share=dev_ms / step_ms,
+        profiled_steps=MOE_PROFILE_STEPS, k1_core_ms_per_step=k1_ms, k3_ms_per_step=k3_ms,
+        adapter_path=dict(device_ms_per_step=adapter["device_ms"], kernels_per_step=adapter["device_kernels"],
+                          wall_ms=adapter["wall_ms"], bytes_per_step=step_bytes, floor_ms=floor_ms,
+                          floor_share=floor_ms / adapter["device_ms"]),
+        store_gb=store_bytes / 1e9, peak_memory_gb=peak_gb, rank=LORA_RANK, capacity=lw.q.wa.shape[0],
+        w4a4_burst=dict((k, w4a4.get(k)) for k in ("decode_tok_s", "step_ms", "device_ms_per_step_profiled",
+                                                    "device_kernels_per_step", "device_busy_share", "peak_memory_gb")),
+    )
+    log(f"LoRA burst: {res['decode_tok_s']:.1f} tok/s, step {step_ms:.3f} ms, device {res['device_ms_per_step_profiled']:.3f} "
+        f"ms ({res['device_kernels_per_step']:.0f} kernels) a step, busy {res['device_busy_share']:.3f}; adapter path "
+        f"{adapter['device_ms']:.3f} ms a step against a {floor_ms:.3f} ms floor; peak {peak_gb:.2f} GB")
+    return counts, res
+
+
+def lora_hidden_fn(torch, dev, lw):
+    """``kernel_vs_plain_path``'s ``hidden_fn`` for LoRA decode over the
+    store ``lw``, every sequence its own adapter."""
+    from atom_tpu_torch.serving.lora import lora_decode_hidden
+
+    adapters = torch.arange(BATCH, dtype=torch.int32, device=dev)
+
+    def hidden_fn(params, st, ids, table, lens, cfg, spec, flush=False):
+        return lora_decode_hidden(params, lw, st, ids, table, lens, adapters, cfg, spec, 1.0, flush=flush)
+
+    return hidden_fn
+
+
+def lora_decode_kernel_vs_plain(torch, dev, params, lw, cfg) -> dict:
+    """The 2-layer LoRA decode step over the burst's adapters (rank 16, unit
+    gain: each delta is as large as its projection's output), kernel path
+    against plain path.  Every operation before layer 0's attention is
+    bitwise with its plain version (K6, K1, the same torch calls), so layer
+    0's ring and pages must be equal bit for bit.  K3 is not bitwise (within
+    ``ATTN_TOL``), and LoRA's float32 residual carries its roundings on
+    unrounded (the base path rounds every residual add to bf16), the o delta
+    straight from the attention output, so later quantizers flip codes that
+    the base path's do not: the hidden's spread is reported (it passes the
+    gates' 25%-moved bound on the zero-delta store, ``decode_step_zero_delta``,
+    and not on these adapters) and held finite and under the gates' max of
+    1.5."""
+    from atom_tpu_torch.config import ATOM_W4A4
+
+    counts, (xk, nk, sk), (xp, np_, sp) = kernel_and_plain_step(torch, dev, params, BATCH, ATOM_W4A4, params.lm_head,
+                                                                LORA_DECODE_KERNELS, cfg=cfg,
+                                                                hidden_fn=lora_hidden_fn(torch, dev, lw))
+    diff = (xk - xp).abs()
+    moved, dmax = (diff > 0.05).float().mean().item(), diff.max().item()
+    agree = (nk == np_).float().mean().item()
+    layer0 = all(torch.equal(bits(a), bits(b)) for a, b in zip((*sk.pages[0], *sk.hot[0]), (*sp.pages[0], *sp.hot[0])))
+    per_layer = [dict(pages=entries_differing(sk.pages[i:i + 1], sp.pages[i:i + 1]),
+                      ring=entries_differing(sk.hot[i:i + 1], sp.hot[i:i + 1])) for i in range(cfg.num_layers)]
+    log(f"LoRA decode step (2 layers, batch {BATCH}, unit-gain adapters), kernel vs plain path: {moved:.4%} of hidden "
+        f"moved > 0.05, max {dmax:.4f}, next-id agreement {agree:.3f}, layer 0 bitwise {layer0}, entries differing "
+        f"by layer {per_layer}")
+    require(bool(torch.isfinite(xk).all()), "LoRA decode: hidden states not finite")
+    require(layer0, "LoRA decode: layer 0's ring or pages differ between the kernel and the plain path")
+    require(dmax < 1.5, f"LoRA decode: kernel path diverges from plain path: max {dmax}")
+    return dict(moved_gt_0p05=moved, max_abs=dmax, next_id_agreement=agree, layer0_bitwise=layer0,
+                entries_differing_by_layer=per_layer, launches={k: v for k, v in counts.items() if v})
+
+
+def lora_prefill_kernel_vs_plain(torch, dev, params, lw, cfg, bucket: int = 512, true_len: int = 400) -> dict:
+    """A 2-layer ``lora_prefill_hidden`` at ``bucket`` rows, one adapter,
+    kernel path against plain path: K1 (the prefill GEMM) and K6 are bitwise
+    with their plain versions and every other operation is the same PyTorch
+    call on both paths, so the pages and the token should be equal; held to
+    layer 0's pages bitwise and the decode gates' bound, the rest reported."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.lora import lora_prefill_hidden
+    from atom_tpu_torch.serving.model import _lm_head_logits, make_serving_state
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ids = torch.randint(1, cfg.vocab_size, (bucket,), generator=gen, device=dev, dtype=torch.int32)
+    ids[true_len:] = 0
+    table_row = torch.zeros((4,), dtype=torch.int32, device=dev)
+    table_row[: bucket // PAGE] = torch.arange(bucket // PAGE, 0, -1, dtype=torch.int32, device=dev)
+
+    def run():
+        state = make_serving_state(cfg.num_layers, 4, 2, cfg.num_kv_heads, PAGE, cfg.head_dim, device=dev)
+        x, pages = lora_prefill_hidden(params, lw, state.pages, ids, table_row, 3, cfg, ATOM_W4A4, 1.0)
+        tok = int(torch.argmax(_lm_head_logits(x[true_len - 1][None], params.lm_head, cfg.vocab_size)[0]))
+        return x[:true_len].float(), pages, tok
+
+    zero_counts()
+    xk, pk, tk = run()
+    counts = read_counts()
+    require(counts["packed_w4_gemm_by_path"]["prefill"] == 4 * cfg.num_layers, f"LoRA prefill: launches {counts}")
+    require_not_launched(counts, "the LoRA prefill")
+    with plain_path():
+        xp, pp, tp = run()
+    require(read_counts() == counts, "the plain path launched a kernel")
+    require(all(torch.equal(bits(a), bits(b)) for a, b in zip(pk[0], pp[0])), "LoRA prefill: layer 0's pages differ")
+    diff = (xk - xp).abs()
+    moved, dmax = (diff > 0.05).float().mean().item(), diff.max().item()
+    pages_equal = all(torch.equal(bits(a), bits(b)) for la, lb in zip(pk, pp) for a, b in zip(la, lb))
+    log(f"LoRA prefill at {bucket} rows ({true_len} true), kernel vs plain path: {moved:.4%} of hidden moved > 0.05, max "
+        f"{dmax:.4f}, pages bitwise {pages_equal}, hidden bitwise {torch.equal(xk, xp)}, token {tk} / {tp}")
+    require(bool(torch.isfinite(xk).all()), "LoRA prefill: hidden states not finite")
+    require(moved < 0.25 and dmax < 1.5, f"LoRA prefill: kernel path diverges: {moved:.2%} moved, max {dmax}")
+    return dict(moved_gt_0p05=moved, max_abs=dmax, hidden_bitwise_equal=bool(torch.equal(xk, xp)),
+                pages_bitwise_equal=pages_equal, page_entries_differing=entries_differing(pk, pp), token_equal=tk == tp,
+                launches={k: v for k, v in counts.items() if v})
+
+
+def lora_engine_path(torch, dev, qparams, lw) -> tuple[dict, dict]:
+    """``TextGenEngine(lora=True)`` over ``make_lora_step_fns`` at
+    ``LORA_ENGINE_LAYERS`` layers in the engine cell's configuration
+    (``engine_setup``), request r under adapter r mod ``LORA_ENGINE_ADAPTERS``:
+    launch counts, every request's tokens, the pool."""
+    import numpy as np
+
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving import TextGenEngine, make_lora_step_fns
+    from atom_tpu_torch.serving.model import make_serving_state
+
+    cfg = llama7b(LORA_ENGINE_LAYERS)
+    params = qparams._replace(layers=qparams.layers[:LORA_ENGINE_LAYERS])
+    lw8 = lora_store_cut(lw, LORA_ENGINE_ADAPTERS, LORA_ENGINE_LAYERS)
+    tg, pool, n_pages, rs = engine_setup(torch, dev, cfg)
+    rs.adapter_ids = (np.arange(len(rs)) % LORA_ENGINE_ADAPTERS).astype(np.int32)
+    state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size, cfg.head_dim,
+                               device=dev)
+    engine = TextGenEngine(tg, pool, *make_lora_step_fns(params, lw8, cfg, ATOM_W4A4), state, lora=True)
+    counts, res = drive_engine(torch, engine, pool, n_pages, rs, cfg, "LoRA engine", LORA_DECODE_KERNELS)
+    require_not_launched(counts, "the LoRA engine")
+    require(counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the LoRA engine's prefills did not run the prefill GEMM")
+    check_recorded(engine, pool, n_pages, cfg, "LoRA engine")
+    res.update(layers=cfg.num_layers, adapters=LORA_ENGINE_ADAPTERS, rank=LORA_RANK, head="w8a16")
+    return counts, res
+
+
+def native_scheduler_path(torch, dev, qparams) -> dict:
+    """The engine cell at 2 layers with ``native=True`` and ``native=False``:
+    a recorded run of each (the same tokens, the same prefill rows, page
+    tables and lengths at every step, every page back), then an unrecorded
+    run of each for the host scheduling ms a step."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving import KvPool, TextGenEngine, make_step_fns
+    from atom_tpu_torch.serving.model import make_serving_state
+
+    cfg = llama7b(2)
+    params = qparams._replace(layers=qparams.layers[:2])
+    tg, _, n_pages, rs = engine_setup(torch, dev, cfg)
+
+    def engine(native):
+        pool = KvPool(cfg.num_layers, n_pages, cfg.num_kv_heads, tg.page_size, cfg.head_dim)
+        state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size,
+                                   cfg.head_dim, device=dev)
+        return TextGenEngine(tg, pool, *make_step_fns(params, cfg, ATOM_W4A4), state, native=native), pool
+
+    def free_pages(eng, pool):
+        return eng.nat.num_free_pages if eng.nat is not None else pool.num_free_pages
+
+    runs, res = {}, {}
+    for native in (False, True):
+        eng, pool = engine(native)
+        log_ = []
+        pre, dec = eng.prefill_fn, eng.decode_fn
+        eng.prefill_fn = lambda st, ids, row, *a: (log_.append(row.cpu()), pre(st, ids, row, *a))[1]
+        eng.decode_fn = lambda st, ids, tbl, lens: (log_.append(torch.cat([tbl.cpu(), lens.cpu()[:, None]], 1)),
+                                                    dec(st, ids, tbl, lens))[1]
+        rec = eng.run(rs, record=True)
+        require(free_pages(eng, pool) == n_pages - 1, f"native={native}: pages not returned")
+        eng2, pool2 = engine(native)
+        timed = eng2.run(rs)
+        require(free_pages(eng2, pool2) == n_pages - 1, f"native={native}: pages not returned (timed run)")
+        require(timed["scheduler"] == ("native" if native else "python"), f"native={native}: scheduler {timed['scheduler']}")
+        runs[native] = (rec["tokens"], log_)
+        res["native" if native else "python"] = {k: timed[k] for k in (
+            "host_sched_ms_per_step", "decode_steps", "elapsed_s", "throughput_tok_s", "decode_ms_per_token_avg")}
+    tokens_equal = runs[True][0] == runs[False][0]
+    tables_equal = len(runs[True][1]) == len(runs[False][1]) and all(
+        torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+    log(f"native scheduler vs Python pool (2 layers, engine cell): tokens equal {tokens_equal}, tables equal "
+        f"{tables_equal} over {len(runs[True][1])} steps; host scheduling ms a step: python "
+        f"{res['python']['host_sched_ms_per_step']:.4f}, native {res['native']['host_sched_ms_per_step']:.4f}")
+    require(tokens_equal and tables_equal, "the native scheduler's tokens or page tables differ from the Python pool's")
+    return dict(res, tokens_equal=tokens_equal, tables_equal=tables_equal, steps_compared=len(runs[True][1]), layers=2)
+
+
+def lora_phase(torch, dev, qparams, w4a4: dict) -> tuple[dict, dict]:
+    """Phase 9 (after phase 4, on its 32-layer W4A4 params with the W8A16
+    head): LoRA at rank 16 with a store of 32 adapters, the burst at all 32
+    layers, the engine at ``LORA_ENGINE_LAYERS``, the kernel path against the
+    plain path at 2 layers (a flushing decode step, a 512-row prefill); then
+    the native scheduler against the Python pool."""
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.serving.lora import init_llama_lora
+
+    cfg = llama7b(32)
+    t0 = time.perf_counter()
+    lw = init_llama_lora(cfg, LORA_CAPACITY, LORA_RANK, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"LoRA store ({sum(t.numel() * t.element_size() for s in lw for t in s) / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts, res = {}, {}
+    counts["lora_decode_burst"], res["decode"] = lora_decode_path(torch, dev, qparams, lw, w4a4)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts["lora_engine"], res["engine"] = lora_engine_path(torch, dev, qparams, lw)
+    torch.cuda.empty_cache()
+    log(f"LoRA engine in {time.perf_counter() - t1:.1f} s")
+    cfg2 = llama7b(2)
+    p2 = qparams._replace(layers=qparams.layers[:2])
+    lw2 = lora_store_cut(lw, LORA_CAPACITY, 2)
+    lw0 = init_llama_lora(cfg2, LORA_CAPACITY, LORA_RANK, seed=0, device=dev, zero_b=True)
+    res["path_parity_2_layers"] = dict(
+        decode_step_zero_delta=kernel_vs_plain_path(torch, dev, p2, BATCH, ATOM_W4A4, p2.lm_head, LORA_DECODE_KERNELS,
+                                                    cfg=cfg2, hidden_fn=lora_hidden_fn(torch, dev, lw0)),
+        decode_step=lora_decode_kernel_vs_plain(torch, dev, p2, lw2, cfg2),
+        prefill_512=lora_prefill_kernel_vs_plain(torch, dev, p2, lw2, cfg2))
+    for name, r in res["path_parity_2_layers"].items():
+        require_not_launched(dict.fromkeys(LORA_NEVER, 0) | r["launches"], f"the 2-layer LoRA {name}")
+    del lw, lw2
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res["native_scheduler"] = native_scheduler_path(torch, dev, qparams)
+    log(f"native scheduler in {time.perf_counter() - t1:.1f} s")
+    res["config"] = (f"Llama-2-7B width, ATOM_W4A4, W8A16 head, rank {LORA_RANK}, {LORA_CAPACITY} adapters; burst at 32 "
+                     f"layers with adapters = arange({BATCH}); engine at {LORA_ENGINE_LAYERS} layers, "
+                     f"{LORA_ENGINE_ADAPTERS} adapters; parity and the native scheduler at 2 layers")
+    return counts, res
+
+
 SOURCES = {
     "packed_w4_gemm": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:284"),
     "packed_w4_gemm_qkv_ring_fused": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:1261"),
@@ -2726,6 +3101,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mixed_counts, mixed_res = engine_path(torch, dev, qparams, mixed=True)
     log(f"mixed engine path in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lora_counts, lora_res = lora_phase(torch, dev, qparams, decode_stats["w8a16"])
+    log(f"LoRA and native-scheduler phase in {time.perf_counter() - t0:.1f} s")
     del qparams
     torch.cuda.empty_cache()
 
@@ -2800,7 +3179,8 @@ def main() -> int:
                         kernel_prefill=kernel_prefill_launches if name == "flash_code_attention" else 0,
                         int8_carrier_layer=int8_counts[name],
                         **{f"{b}_stack_{ph}": base_counts[b][ph][name] for b in BASELINE_STACKS for ph in ("burst", "engine")},
-                        **{ph: c[name] for ph, c in moe_counts.items()})
+                        **{ph: c[name] for ph, c in moe_counts.items()},
+                        **{ph: c[name] for ph, c in lora_counts.items()})
         path = MAIN_PATH.get(name, "engine")
         launches = by_phase[path]
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
@@ -2815,7 +3195,8 @@ def main() -> int:
         if name == "packed_w4_gemm":  # K1's launches by kernel: the decode core (M <= 64), the prefill GEMM above
             rows[-1]["launches_by_path"] = dict(engine=engine_counts["packed_w4_gemm_by_path"],
                                                 decode_burst=decode_counts["packed_w4_gemm_by_path"],
-                                                mixed_engine=mixed_counts["packed_w4_gemm_by_path"])
+                                                mixed_engine=mixed_counts["packed_w4_gemm_by_path"],
+                                                **{ph: c["packed_w4_gemm_by_path"] for ph, c in lora_counts.items()})
             require(engine_counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the engine's prefills did not run the prefill GEMM")
             require(decode_counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the decode burst ran the prefill GEMM")
         if name == "fused_mlp_packed":  # K10's launches by path: the cluster epilogue (<= 64 rows), four launches
@@ -2838,7 +3219,9 @@ def main() -> int:
                           engine_config=engine_config),
         "int8_carrier_layer": int8_res,
         "mixtral": dict(mixtral, launches=moe_counts),
-        "model": "Llama-2-7B width, 32 layers; W4A4 and the baseline stacks bf16, W8A8, W4A16; Mixtral-8x7B W4A4",
+        "lora": dict(lora_res, launches=lora_counts),
+        "model": ("Llama-2-7B width, 32 layers; W4A4 (also with LoRA adapters) and the baseline stacks bf16, W8A8, W4A16; "
+                  "Mixtral-8x7B W4A4"),
         "card": card,
         "path_parity_2_layers": parity, "wall_s": time.perf_counter() - t_all,
     }), flush=True)

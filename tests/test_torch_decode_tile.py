@@ -28,6 +28,9 @@ from atom_tpu.ops.pallas_decode import paged_decode_attention_rotated as j_paged
 from atom_tpu_torch.ops import decode as dec
 from atom_tpu_torch.ops.kv_layout import KVPages as TPages
 from atom_tpu_torch.serving.convert import tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 NEG = -1e30
 TQ = 64  # query rows of a tile

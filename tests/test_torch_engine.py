@@ -19,6 +19,7 @@ from atom_tpu.serving import engine as jeng
 from atom_tpu.serving import kvpool as jpool
 from atom_tpu.serving import model as jm
 from atom_tpu.serving import workload as jwl
+from atom_tpu_torch import native as native_mod
 from atom_tpu_torch.config import QuantSpec as TQuantSpec
 from atom_tpu_torch.models.configs import Arch as TArch
 from atom_tpu_torch.models.configs import ModelConfig as TModelConfig
@@ -26,6 +27,9 @@ from atom_tpu_torch.serving import KvPool, RequestSet, SeqKvCache, TextGenConfig
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy
 from atom_tpu_torch.serving.kvpool import batch_page_table
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 TINY_KW = dict(vocab_size=199, hidden_size=256, intermediate_size=384, num_layers=2,
                num_heads=2, num_kv_heads=2, head_dim=128, max_position_embeddings=512)
@@ -181,10 +185,12 @@ def test_decode_matches_prefill_continuation(geom):
     assert mismatches <= 2, f"{mismatches}/{n} prefill-continuation checks diverged"
 
 
-def test_engine_error_paths(tiny_params):
+def test_engine_error_paths(tiny_params, monkeypatch):
     """Prompt over the largest bucket -> ValueError; KV pool exhaustion ->
-    RuntimeError; what is not ported yet -> NotImplementedError naming it;
-    ``chunk_fn`` no longer raises: it selects mixed scheduling."""
+    RuntimeError; ``lora=True`` beside a ``chunk_fn`` -> ValueError (LoRA
+    prefills serially); ``native=True`` when the C++ scheduler cannot be
+    built -> that error, where ``"auto"`` takes the Python pool; ``chunk_fn``
+    alone selects mixed scheduling."""
     engine, pool = _make_engine(tiny_params[1], batch_size=2, n_pages=24)
     rng = np.random.Generator(np.random.PCG64(4))
     long_prompt = rng.integers(1, TTINY.vocab_size, 300).astype(np.int32)
@@ -200,13 +206,21 @@ def test_engine_error_paths(tiny_params):
     with pytest.raises(RuntimeError, match="KV pool exhausted"):
         engine2.run(RequestSet(prompt_lens, output_lens, prompts))
 
+    pre, dec, chunk = tm.make_mixed_step_fns(tiny_params[1], TTINY, TSPEC)
+    with pytest.raises(ValueError, match="serially"):
+        TextGenEngine(engine.cfg, pool, pre, dec, engine.state, chunk_fn=chunk, lora=True)
+
+    def no_compiler():
+        raise OSError("no C++ compiler")
+
+    monkeypatch.setattr(native_mod, "load_native", no_compiler)
     fns = tm.make_step_fns(tiny_params[1], TTINY, TSPEC)
-    for kwargs, what in ((dict(lora=True), "LoRA"), (dict(native=True), "native")):
-        with pytest.raises(NotImplementedError, match=what):
-            TextGenEngine(engine.cfg, pool, *fns, engine.state, **kwargs)
+    with pytest.raises(OSError, match="compiler"):
+        TextGenEngine(engine.cfg, pool, *fns, engine.state, native=True)
+    assert TextGenEngine(engine.cfg, pool, *fns, engine.state, native="auto").nat is None
+    monkeypatch.undo()
 
     # the chunk_fn entry: the engine takes it and serves the requests through it
-    pre, dec, chunk = tm.make_mixed_step_fns(tiny_params[1], TTINY, TSPEC)
     calls = []
 
     def counting_chunk(*args):
@@ -240,17 +254,21 @@ def _serve_recording_tables(tparams, **kwargs):
 
     engine = TextGenEngine(cfg, pool, rec_prefill, rec_decode, state, **kwargs)
     res = engine.run(RequestSet(*_workload(3, 4, TTINY.vocab_size)), record=True)
-    return res["tokens"], tables, pool.num_free_pages
+    free = engine.nat.num_free_pages if engine.nat is not None else pool.num_free_pages
+    return res["tokens"], tables, free, res["scheduler"]
 
 
 @pytest.mark.parametrize("native", ["auto", None, 0], ids=["auto", "None", "0"])
 def test_engine_native_auto_or_off_serves_through_python_pool(tiny_params, native):
-    """``native="auto"`` means "use the C++ scheduler if it builds"; the port
-    has none yet, so it serves through the Python pool, as ``None`` and ``0``
-    (false, as the JAX engine tests them) do: the same tokens, the same page
-    tables and lengths at every step, every page returned."""
-    want_tokens, want_tables, want_free = _serve_recording_tables(tiny_params[1], native=False)
-    got_tokens, got_tables, got_free = _serve_recording_tables(tiny_params[1], native=native)
+    """``native="auto"`` means "use the C++ scheduler if it builds": it builds
+    here, so it serves through the port's native scheduler, and it never
+    raises (fault C1; ``test_engine_error_paths`` takes away the compiler).
+    ``None`` and ``0`` are false, as the JAX engine tests them, and serve
+    through the Python pool.  Every way gives ``native=False``'s tokens and
+    page tables and lengths at every step, and every page comes back."""
+    want_tokens, want_tables, want_free, want_sched = _serve_recording_tables(tiny_params[1], native=False)
+    got_tokens, got_tables, got_free, got_sched = _serve_recording_tables(tiny_params[1], native=native)
+    assert want_sched == "python" and got_sched == ("native" if native == "auto" else "python")
     assert got_tokens == want_tokens and got_free == want_free == 23
     assert len(got_tables) == len(want_tables) and any(t[0] == "decode" for t in got_tables)
     for got, want in zip(got_tables, want_tables):

@@ -26,6 +26,9 @@ from atom_tpu_torch.ops.prefill import flash_code_attention as t_flash
 from atom_tpu_torch.ops.prefill import flash_code_attention_plain
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 SM_SCALE = 128**-0.5
 

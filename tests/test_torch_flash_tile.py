@@ -24,6 +24,9 @@ from atom_tpu.ops.pallas_prefill import flash_code_attention as j_flash
 from atom_tpu.ops.reference import quantize_kv_asym as j_quantize_kv
 from atom_tpu_torch.ops import prefill as pf
 from atom_tpu_torch.serving.convert import tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 NEG = -1e30
 SM_SCALE = 128**-0.5

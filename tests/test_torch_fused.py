@@ -30,6 +30,9 @@ from atom_tpu_torch.ops.mlp import fused_mlp_packed as t_fused_mlp
 from atom_tpu_torch.ops.mlp import fused_mlp_packed_stages, fused_mlp_supported
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 A_CLIP = JSPEC.a_clip_ratio
 

@@ -29,6 +29,9 @@ from atom_tpu_torch.ops.formats import KernelPackedWeight, quantize_dual_path
 from atom_tpu_torch.ops.gemm_packed import packed_w4_gemm_fused_in, packed_w4_gemm_fused_in_plain
 from atom_tpu_torch.ops.mlp import fused_mlp_act_plain, fused_mlp_packed, fused_mlp_packed_plain, fused_mlp_packed_stages
 from atom_tpu_torch.serving.convert import tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 A_CLIP = JSPEC.a_clip_ratio
 

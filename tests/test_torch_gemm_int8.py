@@ -27,6 +27,9 @@ from atom_tpu_torch.ops import formats as tf
 from atom_tpu_torch.ops import gemm as tg
 from atom_tpu_torch.ops import gemm_packed as gp
 from atom_tpu_torch.ops import reference as tr
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _t(a):

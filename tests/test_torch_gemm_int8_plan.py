@@ -9,6 +9,9 @@ import torch
 
 from atom_tpu_torch.ops import gemm as tg
 from atom_tpu_torch.ops import gemm_packed as gp
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 SMEM_BLOCK = 232448
 HID, INTER = 4096, 11008

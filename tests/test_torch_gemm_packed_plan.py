@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from atom_tpu_torch.ops import gemm_packed as gp
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 HID, INTER = 4096, 11008  # Llama-2-7B
 # (m, k, n): the decode GEMMs at batch 32 (o_proj, gate/up, down, qkv), the

@@ -24,6 +24,9 @@ from atom_tpu_torch.models.configs import ModelConfig as TModelConfig
 from atom_tpu_torch.ops import gemm_w4a16 as tw
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 TINY_KW = dict(vocab_size=199, hidden_size=256, intermediate_size=384, num_layers=2,
                num_heads=2, num_kv_heads=2, head_dim=128, max_position_embeddings=512)

@@ -33,6 +33,9 @@ from atom_tpu_torch.ops.kv_hot import HotKV as THot
 from atom_tpu_torch.ops.kv_hot import hot_flush_blocks
 from atom_tpu_torch.ops.kv_layout import KVPages as TPages
 from atom_tpu_torch.serving.convert import tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _t(a):

@@ -36,6 +36,9 @@ from atom_tpu_torch.ops.kv_layout import KVPages as TPages
 from atom_tpu_torch.serving import KvPool, RequestSet, TextGenConfig, TextGenEngine
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 CFG_KW = dict(vocab_size=256, hidden_size=1024, intermediate_size=2048, num_layers=2,
               num_heads=8, num_kv_heads=8, head_dim=128)

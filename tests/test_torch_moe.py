@@ -32,7 +32,9 @@ from atom_tpu_torch.serving import KvPool, TextGenConfig, TextGenEngine, make_mo
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving import moe as tmoe
 from atom_tpu_torch.serving.convert import moe_serving_params_from_numpy, serving_state_from_numpy, tensor_from_numpy
-from test_torch_serving import B, PAGE, W, _bits, _inputs, _state, _tbits, _to_jax
+from test_torch_serving import B, PAGE, W, _bits, _inputs, _state, _tbits, _to_jax, cap_torch_threads
+
+cap_torch_threads()
 
 KW = dict(vocab_size=256, hidden_size=512, intermediate_size=512, num_layers=2, num_heads=8, num_kv_heads=4,
           head_dim=128, num_experts=4, num_experts_per_tok=2, max_position_embeddings=1024)

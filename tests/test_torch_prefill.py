@@ -30,6 +30,9 @@ from atom_tpu_torch.ops import kv_layout as tlay
 from atom_tpu_torch.ops import reference as TR
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _t(a):

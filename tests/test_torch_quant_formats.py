@@ -31,6 +31,9 @@ from atom_tpu_torch.ops.misc import embed_gather as t_embed_gather
 from atom_tpu_torch.quant import core as tc
 from atom_tpu_torch.quant import packing as tp
 from atom_tpu_torch.serving.convert import tensor_from_numpy
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _t(a):

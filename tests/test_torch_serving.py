@@ -7,6 +7,7 @@ and GQA.  The JAX side runs its Pallas kernels in interpret mode; the port
 its plain versions.  Inputs and state come from seeded numpy arrays.
 """
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,22 @@ from atom_tpu_torch.models.configs import Arch as TArch
 from atom_tpu_torch.models.configs import ModelConfig as TModelConfig
 from atom_tpu_torch.serving import model as tm
 from atom_tpu_torch.serving.convert import serving_params_from_numpy, serving_state_from_numpy
+
+
+def cap_torch_threads():
+    """Give each pytest-xdist worker its share of the cores for torch's
+    intra-op threads.  By default every worker's torch opens one thread per
+    core, so N workers run N times as many threads as there are cores and
+    the port's tests spend most of their time waiting on each other.
+    Without xdist the worker count is unset and nothing changes.  Every
+    ``tests/test_torch_*.py`` calls this at import, so the cap holds whichever
+    file a worker collects first."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+
+
+cap_torch_threads()
 
 REPO = Path(__file__).resolve().parents[1]
 B, PAGE, W, MAX_PAGES = 32, 256, 32, 2
@@ -307,7 +324,8 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     assert len(names) > 25
     for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
-                "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py"):
+                "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py", "serving/lora.py",
+                "native/__init__.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 

@@ -18,6 +18,9 @@ import torch
 from atom_tpu.ops import pallas_gemm_w4a16 as jw
 from atom_tpu_torch.ops import gemm_w4a16 as tw
 from atom_tpu_torch.ops.gemm_packed import unpack_nibble_planes
+from test_torch_serving import cap_torch_threads
+
+cap_torch_threads()
 
 HID, INTER_P, HEAD_N = 4096, 11264, 32256  # Llama-2-7B width, the W4A16 stack's padded MLP, the padded head
 SMS, MAX_CLUSTER = 132, 8
