@@ -79,3 +79,25 @@ class QuantSpec:
 
 
 ATOM_W4A4 = QuantSpec()
+
+ATOM_W4A4_FP4 = QuantSpec(quant_type=QuantType.FP)
+
+ATOM_W8A8 = QuantSpec(
+    wbits=8,
+    abits=8,
+    weight_channel_group=1,
+    keeper=0,
+    keeper_precision=KeeperPrecision.FLOAT,
+    w_clip_ratio=1.0,
+    a_clip_ratio=1.0,
+)
+
+FP16_BASELINE = QuantSpec(
+    wbits=16,
+    abits=16,
+    keeper=0,
+    keeper_precision=KeeperPrecision.FLOAT,
+    kv_cache=False,
+    reorder=False,
+    use_gptq=False,
+)

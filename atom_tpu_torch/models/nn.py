@@ -51,3 +51,27 @@ def causal_mask(q_len: int, kv_len: int, dtype=torch.float32, device=None) -> to
     kv_ids = torch.arange(kv_len, device=device)[None, :]
     mask = torch.where(kv_ids <= q_ids, 0.0, torch.finfo(dtype).min)
     return mask[None, None].to(dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Standard LayerNorm (OPT) with f32 statistics (population variance)."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * weight + bias
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Plain attention of the accuracy path: [b, h, s, d] inputs, f32 scores
+    (q.k in f32 over the inputs' values) scaled by 1/sqrt(d), the mask added,
+    an f32 softmax, the probabilities rounded to v's dtype, p.v in f32, the
+    result in v's dtype."""
+    d = q.shape[-1]
+    scores = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    scores = scores / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return out.to(v.dtype)

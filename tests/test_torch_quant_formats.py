@@ -58,7 +58,12 @@ def _eq(j, t):
 def test_port_spec_matches_jax_spec():
     import dataclasses
 
+    import atom_tpu.config as jconf
+    import atom_tpu_torch.config as tconf
+
     assert dataclasses.asdict(T_ATOM_W4A4) == dataclasses.asdict(ATOM_W4A4)
+    for name in ("ATOM_W4A4_FP4", "ATOM_W8A8", "FP16_BASELINE"):
+        assert dataclasses.asdict(getattr(tconf, name)) == dataclasses.asdict(getattr(jconf, name)), name
 
 
 @pytest.mark.parametrize("signed", [True, False])
