@@ -11,11 +11,13 @@ PyTorch version; given CUDA tensors it launches its kernel or raises.
 Ported so far: the W4A4 serving stack (prefill with an optional flash-prefill
 kernel, decode with an optional fused post-attention configuration, the mixed
 prefill+decode step, the KV pool and the continuous-batching engine with
-serial or mixed prefill, the bf16, W8A16 and W4A16 heads), the baseline stacks
-bf16, W8A8 and W4A16 in the same engine (``serving/baselines.py``), and the
-grouped int8 GEMMs (``ops/gemm.py``): every Pallas kernel of the JAX package
-has its CUDA counterpart.  What raises ``NotImplementedError`` until its slice
-lands: ``TextGenEngine(lora=True)`` and ``TextGenEngine(native=...)``.
+serial or mixed prefill, the bf16, W8A16 and W4A16 heads, LoRA adapters and
+the native scheduler), MoE serving on one device, the baseline stacks bf16,
+W8A8 and W4A16 in the same engine (``serving/baselines.py``), the grouped
+int8 GEMMs (``ops/gemm.py``), and the accuracy pipeline (``main.py``: the
+Llama, OPT and Mixtral models, calibration, evaluation, the serving exports)
+with the fixture trainer (``utils/train.py``).  Every Pallas kernel of the
+JAX package has its CUDA counterpart.  Parallelism is still to be ported.
 
 The package imports neither ``jax`` nor anything of ``atom_tpu``.
 """

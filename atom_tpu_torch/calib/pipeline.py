@@ -24,14 +24,13 @@ def _model_api(cfg: ModelConfig):
     """The architecture's accuracy model module."""
     if cfg.arch == Arch.LLAMA:
         from atom_tpu_torch.models import llama as m
-
-        return m
-    if cfg.arch in (Arch.OPT, Arch.MIXTRAL):
-        raise NotImplementedError(
-            f"the port's accuracy pipeline covers Llama; the {cfg.arch.value} accuracy model is still to be ported "
-            "(ROADMAP.md section A)"
-        )
-    raise ValueError(cfg.arch)
+    elif cfg.arch == Arch.OPT:
+        from atom_tpu_torch.models import opt as m
+    elif cfg.arch == Arch.MIXTRAL:
+        from atom_tpu_torch.models import mixtral as m
+    else:
+        raise ValueError(cfg.arch)
+    return m
 
 
 @torch.no_grad()

@@ -8,8 +8,9 @@ acc``) as the JAX package's, plus ``--device`` (the card unless ``cpu``):
         --calib_samples 8 --seqlen 512 --eval_ppl --export_serving /tmp/srv
 
 Model names resolve to built-in geometries (random weights from ``--seed``)
-or, with ``--hf_path``, to a local HF checkpoint directory.  The accuracy
-model is Llama's; OPT and Mixtral presets raise ``NotImplementedError``.
+or, with ``--hf_path``, to a local HF checkpoint directory.  Llama, OPT and
+Mixtral calibrate and evaluate; ``--export_serving`` covers the two served
+architectures, Llama and Mixtral, and refuses OPT before anything runs.
 """
 from __future__ import annotations
 
@@ -79,9 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_dir", type=str, default=None,
                    help="save the calibrated params + reorder indices here")
     p.add_argument("--export_serving", type=str, default=None,
-                   help="pack the calibrated model into the serving model's ServingParams and save them to this "
-                        "dir (Llama; exact code transfer: GPTQ scales are exported, RTN re-packs the reordered "
-                        "originals)")
+                   help="pack the calibrated model into the serving model's params and save them to this dir "
+                        "(Llama, Mixtral; exact code transfer: GPTQ scales are exported, RTN re-packs the "
+                        "reordered originals)")
     p.add_argument("--layers", type=int, default=0, help="truncate to N layers (smoke runs)")
     p.add_argument("--device", type=str, default=None, help="torch device (default: the card; cpu runs on the host)")
     return p
@@ -149,6 +150,7 @@ def main(argv=None):
 
     from atom_tpu_torch.calib.pipeline import _model_api, calibrate
     from atom_tpu_torch.models import configs
+    from atom_tpu_torch.models.configs import Arch
     from atom_tpu_torch.ops.runtime import resolve_device
     from atom_tpu_torch.utils.eval import perplexity
 
@@ -163,6 +165,9 @@ def main(argv=None):
         cfg = cfg.replace(num_layers=args.layers)
     spec = make_spec(args)
     m = _model_api(cfg)
+    if args.export_serving and cfg.arch not in (Arch.LLAMA, Arch.MIXTRAL):
+        raise SystemExit(f"--export_serving covers the two served architectures (Llama, Mixtral), not "
+                         f"{cfg.arch.value}")
 
     print(f"model={args.model} cfg={cfg.arch.value} L={cfg.num_layers} d={cfg.hidden_size} "
           f"spec: W{spec.wbits}A{spec.abits} g{spec.weight_group_size} keeper={spec.keeper} "
@@ -198,7 +203,7 @@ def main(argv=None):
 
     if args.export_serving:
         from atom_tpu_torch.calib.pipeline import reorder_model
-        from atom_tpu_torch.models.hf_loader import pack_calibrated_params
+        from atom_tpu_torch.models.hf_loader import pack_calibrated_params, pack_calibrated_params_moe
         from atom_tpu_torch.utils.checkpoint import save_serving
 
         if not (spec.quantize_weights and spec.wbits == 4):
@@ -206,7 +211,8 @@ def main(argv=None):
                              "the serving stack takes INT4 bodies + INT8 keepers only")
         orig_reordered = (reorder_model(orig_params, cfg, indices) if orig_params is not None and spec.reorder
                           else orig_params)
-        sp = pack_calibrated_params(params, cfg, spec, orig_params=orig_reordered, gptq_scales=gptq_scales)
+        pack = pack_calibrated_params_moe if cfg.arch == Arch.MIXTRAL else pack_calibrated_params
+        sp = pack(params, cfg, spec, orig_params=orig_reordered, gptq_scales=gptq_scales)
         save_serving(args.export_serving, sp, cfg, spec)
         print(f"exported serving weights to {args.export_serving}", flush=True)
 

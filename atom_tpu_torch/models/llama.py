@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from atom_tpu_torch.config import QuantSpec
-from atom_tpu_torch.models.base import get_layer, set_layer, stack_layers
+from atom_tpu_torch.models.base import get_layer, params_from_numpy, set_layer, stack_layers  # noqa: F401
 from atom_tpu_torch.models.configs import ModelConfig
 from atom_tpu_torch.models.nn import apply_rope, attention, causal_mask, repeat_kv, rmsnorm, rope_tables
 from atom_tpu_torch.ops.runtime import resolve_device
@@ -81,17 +81,6 @@ def params_like(cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
     return {"embed": torch.empty((cfg.vocab_size, h), dtype=dtype, **meta),
             "final_norm": torch.empty((h,), dtype=dtype, **meta),
             "lm_head": torch.empty((h, cfg.vocab_size), dtype=dtype, **meta), "layers": layers}
-
-
-def params_from_numpy(params, device=None) -> Params:
-    """The JAX accuracy model's params as numpy arrays (``jax.tree.map(np.asarray,
-    params)``) -> the port's, bit for bit (bfloat16 included)."""
-    from atom_tpu_torch.serving.convert import tensor_from_numpy
-
-    dev = resolve_device(device)
-    out = {k: tensor_from_numpy(v, dev) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: tensor_from_numpy(v, dev) for k, v in params["layers"].items()}
-    return out
 
 
 # ---------------------------------------------------------------------------

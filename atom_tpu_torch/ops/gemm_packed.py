@@ -353,6 +353,15 @@ def quant_gemm_packed(
     return packed_w4_gemm(qa.codes, kw.body_packed, kw.keeper, qa.scales, kw.scales).to(out_dtype)
 
 
+def quant_gemm_o4_packed(qa: QuantizedActivation, kw: KernelPackedWeight, head_dim: int = 128):
+    """The k/v projection's drop-in: K1 into float32, then the asymmetric
+    per-head u4 quantization of its output -> ``KVQuant`` (codes [M, N //
+    head_dim, head_dim], params [M, N // head_dim, 2])."""
+    out = quant_gemm_packed(qa, kw, out_dtype=torch.float32)
+    m, n = out.shape
+    return quantize_kv_asym(out.reshape(m, n // head_dim, head_dim))
+
+
 # ---------------------------------------------------------------------------
 # K2: fused qkv projection storing K/V into the hot ring
 # ---------------------------------------------------------------------------

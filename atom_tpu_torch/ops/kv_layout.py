@@ -18,6 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from atom_tpu_torch.quant.packing import unpack_uint4
+
 
 class KVPages(NamedTuple):
     """One layer's paged quantized KV cache."""
@@ -72,6 +74,12 @@ def pack_slot_planes(codes: torch.Tensor) -> torch.Tensor:
     return _pack_planes(codes, -2)
 
 
+def _unpack_planes(pb: torch.Tensor) -> torch.Tensor:
+    """Plane bytes [..., X/2, Y] -> u4 codes [..., X, Y] (int8 in [0, 15])."""
+    b = pb.view(torch.uint8) if pb.dtype == torch.int8 else pb.to(torch.uint8)
+    return torch.cat([(b & 0x0F).to(torch.int8), (b >> 4).to(torch.int8)], dim=-2)
+
+
 def merge_params(k_prm: torch.Tensor, v_prm: torch.Tensor) -> torch.Tensor:
     """(k_prm [..., H, 2, S], v_prm [..., H, 2, S]) -> merged bf16 [..., 4, H, S]."""
     rows = torch.stack(
@@ -112,3 +120,31 @@ def append_kv_prefill_kernel(pages: KVPages, k, v, page_table_row: torch.Tensor)
     pages.v_pages.index_copy_(0, dest, v_bytes.index_select(0, src))
     pages.params.index_copy_(0, dest, prm.index_select(0, src))
     return pages
+
+
+# ---------------------------------------------------------------------------
+# Converters to and from the reference layout (``ops.reference``)
+# ---------------------------------------------------------------------------
+
+
+def kv_pages_from_reference(k_pages_ref: torch.Tensor, k_params_ref: torch.Tensor, v_pages_ref: torch.Tensor,
+                            v_params_ref: torch.Tensor) -> KVPages:
+    """Reference-layout pages (int8 [P, H, S, D/2] packed along D, f32 params
+    [P, H, S, 2]) -> the kernel layout."""
+    k_codes = unpack_uint4(k_pages_ref)  # [P, H, S, D]
+    v_codes = unpack_uint4(v_pages_ref)
+    return KVPages(
+        k_pages=pack_channel_planes(k_codes.transpose(-1, -2)),
+        v_pages=pack_slot_planes(v_codes),
+        params=merge_params(k_params_ref.transpose(-1, -2), v_params_ref.transpose(-1, -2)),
+    )
+
+
+def kv_codes_from_kernel(pages: KVPages):
+    """Kernel layout -> (k_codes [P, H, S, D], k_params [P, H, S, 2], v_codes, v_params)."""
+    k_codes = _unpack_planes(pages.k_pages).transpose(-1, -2)
+    v_codes = _unpack_planes(pages.v_pages)
+    prm = pages.params.to(torch.float32)  # [P, 4, H, S]
+    k_params = torch.stack([prm[:, 0], prm[:, 1]], dim=-1)
+    v_params = torch.stack([prm[:, 2], prm[:, 3]], dim=-1)
+    return k_codes, k_params, v_codes, v_params

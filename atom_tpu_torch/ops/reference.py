@@ -1,24 +1,30 @@
 """Plain PyTorch versions of the serving ops (``atom_tpu/ops/reference.py``).
 
-Only the ops the ported paths need: the dual-path GEMM oracle and its k/v
-variant with the output quantized per head, the KV quantizer and the fused
-quantize epilogues' glue.
+The dual-path GEMM oracle and its k/v variant with the output quantized per
+head, the KV quantizer, the fused quantize epilogues' glue, and the plain
+paged INT4 KV cache of the reference layout (``make_kv_pages``, the decode
+and prefill appends, ``gather_kv``) with its decode attention
+(``batch_decode``): the oracles that the kernel layouts of ``kv_layout`` are
+held against.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from atom_tpu_torch.config import QuantSpec
-from atom_tpu_torch.models.nn import rmsnorm
+from atom_tpu_torch.models.nn import rmsnorm, rope_tables
 from atom_tpu_torch.numerics import rp_bf16
 from atom_tpu_torch.ops.formats import (
     PackedWeight,
     QuantizedActivation,
     quantize_activation_packed,
 )
+from atom_tpu_torch.ops.runtime import resolve_device
 from atom_tpu_torch.quant.core import div_exact
+from atom_tpu_torch.quant.packing import pack_uint4, unpack_uint4
 
 
 def _int_dot(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
@@ -101,3 +107,97 @@ def reorder_quant(
 ) -> QuantizedActivation:
     """Channel gather -> dual-path dynamic quant."""
     return quantize_activation_packed(torch.index_select(x, -1, reorder_idx), spec)
+
+
+def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor, spec: QuantSpec) -> QuantizedActivation:
+    """quant(SiLU(gate) * up) in float32: the MLP epilogue (no reorder: gate
+    and up were out-reordered at calibration into down_proj's input order)."""
+    return quantize_activation_packed(F.silu(gate.to(torch.float32)) * up.to(torch.float32), spec)
+
+
+# ---------------------------------------------------------------------------
+# Paged INT4 KV cache, reference layout
+# ---------------------------------------------------------------------------
+#
+#   pages  int8 [n_pages, kv_heads, page_size, head_dim // 2] (two u4 codes a
+#          byte, packed along head_dim: ``pack_uint4``)
+#   params f32  [n_pages, kv_heads, page_size, 2] (scale, zero_val)
+# A sequence's pages come from a padded page table [B, max_pages] with its
+# lengths [B].  The appends return new tensors and leave their inputs alone.
+
+
+def make_kv_pages(n_pages: int, kv_heads: int, page_size: int, head_dim: int,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = resolve_device(device)
+    pages = torch.zeros((n_pages, kv_heads, page_size, head_dim // 2), dtype=torch.int8, device=dev)
+    params = torch.zeros((n_pages, kv_heads, page_size, 2), dtype=torch.float32, device=dev)
+    return pages, params
+
+
+def append_kv_decode(pages: torch.Tensor, params: torch.Tensor, kv: KVQuant, page_idx: torch.Tensor,
+                     slot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One new token a sequence (codes [B, H, D], params [B, H, 2]) into
+    page ``page_idx[b]``, slot ``slot[b]``."""
+    pages, params = pages.clone(), params.clone()
+    pi, si = page_idx.long(), slot.long()
+    pages[pi, :, si] = pack_uint4(kv.codes).view(torch.int8)
+    params[pi, :, si] = kv.params.to(params.dtype)
+    return pages, params
+
+
+def append_kv_prefill(pages: torch.Tensor, params: torch.Tensor, kv: KVQuant, page_table_row: torch.Tensor,
+                      page_size: int, start_pos: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A whole sequence (codes [T, H, D]) into its pages from ``start_pos``."""
+    t = kv.codes.shape[0]
+    positions = torch.arange(t, device=pages.device) + start_pos
+    page_of = page_table_row.long()[positions // page_size]
+    slot_of = positions % page_size
+    pages, params = pages.clone(), params.clone()
+    pages[page_of, :, slot_of] = pack_uint4(kv.codes).view(torch.int8)
+    params[page_of, :, slot_of] = kv.params.to(params.dtype)
+    return pages, params
+
+
+def gather_kv(pages: torch.Tensor, params: torch.Tensor, page_table_row: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A sequence's pages -> codes [max_pages * page_size, H, D] and params
+    [max_pages * page_size, H, 2], in position order."""
+    pk = pages[page_table_row.long()]  # [P, H, S, D/2]
+    pp = params[page_table_row.long()]  # [P, H, S, 2]
+    p, h, s, dh = pk.shape
+    codes = unpack_uint4(pk).permute(0, 2, 1, 3).reshape(p * s, h, dh * 2)
+    return codes, pp.permute(0, 2, 1, 3).reshape(p * s, h, 2)
+
+
+def batch_decode(
+    q: torch.Tensor,  # [B, num_heads, head_dim], RoPE applied
+    k_pages: torch.Tensor,
+    k_params: torch.Tensor,
+    v_pages: torch.Tensor,
+    v_params: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages]
+    seq_lens: torch.Tensor,  # [B] tokens a sequence, the current one included
+    rope_theta: float = 10000.0,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Decode attention over the reference-layout pages: K is stored before
+    RoPE, so each key is dequantized and rotated at its absolute position,
+    then a masked float32 softmax against V -> [B, num_heads, head_dim]."""
+    b, num_heads, head_dim = q.shape
+    groups = num_heads // k_pages.shape[1]
+    max_t = page_table.shape[1] * k_pages.shape[2]
+    positions = torch.arange(max_t, device=q.device)
+    cos, sin = rope_tables(positions, head_dim, rope_theta)  # [T, D]
+    half = head_dim // 2
+    outs = []
+    for i in range(b):
+        k = dequantize_kv(*gather_kv(k_pages, k_params, page_table[i]))  # [T, Hkv, D] f32
+        v = dequantize_kv(*gather_kv(v_pages, v_params, page_table[i]))
+        k_rot = k * cos[:, None, :] + torch.cat([-k[..., half:], k[..., :half]], dim=-1) * sin[:, None, :]
+        k_rep = torch.repeat_interleave(k_rot, groups, dim=1)  # [T, H, D]
+        v_rep = torch.repeat_interleave(v, groups, dim=1)
+        scores = torch.einsum("hd,thd->ht", q[i].to(torch.float32), k_rep)
+        scores = scores / torch.sqrt(torch.tensor(head_dim, dtype=torch.float32, device=q.device))
+        scores = torch.where((positions < seq_lens[i])[None, :], scores, torch.finfo(torch.float32).min)
+        outs.append(torch.einsum("ht,thd->hd", torch.softmax(scores, dim=-1), v_rep))
+    return torch.stack(outs).to(out_dtype)

@@ -7,8 +7,9 @@ keys, NamedTuple field names, list indices: the keys of JAX's
 each key's dtype name) and bfloat16 stored as its uint16 bits; a
 ``meta.json`` beside it holds the (cfg, spec) that produced it.  A directory
 written by either package loads in the other.  The serving export is written
-in the JAX package's layout of ``ServingParams`` (body and keeper scales
-apart); :func:`load_serving` merges them into the port's.
+in the JAX package's layout of ``ServingParams`` or ``MoEServingParams``
+(body and keeper scales apart); :func:`load_serving` merges them into the
+port's.
 """
 from __future__ import annotations
 
@@ -185,64 +186,86 @@ _PACKED = ("wqkv", "wo", "wgateup", "wdown")
 
 
 def _serving_layout(cfg, spec) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """Key -> (shape, dtype) of the JAX package's Llama ``ServingParams``."""
+    """Key -> (shape, dtype) of the JAX package's Llama ``ServingParams`` or,
+    for Mixtral, ``MoEServingParams`` (expert weights with a leading [E])."""
+    from atom_tpu_torch.models.configs import Arch
+
     d, inter, k, g = cfg.hidden_size, cfg.intermediate_size, spec.keeper, spec.weight_group_size
     n_q, n_kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     bf16, i32 = torch.bfloat16, torch.int32
+    moe = cfg.arch == Arch.MIXTRAL
+    lead = (cfg.num_experts,) if moe else ()
     out = {"embed": ((cfg.vocab_size, d), bf16), "final_norm": ((d,), bf16), "lm_head": ((d, cfg.vocab_size), bf16)}
-    gemms = {"wqkv": (d, n_q + 2 * n_kv), "wo": (n_q, d), "wgateup": (d, 2 * inter), "wdown": (inter, d)}
+    gemms = {"wqkv": ((), d, n_q + 2 * n_kv), "wo": ((), n_q, d), "wgateup": (lead, d, 2 * inter),
+             "wdown": (lead, inter, d)}
     for i in range(cfg.num_layers):
         p = f"layers/{i}/"
         out.update({p + "ln_attn": ((d,), bf16), p + "ln_mlp": ((d,), bf16), p + "attn_reorder": ((d,), i32),
-                    p + "o_reorder": ((n_q,), i32), p + "mlp_reorder": ((d,), i32), p + "ln_attn_g": ((d,), bf16),
-                    p + "ln_mlp_g": ((d,), bf16)})
-        for name, (in_f, out_f) in gemms.items():
+                    p + "o_reorder": ((n_q,), i32), p + "mlp_reorder": ((d,), i32)})
+        if moe:
+            out[p + "router"] = ((d, cfg.num_experts), bf16)
+        else:
+            out.update({p + "ln_attn_g": ((d,), bf16), p + "ln_mlp_g": ((d,), bf16)})
+        for name, (pre, in_f, out_f) in gemms.items():
             q = p + name + "/"
-            out.update({q + "body_packed": (((in_f - k) // 2, out_f), torch.int8),
-                        q + "body_scale": (((in_f - k) // g, out_f), torch.float32),
-                        q + "keeper": ((k, out_f), torch.int8), q + "keeper_scale": ((out_f,), torch.float32)})
+            out.update({q + "body_packed": ((*pre, (in_f - k) // 2, out_f), torch.int8),
+                        q + "body_scale": ((*pre, (in_f - k) // g, out_f), torch.float32),
+                        q + "keeper": ((*pre, k, out_f), torch.int8), q + "keeper_scale": ((*pre, out_f), torch.float32)})
     return out
 
 
-def save_serving(save_dir: str, serving_params, cfg, spec) -> None:
-    """Persist the port's Llama ``ServingParams`` (bf16 head) and the
-    producing (cfg, spec), in the layout the JAX package's ``load_serving``
-    reads."""
+def _layer_types(cfg):
+    """(layer params type, params type) of the serving model of ``cfg``'s
+    architecture, and the layer fields the JAX package does not store
+    (the MoE layer's ``ln_attn_g``, rebuilt from ``ln_attn`` and
+    ``attn_reorder`` on load)."""
     from atom_tpu_torch.models.configs import Arch
 
-    if cfg.arch != Arch.LLAMA:
-        raise NotImplementedError("the port's serving export covers Llama; the MoE export is still to be ported "
-                                  "(ROADMAP.md section A)")
+    if cfg.arch == Arch.MIXTRAL:
+        from atom_tpu_torch.serving.moe import MoEServingLayerParams, MoEServingParams
+
+        return MoEServingLayerParams, MoEServingParams, ("ln_attn_g",)
+    if cfg.arch == Arch.LLAMA:
+        from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams
+
+        return ServingLayerParams, ServingParams, ()
+    raise ValueError(f"the serving export covers the served architectures (Llama, Mixtral), not {cfg.arch.value}")
+
+
+def save_serving(save_dir: str, serving_params, cfg, spec) -> None:
+    """Persist the port's ``ServingParams`` (Llama) or ``MoEServingParams``
+    (Mixtral), with the bf16 head, and the producing (cfg, spec), in the
+    layout the JAX package's ``load_serving`` reads."""
+    _, _, derived = _layer_types(cfg)
     if not isinstance(serving_params.lm_head, torch.Tensor):
         raise ValueError("save_serving stores the bf16 head; quantize the head after loading")
     flat = {"embed": serving_params.embed, "final_norm": serving_params.final_norm, "lm_head": serving_params.lm_head}
     for i, lp in enumerate(serving_params.layers):
         for f in lp._fields:
+            if f in derived:
+                continue
             v = getattr(lp, f)
-            if f in _PACKED:
-                ng = v.scales.shape[0] - 1
-                flat.update({f"layers/{i}/{f}/body_packed": v.body_packed, f"layers/{i}/{f}/body_scale": v.scales[:ng],
-                             f"layers/{i}/{f}/keeper": v.keeper, f"layers/{i}/{f}/keeper_scale": v.scales[ng]})
+            p = f"layers/{i}/{f}"
+            if f in _PACKED:  # scales [..., ng + 1, N]: the body groups, then the keeper's
+                ng = v.scales.shape[-2] - 1
+                flat.update({p + "/body_packed": v.body_packed, p + "/body_scale": v.scales[..., :ng, :],
+                             p + "/keeper": v.keeper, p + "/keeper_scale": v.scales[..., ng, :]})
             else:
-                flat[f"layers/{i}/{f}"] = v
+                flat[p] = v
     os.makedirs(save_dir, exist_ok=True)
     _save_flat(os.path.join(save_dir, "serving_params.npz"), flat)
     _write_meta(save_dir, cfg, spec)
 
 
 def load_serving(save_dir: str, device=None):
-    """Restore ``(ServingParams, cfg, spec)`` saved by either package's
-    ``save_serving``, onto the resolved device; keys and shapes come from
-    ``meta.json``."""
-    from atom_tpu_torch.models.configs import Arch
+    """Restore ``(ServingParams or MoEServingParams, cfg, spec)`` saved by
+    either package's ``save_serving``, onto the resolved device; keys and
+    shapes come from ``meta.json``."""
     from atom_tpu_torch.ops.formats import KernelPackedWeight
-    from atom_tpu_torch.serving.model import ServingLayerParams, ServingParams
 
     dev = resolve_device(device)
     cfg, spec = load_meta(save_dir)
-    if cfg.arch != Arch.LLAMA:
-        raise NotImplementedError("the port's serving export covers Llama; the MoE export is still to be ported "
-                                  "(ROADMAP.md section A)")
+    layer_cls, params_cls, derived = _layer_types(cfg)
     layout = _serving_layout(cfg, spec)
     data, saved = _load_flat(os.path.join(save_dir, "serving_params.npz"))
     files = set(data.files) - {_DTYPES_KEY}
@@ -259,14 +282,18 @@ def load_serving(save_dir: str, device=None):
     layers = []
     for i in range(cfg.num_layers):
         fields = {}
-        for f in ServingLayerParams._fields:
+        for f in layer_cls._fields:
             p = f"layers/{i}/{f}"
+            if f in derived:
+                continue
             if f in _PACKED:
-                scales = torch.cat([get(p + "/body_scale"), get(p + "/keeper_scale")[None, :]], dim=0)
+                scales = torch.cat([get(p + "/body_scale"), get(p + "/keeper_scale").unsqueeze(-2)], dim=-2)
                 fields[f] = KernelPackedWeight(body_packed=get(p + "/body_packed"), keeper=get(p + "/keeper"),
                                                scales=scales)
             else:
                 fields[f] = get(p)
-        layers.append(ServingLayerParams(**fields))
-    params = ServingParams(embed=get("embed"), final_norm=get("final_norm"), lm_head=get("lm_head"), layers=layers)
+        if derived:
+            fields["ln_attn_g"] = fields["ln_attn"][fields["attn_reorder"].long()]
+        layers.append(layer_cls(**fields))
+    params = params_cls(embed=get("embed"), final_norm=get("final_norm"), lm_head=get("lm_head"), layers=layers)
     return params, cfg, spec

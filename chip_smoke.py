@@ -56,7 +56,9 @@ Phases, each fatal on failure:
      prefill; and the engine with a dozen requests, serial and mixed;
   6. K14's path (it lies on no serving path): one 7B layer's seven projections
      through the int8-carrier ``quant_gemm`` drop-in (K14a) and k/v through
-     ``quant_gemm_o4`` (K14b), held bit for bit against K1 on the same codes;
+     ``quant_gemm_o4`` (K14b), held bit for bit against K1 on the same codes,
+     and k/v through K1's drop-in ``quant_gemm_o4_packed`` bit for bit against
+     its plain version and K14b;
   7. the baseline stacks (``serving/baselines.py``: bf16, W8A8 with int8 dense
      KV, W4A16 through K13) at full width, one at a time: a decode burst at
      batch 32, context 512 (launch counts, tok/s by the slope between 8 and 32
@@ -90,19 +92,32 @@ Phases, each fatal on failure:
      page tables, host scheduling ms a step of each.
  10. calibrate -> export -> serve (after phase 8, on freed memory), through
      ``atom_tpu_torch/main.py``'s parser, spec and data loader: Llama-2-7B
-     at full width cut to 8 layers with ``--layers``, random bf16 weights
+     at full width cut to 4 layers with ``--layers``, random bf16 weights
      from a seed, ``--reorder --use_gptq`` on 8 windows of 512 tokens of
      ``data/corpus/train.txt`` (saliency, reorder, GPTQ, each timed), the
      ``targetResult,corpus,<ppl>`` line over the first 16 windows of
      eval.txt, the export (``pack_calibrated_params`` on the GPTQ scales,
      ``save_serving``) loaded back onto the card bit for bit, the engine
-     cell of phase 4 over the loaded params with the bf16 head at 16
+     cell of phase 4 over the loaded params with the bf16 head at 8
      requests (K1 on both its kernels, K2, K3, K4, K6, K7 launched, under
      ``calibrated_engine``), and on the first 2 calibrated layers the kernel
-     prefill's logits against the accuracy pipeline's ``forward`` (the
-     bounds of ``tests/test_calibrated_serving.py``; the same figures at 8
-     layers, not gated) and a flushing decode step, kernel path against
-     plain path.
+     prefill's logits against the accuracy pipeline's ``forward`` (within
+     W4A4's own floor) and a flushing decode step, kernel path against plain
+     path.
+ 11. the rest of the accuracy pipeline, on freed memory after phase 10, through
+     phase 10's code: Mixtral-8x7B at full width cut to 2 layers, the same
+     flags and figures, exported through ``pack_calibrated_params_moe`` and
+     served by the MoE engine (``make_moe_step_fns``, 16 requests, the 512
+     bucket's prompts on the routed experts; K1 both kernels, K2, K3, K4, K6,
+     K7 under ``calibrated_moe_engine``), the served logits against the
+     accuracy forward and the kernel-vs-plain decode step at 2 layers; OPT-6.7B
+     at full width cut to 2 layers to its ``targetResult`` line (OPT is not
+     served: no kernel); then ``utils/train.py`` on ``BYTE_LM`` at full width
+     (batch 8, seqlen 2048, 24 steps with an 8-step warmup) over
+     ``data/corpus/train.txt``, the loss falling below its first chunk's,
+     steps/s and tokens/s, ``eval_loss`` over 8 eval windows, and the
+     checkpoint written as ``scripts/torch_train_corpus_model.py`` writes it,
+     read back through ``main.py``'s ``--ckpt`` path.
 
 stdout ends with the kernels line, the results line, the ratios line, the card
 line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1875,11 +1890,13 @@ def int8_carrier_layer(torch, dev) -> tuple[dict, dict]:
     gate, up, down: ``quantize_weight_packed`` of random weights, batch 32)
     through the int8-carrier drop-in ``ops.gemm.quant_gemm`` (K14a), and k and
     v through ``ops.gemm.quant_gemm_o4`` (K14b); then K1 on the same codes
-    (nibble planes) and the plain KV quantizer on K1's product: bitwise?"""
+    (nibble planes) and the plain KV quantizer on K1's product, and k and v
+    through ``ops.gemm_packed.quant_gemm_o4_packed`` (K1 + the quantizer)
+    against its plain version and K14b: bitwise?"""
     from atom_tpu_torch.config import ATOM_W4A4
     from atom_tpu_torch.ops import gemm as g8
     from atom_tpu_torch.ops.formats import pack_for_kernel, quantize_activation_packed, quantize_weight_packed
-    from atom_tpu_torch.ops.gemm_packed import quant_gemm_packed
+    from atom_tpu_torch.ops.gemm_packed import quant_gemm_o4_packed, quant_gemm_packed
     from atom_tpu_torch.ops.reference import quantize_kv_asym
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1903,6 +1920,13 @@ def int8_carrier_layer(torch, dev) -> tuple[dict, dict]:
         if n in kv:
             want = quantize_kv_asym(k1.reshape(BATCH, HID // 128, 128))
             bitwise[f"{n}_o4"] = torch.equal(kv[n].codes, want.codes) and torch.equal(kv[n].params, want.params)
+            # the K1 drop-in of the k/v projection (K1 into float32, then the per-head u4 quantizer) against its
+            # plain version and against K14b on the same codes
+            o4 = quant_gemm_o4_packed(acts[HID], pack_for_kernel(pw))
+            with plain_path():
+                o4_plain = quant_gemm_o4_packed(acts[HID], pack_for_kernel(pw))
+            for ref, what in ((o4_plain, "plain"), (kv[n], "k14b")):
+                bitwise[f"{n}_o4_packed_vs_{what}"] = torch.equal(o4.codes, ref.codes) and torch.equal(o4.params, ref.params)
         require(bool(torch.isfinite(out[n]).all()), f"int8-carrier layer: {n} not finite")
     log(f"int8-carrier layer (K14 vs K1 on the same codes, bitwise): {bitwise}")
     require(all(bitwise.values()), f"int8-carrier layer: K14 differs from K1 on the same codes: {bitwise}")
@@ -2436,8 +2460,9 @@ MOE_DECODE_KERNELS = ("packed_w4_gemm", "packed_w4_gemm_qkv_ring_fused", "paged_
                       "embed_gather")
 MOE_FUSED_KERNELS = ("packed_w4_gemm_fused_in", "fused_mlp_packed") + MOE_DECODE_KERNELS[1:]
 MOE_ENGINE_KERNELS = MOE_DECODE_KERNELS + ("packed_w4_gemm_qkv",)
-# the Mixtral bursts' slope between 1 and MOE_BURST_HI windows, and its samples (cut from 4 and 3 with phase 10)
-MOE_ENGINE_LAYERS, MOE_PROFILE_STEPS, MOE_BURST_SAMPLES, MOE_BURST_HI = 4, 4, 2, 2
+# the Mixtral bursts' slope between 1 and MOE_BURST_HI windows, and its samples (cut from 4 and 3 with phase 10, the
+# samples to 1 with phase 11)
+MOE_ENGINE_LAYERS, MOE_PROFILE_STEPS, MOE_BURST_SAMPLES, MOE_BURST_HI = 4, 4, 1, 2
 
 
 @contextlib.contextmanager
@@ -3019,10 +3044,14 @@ def lora_phase(torch, dev, qparams, w4a4: dict) -> tuple[dict, dict]:
     return counts, res
 
 
-# the calibrate -> export -> serve phase: Llama-2-7B at full width cut to 8 layers with main.py's --layers (GPTQ's
-# column loop is sequential and host-bound), ATOM_W4A4 with --reorder --use_gptq, 8 calibration windows of 512
-# tokens of the corpus, perplexity on the first 16 windows of its eval split, the engine at 16 requests, parity at 2
-CALIB_LAYERS, CALIB_SAMPLES, CALIB_SEQLEN, CALIB_PPL_WINDOWS, CALIB_REQUESTS, CALIB_PARITY_T = 8, 8, 512, 16, 16, 256
+# the accuracy pipeline's phases (10: Llama-2-7B; 11: Mixtral-8x7B and OPT-6.7B, then the fixture trainer): each
+# model at full width cut with main.py's --layers (GPTQ's column loop is sequential), ATOM_W4A4 with --reorder
+# --use_gptq, 8 calibration windows of 512 tokens of the corpus, perplexity on the first 16 windows of its eval split,
+# parity at 2 layers.  Phase 10 ran 8 layers and its engine 16 requests until phase 11 took their time.
+CALIB_SAMPLES, CALIB_SEQLEN, CALIB_PPL_WINDOWS, CALIB_PARITY_T = 8, 512, 16, 256
+# main.py's model name -> (layers, the engine's counts key and requests, or None where the model is not served)
+CALIB_MODELS = {"llama2-7b": (4, ("calibrated_engine", 8)), "mixtral-8x7b": (2, ("calibrated_moe_engine", 16)),
+                "opt-6.7b": (2, None)}
 
 
 def logit_figures(got, want) -> dict:
@@ -3036,28 +3065,33 @@ def logit_figures(got, want) -> dict:
 
 
 def served_vs_accuracy(torch, dev, sp, calib, cfg, spec, ids) -> dict:
-    """The served model's kernel prefill (``prefill_hidden`` + the bf16 head)
-    against the accuracy pipeline's ``forward`` on the card, on one window
-    (``logit_figures``), beside the floor that W4A4's rounding sets on these
-    weights: the same figures of the accuracy forward against itself with
-    activations and KV unquantized (``FP16_BASELINE``; the weights stay
-    quantized).  Served and accuracy paths round activations and KV at other
-    points (K after RoPE in the cache, before it in the accuracy model), so
-    they can stand no closer than that."""
+    """The served model's kernel prefill (``prefill_hidden``, or
+    ``prefill_hidden_moe`` for Mixtral, + the bf16 head) against the accuracy
+    pipeline's ``forward`` on the card, on one window (``logit_figures``),
+    beside the floor that W4A4's rounding sets on these weights: the same
+    figures of the accuracy forward against itself with activations and KV
+    unquantized (``FP16_BASELINE``; the weights stay quantized).  Served and
+    accuracy paths round activations and KV at other points (K after RoPE in
+    the cache, before it in the accuracy model), so they can stand no closer
+    than that."""
     import numpy as np
 
+    from atom_tpu_torch.calib.pipeline import _model_api
     from atom_tpu_torch.config import FP16_BASELINE
-    from atom_tpu_torch.models import llama
+    from atom_tpu_torch.models.configs import Arch
     from atom_tpu_torch.serving.model import _lm_head_logits, make_serving_state, prefill_hidden
+    from atom_tpu_torch.serving.moe import prefill_hidden_moe
 
+    m = _model_api(cfg)
     t = ids.shape[0]
     state = make_serving_state(cfg.num_layers, 1 + t // PAGE, 1, cfg.num_kv_heads, PAGE, cfg.head_dim, device=dev)
     table_row = torch.zeros((MAX_PAGES,), dtype=torch.int32, device=dev)
     table_row[: t // PAGE] = torch.arange(1, 1 + t // PAGE, dtype=torch.int32, device=dev)
-    x, _ = prefill_hidden(sp, state.pages, ids, table_row, cfg, spec)
+    prefill = prefill_hidden_moe if cfg.arch == Arch.MIXTRAL else prefill_hidden
+    x, _ = prefill(sp, state.pages, ids, table_row, cfg, spec)
     got = _lm_head_logits(x, sp.lm_head, cfg.vocab_size).float().cpu().numpy()
-    want = llama.forward(calib, ids[None], cfg, spec)[0].float().cpu().numpy()
-    unquantized = llama.forward(calib, ids[None], cfg, FP16_BASELINE)[0].float().cpu().numpy()
+    want = m.forward(calib, ids[None], cfg, spec)[0].float().cpu().numpy()
+    unquantized = m.forward(calib, ids[None], cfg, FP16_BASELINE)[0].float().cpu().numpy()
     require(got.shape == want.shape == (t, cfg.vocab_size) and all(np.isfinite(a).all() for a in (got, want, unquantized)),
             f"served / accuracy logits: shapes {got.shape} / {want.shape} or not finite")
     return dict(logit_figures(got, want), layers=cfg.num_layers, tokens=t,
@@ -3093,12 +3127,13 @@ def gptq_graph_vs_eager(torch, dev, spec) -> dict:
     return dict(graphed_s=out["graphed_s"], eager_s=out["eager_s"], bitwise=same)
 
 
-def calibrated_phase(torch, dev) -> tuple[dict, dict]:
-    """Phase 10: the accuracy pipeline's path through ``main.py``'s own
-    parser, spec and data loader: calibrate Llama-2-7B at full width and
-    ``CALIB_LAYERS`` layers (random bf16 weights from a seed; saliency,
-    reorder, GPTQ), the perplexity line, the export through
-    ``pack_calibrated_params`` and ``save_serving`` and its load back onto
+def calibrated_phase(torch, dev, model: str) -> tuple[dict, dict]:
+    """Phases 10 and 11: the accuracy pipeline's path through ``main.py``'s
+    own parser, spec and data loader for ``model`` (a name of
+    ``CALIB_MODELS``): calibrate at full width and the model's depth (random
+    bf16 weights from a seed; saliency, reorder, GPTQ), the perplexity line;
+    then for a served model the export (``pack_calibrated_params`` or
+    ``pack_calibrated_params_moe``, ``save_serving``) and its load back onto
     the card (bitwise), the engine over the loaded params with the bf16 head,
     and at 2 layers the served logits against the accuracy forward and the
     kernel path against the plain path."""
@@ -3106,30 +3141,36 @@ def calibrated_phase(torch, dev) -> tuple[dict, dict]:
 
     import numpy as np
 
+    import atom_tpu_torch.serving.moe as moe_mod
     from atom_tpu_torch import main as cli
-    from atom_tpu_torch.calib.pipeline import collect_saliency, compute_reorder_indices, quantize_model_gptq, reorder_model
-    from atom_tpu_torch.models import llama
-    from atom_tpu_torch.models.configs import LLAMA2_7B
-    from atom_tpu_torch.models.hf_loader import pack_calibrated_params
-    from atom_tpu_torch.serving import TextGenEngine, make_step_fns, synth_requests
+    from atom_tpu_torch.calib.pipeline import (_model_api, collect_saliency, compute_reorder_indices,
+                                               quantize_model_gptq, reorder_model)
+    from atom_tpu_torch.models import configs
+    from atom_tpu_torch.models.configs import Arch
+    from atom_tpu_torch.models.hf_loader import pack_calibrated_params, pack_calibrated_params_moe
+    from atom_tpu_torch.serving import TextGenEngine, make_moe_step_fns, make_step_fns, synth_requests
     from atom_tpu_torch.serving.model import make_serving_state
     from atom_tpu_torch.utils.checkpoint import load_serving, save_serving
     from atom_tpu_torch.utils.eval import perplexity
 
+    layers, served = CALIB_MODELS[model]
     args = cli.build_parser().parse_args(
-        ["llama2-7b", "corpus", "--layers", str(CALIB_LAYERS), "--reorder", "--use_gptq", "--calib_samples",
-         str(CALIB_SAMPLES), "--seqlen", str(CALIB_SEQLEN), "--corpus_dir", str(ROOT / "data" / "corpus"),
-         "--eval_ppl"])
-    cfg = LLAMA2_7B.replace(num_layers=args.layers)
+        [model, "corpus", "--layers", str(layers), "--reorder", "--use_gptq", "--calib_samples", str(CALIB_SAMPLES),
+         "--seqlen", str(CALIB_SEQLEN), "--corpus_dir", str(ROOT / "data" / "corpus"), "--eval_ppl"])
+    cfg = getattr(configs, cli.MODEL_PRESETS[model]).replace(num_layers=args.layers)
     spec = cli.make_spec(args)
+    m = _model_api(cfg)
+    moe = cfg.arch == Arch.MIXTRAL
     require(spec.keeper == 128 and spec.keeper_precision == 3 and spec.use_gptq and spec.reorder,
-            f"phase 10 runs ATOM_W4A4's scheme with --reorder --use_gptq, got {spec}")
-    res = dict(model=f"Llama-2-7B width, {cfg.num_layers} layers, random bf16 weights (seed {args.seed})",
+            f"the accuracy phase runs ATOM_W4A4's scheme with --reorder --use_gptq, got {spec}")
+    res = dict(model=f"{model} width ({cfg.hidden_size}, MLP {cfg.intermediate_size}"
+                     + (f", {cfg.num_experts} experts" if moe else "") + f"), {cfg.num_layers} layers, random bf16 "
+                     f"weights (seed {args.seed})",
                spec="ATOM_W4A4 scheme, --reorder --use_gptq, keeper 128 INT8",
                calibration=f"{args.calib_samples} windows of {args.seqlen} tokens of data/corpus/train.txt")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = llama.init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
+    params = m.init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
     batches, tests, seqlen = cli.load_data(args, cfg)
     batches = [torch.from_numpy(b).to(dev) for b in batches]
     torch.cuda.synchronize()
@@ -3148,24 +3189,33 @@ def calibrated_phase(torch, dev) -> tuple[dict, dict]:
     res["gptq_s_per_layer"] = res["gptq_s"] / cfg.num_layers
     res["calibration_s"] = res["saliency_reorder_s"] + res["gptq_s"]
     del params
-    log(f"calibration ({cfg.num_layers} layers): saliency + reorder {res['saliency_reorder_s']:.1f} s, GPTQ "
+    log(f"{model} calibration ({cfg.num_layers} layers): saliency + reorder {res['saliency_reorder_s']:.1f} s, GPTQ "
         f"{res['gptq_s']:.1f} s ({res['gptq_s_per_layer']:.2f} s a layer)")
-    require(set(scales) == {f"{i}.{w}" for i in range(cfg.num_layers) for w in llama.LAYER_WEIGHT_OF.values()},
-            "GPTQ did not export every weight's scales")
-    res["gptq_graph_vs_eager"] = gptq_graph_vs_eager(torch, dev, spec)
+    gptq_apply_names = set()  # the names gptq_apply quantizes, from a dry run on the meta device
+    m.gptq_apply({k: v[0].to("meta") for k, v in calib["layers"].items()}, dict.fromkeys(m.hessian_tap_specs(cfg)),
+                 lambda w, h, name: gptq_apply_names.add(name) or w.T)
+    require(set(scales) == {f"{i}.{n}" for i in range(cfg.num_layers) for n in gptq_apply_names},
+            f"{model}: GPTQ did not export every weight's scales")
+    if model == "llama2-7b":
+        res["gptq_graph_vs_eager"] = gptq_graph_vs_eager(torch, dev, spec)
 
     stream = np.asarray(tests["corpus"])[: CALIB_PPL_WINDOWS * seqlen]
     t0 = time.perf_counter()
     ppl = perplexity(calib, cfg, spec, stream, seqlen=seqlen)
     res["ppl_s"] = time.perf_counter() - t0
     res.update(ppl=ppl, ppl_windows=CALIB_PPL_WINDOWS, ppl_tokens=int(stream.size))
-    require(math.isfinite(ppl) and ppl > 1, f"perplexity {ppl}")
+    require(math.isfinite(ppl) and ppl > 1, f"{model}: perplexity {ppl}")
     print(f"targetResult,corpus,{ppl:.6f}", flush=True)
-    log(f"perplexity {ppl:.3f} over {CALIB_PPL_WINDOWS} windows of {seqlen} tokens in {res['ppl_s']:.2f} s "
+    log(f"{model} perplexity {ppl:.3f} over {CALIB_PPL_WINDOWS} windows of {seqlen} tokens in {res['ppl_s']:.2f} s "
         f"(random weights: a path check), {card_line()}")
+    res["peak_memory_gb_calibration"] = torch.cuda.max_memory_allocated() / 1e9
+    if served is None:  # not served (OPT): the accuracy path only
+        del calib
+        torch.cuda.empty_cache()
+        return {}, res
 
     t0 = time.perf_counter()
-    sp = pack_calibrated_params(calib, cfg, spec, gptq_scales=scales)
+    sp = (pack_calibrated_params_moe if moe else pack_calibrated_params)(calib, cfg, spec, gptq_scales=scales)
     torch.cuda.synchronize()
     res["pack_s"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -3178,52 +3228,142 @@ def calibrated_phase(torch, dev) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         res["load_s"] = time.perf_counter() - t0
     exported, back = list(_leaves(sp)), list(_leaves(loaded))
-    same = cfg_l == cfg and spec_l == spec and len(exported) == len(back) and all(
+    same = cfg_l == cfg and spec_l == spec and type(loaded) is type(sp) and len(exported) == len(back) and all(
         a.dtype == b.dtype and a.shape == b.shape and b.device == a.device and torch.equal(bits(a), bits(b))
         for a, b in zip(exported, back))
-    log(f"export ({res['export_mb']:.1f} MB): pack {res['pack_s']:.2f} s, save {res['save_s']:.2f} s, load "
+    log(f"{model} export ({res['export_mb']:.1f} MB): pack {res['pack_s']:.2f} s, save {res['save_s']:.2f} s, load "
         f"{res['load_s']:.2f} s; loaded params equal the exported ones bit for bit: {same}")
-    require(same, "the loaded ServingParams differ from the exported ones")
+    require(same, f"{model}: the loaded serving params differ from the exported ones")
     res["export_load_bitwise"] = same
     del sp
 
+    counts_key, n_requests = served
     tg, pool, n_pages, _ = engine_setup(torch, dev, cfg)
-    rs = synth_requests(CALIB_REQUESTS, cfg.vocab_size, maxlen=XS_MAXLEN)
+    rs = synth_requests(n_requests, cfg.vocab_size, maxlen=XS_MAXLEN)
     state = make_serving_state(cfg.num_layers, n_pages, tg.batch_size, cfg.num_kv_heads, tg.page_size, cfg.head_dim,
                                device=dev)
-    engine = TextGenEngine(tg, pool, *make_step_fns(loaded, cfg_l, spec_l), state)
-    counts, res["engine"] = drive_engine(torch, engine, pool, n_pages, rs, cfg, "calibrated engine", ENGINE_KERNELS)
+    engine = TextGenEngine(tg, pool, *(make_moe_step_fns if moe else make_step_fns)(loaded, cfg_l, spec_l), state)
+    with count_calls(moe_mod, "_moe_mlp_routed") as routed:
+        counts, res["engine"] = drive_engine(torch, engine, pool, n_pages, rs, cfg, f"{model} calibrated engine",
+                                             MOE_ENGINE_KERNELS if moe else ENGINE_KERNELS)
+    if moe:  # the 512 bucket's prompts take the routed experts in every layer, the others the dense ones
+        n_512 = sum(1 for b, _ in engine.last_prefill_s if b >= moe_mod.MOE_ROUTED_THRESHOLD)
+        require(n_512 > 0 and len(routed) == n_512 * cfg.num_layers,
+                f"{model}: {len(routed)} routed expert blocks for {n_512} prompts of the 512 bucket")
+        res["engine"]["routed_prefills"] = n_512
     by_path = counts["packed_w4_gemm_by_path"]
-    require(all(v > 0 for v in by_path.values()), f"the calibrated engine's K1 launches by path {by_path}")
+    require(all(v > 0 for v in by_path.values()), f"{model}: the calibrated engine's K1 launches by path {by_path}")
     res["engine"].update(layers=cfg.num_layers, head="bf16",
-                         config=f"batch 32, page 256, buckets (128, 256, 512), synth_requests({CALIB_REQUESTS}, "
-                                f"32000, maxlen={XS_MAXLEN})")
+                         config=f"batch 32, page 256, buckets (128, 256, 512), synth_requests({n_requests}, "
+                                f"{cfg.vocab_size}, maxlen={XS_MAXLEN})")
     del engine, state
     torch.cuda.empty_cache()
 
     ids = torch.from_numpy(np.ascontiguousarray(stream[:CALIB_PARITY_T])).to(dev)
-    res["served_vs_accuracy_8_layers"] = served_vs_accuracy(torch, dev, loaded, calib, cfg, spec, ids)
     cfg2 = cfg.replace(num_layers=2)
     p2 = loaded._replace(layers=loaded.layers[:2])
     calib2 = {**calib, "layers": {k: v[:2] for k, v in calib["layers"].items()}}
     sva = served_vs_accuracy(torch, dev, p2, calib2, cfg2, spec, ids)
-    log(f"served vs accuracy logits: 2 layers {sva}; {cfg.num_layers} layers {res['served_vs_accuracy_8_layers']}")
-    # a wiring fault (a reorder, a scale layout, RoPE's place) takes the correlation to ~0 and the argmax agreement to
-    # ~1/vocab; on random 7B-width weights W4A4's rounding alone sets the floor (corr ~0.88 at 2 layers, CPU), so the
-    # served logits must stand within it, not at test_calibrated_serving.py's absolute bounds (its tiny model's
-    # residual is its embeddings, which quantization leaves alone)
+    log(f"{model} served vs accuracy logits at 2 layers: {sva}")
+    # a wiring fault (a reorder, a scale layout, RoPE's place, a routing) takes the correlation to ~0 and the argmax
+    # agreement to ~1/vocab; on random full-width weights W4A4's rounding alone sets the floor (Llama-2-7B: corr ~0.88
+    # at 2 layers, CPU), so the served logits must stand within it, not at test_calibrated_serving.py's absolute bounds
+    # (its tiny model's residual is its embeddings, which quantization leaves alone)
     floor = sva["floor_w4a4_vs_unquantized_activations"]
     require(sva["corr"] > floor["corr"] - 0.05
             and sva["mean_abs_delta_over_mean_abs_logit"] < floor["mean_abs_delta_over_mean_abs_logit"] + 0.05
             and sva["argmax_agreement"] >= 0.5 * floor["argmax_agreement"],
-            f"2-layer served logits off the accuracy pipeline's by more than W4A4's own floor: {sva}")
-    res["path_parity_2_layers"] = dict(
-        served_vs_accuracy=sva,
-        decode_step=kernel_vs_plain_path(torch, dev, p2, BATCH, spec_l, p2.lm_head, ("packed_w4_gemm_qkv_ring_fused",)))
+            f"{model}: 2-layer served logits off the accuracy pipeline's by more than W4A4's own floor: {sva}")
+    step = (kernel_vs_plain_path(torch, dev, p2, BATCH, spec_l, p2.lm_head, MOE_DECODE_KERNELS[:4], cfg=cfg2,
+                                 hidden_fn=moe_mod.decode_hidden_moe) if moe else
+            kernel_vs_plain_path(torch, dev, p2, BATCH, spec_l, p2.lm_head, ("packed_w4_gemm_qkv_ring_fused",)))
+    res["path_parity_2_layers"] = dict(served_vs_accuracy=sva, decode_step=step)
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del loaded, p2, calib, calib2
     torch.cuda.empty_cache()
-    return {"calibrated_engine": counts}, res
+    return {counts_key: counts}, res
+
+
+# the fixture trainer's cell: BYTE_LM at full width with scripts/train_corpus_model.py's batch and seqlen, a short run
+# whose warmup ends early enough for the cosine part to run, the chunk losses logged, eval over a few windows
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CHUNK, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_EVAL_WINDOWS = 24, 8, 8, 8, 2048, 8
+
+
+def training_phase(torch, dev) -> dict:
+    """Phase 11, last: ``utils/train.py``'s ``train`` on ``BYTE_LM`` (float32,
+    random weights from a seed) over ``data/corpus/train.txt``; the loss must
+    fall below its first chunk's; steps/s and tokens/s; ``eval_loss`` over a
+    few windows of eval.txt; the checkpoint written as
+    ``scripts/torch_train_corpus_model.py`` writes it and read back through
+    ``main.py``'s ``--ckpt`` path (its perplexity line, unquantized)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from atom_tpu_torch import main as cli
+    from atom_tpu_torch.models import llama
+    from atom_tpu_torch.models.configs import BYTE_LM
+    from atom_tpu_torch.utils import bytetok
+    from atom_tpu_torch.utils.checkpoint import save_pytree
+    from atom_tpu_torch.utils.train import eval_loss, train
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_train_corpus_model import bf16_rounded
+
+    corpus = ROOT / "data" / "corpus"
+    tokens = bytetok.encode_file(str(corpus / "train.txt"))
+    eval_tokens = bytetok.encode_file(str(corpus / "eval.txt"))
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(BYTE_LM, seed=0, dtype=torch.float32, device=dev)
+    losses = []
+
+    def record(line):
+        losses.append(float(line.split("loss ")[1].split()[0]))
+        log(line.strip())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, final = train(params, BYTE_LM, tokens, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seqlen=TRAIN_SEQLEN,
+                          warmup=TRAIN_WARMUP, chunk=TRAIN_CHUNK, seed=0, log=record)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    res = dict(model="BYTE_LM (hidden 768, 12 layers, 6 heads of 128, vocabulary 256), float32, random weights (seed 0)",
+               steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=TRAIN_BATCH, seqlen=TRAIN_SEQLEN, lr=3e-4,
+               chunk_losses=losses, train_s=train_s, steps_per_s=TRAIN_STEPS / train_s,
+               tokens_per_s=TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQLEN / train_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(len(losses) == TRAIN_STEPS // TRAIN_CHUNK and all(math.isfinite(x) for x in losses),
+            f"training: chunk losses {losses}")
+    require(losses[-1] < losses[0], f"training: the loss did not fall below its first chunk's: {losses}")
+    t0 = time.perf_counter()
+    res["eval_loss"] = eval_loss(params, BYTE_LM, eval_tokens, TRAIN_SEQLEN, batch=TRAIN_BATCH,
+                                 max_windows=TRAIN_EVAL_WINDOWS)
+    res["eval_s"] = time.perf_counter() - t0
+    require(math.isfinite(res["eval_loss"]) and res["eval_loss"] < losses[0],
+            f"training: eval loss {res['eval_loss']} against the first chunk's {losses[0]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "byte_lm_ckpt.npz")
+        save_pytree(ckpt, bf16_rounded(params))
+        del params
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["byte-lm", "corpus", "--ckpt", ckpt, "--wbits", "16", "--abits", "16", "--eval_ppl",
+                      "--seqlen", str(TRAIN_SEQLEN), "--calib_samples", "1", "--corpus_dir", str(corpus)])
+        res["ckpt_eval_s"] = time.perf_counter() - t0
+    line = [x for x in out.getvalue().splitlines() if x.startswith("targetResult,corpus,")]
+    require(len(line) == 1, f"training: main.py --ckpt printed {out.getvalue()!r}")
+    res["ckpt_ppl"] = float(line[0].split(",")[2])
+    # the trained weights, rounded to bf16, read back by main.py: a byte perplexity well below the untrained model's
+    require(res["ckpt_ppl"] < math.exp(losses[0]), f"training: the checkpoint's perplexity {res['ckpt_ppl']} is not "
+            f"below exp(first chunk loss) {math.exp(losses[0]):.1f}")
+    log(f"training: {TRAIN_STEPS} steps in {train_s:.1f} s ({res['steps_per_s']:.2f} steps/s, {res['tokens_per_s']:.0f} "
+        f"tok/s), chunk losses {losses}, eval loss {res['eval_loss']:.4f}, the checkpoint through main.py --ckpt: "
+        f"perplexity {res['ckpt_ppl']:.3f}, peak {res['peak_memory_gb']:.2f} GB, {card_line()}")
+    return res
 
 
 SOURCES = {
@@ -3397,9 +3537,20 @@ def main() -> int:
     moe_counts, mixtral = mixtral_phase(torch, dev)
     log(f"Mixtral-8x7B phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    calib_counts, calibrated = calibrated_phase(torch, dev)
+    calib_counts, calibrated = calibrated_phase(torch, dev, "llama2-7b")
     calibrated["phase_s"] = time.perf_counter() - t0
     log(f"calibrate -> export -> serve phase in {calibrated['phase_s']:.1f} s")
+    accuracy = {}
+    for model in ("mixtral-8x7b", "opt-6.7b"):
+        t0 = time.perf_counter()
+        counts, accuracy[model] = calibrated_phase(torch, dev, model)
+        accuracy[model]["phase_s"] = time.perf_counter() - t0
+        calib_counts.update(counts)
+        log(f"{model} accuracy phase in {accuracy[model]['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    accuracy["training"] = training_phase(torch, dev)
+    accuracy["training"]["phase_s"] = time.perf_counter() - t0
+    log(f"training phase in {accuracy['training']['phase_s']:.1f} s")
 
     w4a4_burst, w4a4_engine = decode_stats["w8a16"]["decode_tok_s"], engine_res["throughput_tok_s"]
     ratios = {b: dict(decode_burst=w4a4_burst / baselines[b]["burst"]["decode_tok_s"],
@@ -3426,6 +3577,9 @@ def main() -> int:
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
         if name in MOE_PATH:
             require(by_phase[MOE_PATH[name]] > 0, f"kernel {name} was launched no time on its MoE path ({MOE_PATH[name]})")
+        if name in MOE_ENGINE_KERNELS:
+            require(by_phase["calibrated_moe_engine"] > 0,
+                    f"kernel {name} was launched no time by the calibrated Mixtral engine")
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=launches, launches_on=path,
                          launches_by_phase={k_: v_ for k_, v_ in by_phase.items() if v_}, **k))
         if name == "flush_hot":  # K4's launches by form: the live ring in place, pre-rolled blocks
@@ -3448,7 +3602,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows}), flush=True)
     engine_config = ("batch 32, page 256, max_seq_len 1024, buckets (128, 256, 512), pool 144 pages, "
                      f"synth_requests({N_REQUESTS}, 32000, maxlen={XS_MAXLEN})")
-    print(json.dumps({
+    results = {
         "decode": dict(decode_stats, protocol="slope between 1 and 4 ring windows, median of positive samples",
                        batch=BATCH, context=CTX),
         "decode_fused_post_attention": dict(fused_stats, flag="ATOM_TPU_FUSED_MLP=1", launches=fused_counts),
@@ -3462,11 +3616,16 @@ def main() -> int:
         "mixtral": dict(mixtral, launches=moe_counts),
         "lora": dict(lora_res, launches=lora_counts),
         "calibrated": dict(calibrated, launches=calib_counts),
+        "accuracy_phase_11": accuracy,
         "model": ("Llama-2-7B width, 32 layers; W4A4 (also with LoRA adapters) and the baseline stacks bf16, W8A8, W4A16; "
-                  "Mixtral-8x7B W4A4; Llama-2-7B width at 8 layers calibrated (GPTQ) and served"),
+                  "Mixtral-8x7B W4A4; Llama-2-7B width at 4 layers and Mixtral-8x7B at 2 calibrated (GPTQ) and served; "
+                  "OPT-6.7B at 2 calibrated; BYTE_LM trained"),
         "card": card,
         "path_parity_2_layers": parity, "wall_s": time.perf_counter() - t_all,
-    }), flush=True)
+    }
+    print(json.dumps(results), flush=True)
+    OUT.mkdir(exist_ok=True)  # both lines whole: the results line outgrows the tail of a run's output
+    (OUT / "smoke_results.json").write_text(json.dumps({"kernels": rows, "results": results}, indent=1))
     print(json.dumps({"w4a4_ratios": ratios, "w4a4_burst_head": "w8a16", "w4a4_engine_head": "bf16", "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,10 +37,15 @@ def cap_torch_threads():
     the port's tests spend most of their time waiting on each other.
     Without xdist the worker count is unset and nothing changes.  Every
     ``tests/test_torch_*.py`` calls this at import, so the cap holds whichever
-    file a worker collects first."""
+    file a worker collects first.  A process a test starts (a CLI run) keeps
+    its thread a core but waits passively (``OMP_WAIT_POLICY``): spinning
+    OpenMP threads beside busy workers took one ~2 s calibration past 120 s.
+    The wait policy moves no result; a thread count does (a process-wide
+    ``OMP_NUM_THREADS=1`` moved one perplexity test's figure by 7e-4)."""
     workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
     if workers:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+        os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 
 
 cap_torch_threads()
@@ -307,7 +312,8 @@ def test_kernel_wrappers_refuse_other_devices():
 
 
 def _port_sources():
-    return sorted((REPO / "atom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "atom_tpu_torch").rglob("*.py")) + sorted((REPO / "scripts").glob("torch_*.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_atom_tpu():
@@ -326,9 +332,9 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
                 "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py", "serving/lora.py",
                 "native/__init__.py", "calib/gptq.py", "calib/pipeline.py", "models/llama.py", "utils/checkpoint.py",
-                "main.py"):
+                "main.py", "models/opt.py", "models/mixtral.py", "utils/train.py"):
         assert f"atom_tpu_torch/{new}" in names
-    assert "chip_smoke.py" in names
+    assert "chip_smoke.py" in names and "scripts/torch_train_corpus_model.py" in names
 
 
 def test_port_imports_with_jax_blocked():
