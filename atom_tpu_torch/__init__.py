@@ -16,8 +16,10 @@ the native scheduler), MoE serving on one device, the baseline stacks bf16,
 W8A8 and W4A16 in the same engine (``serving/baselines.py``), the grouped
 int8 GEMMs (``ops/gemm.py``), and the accuracy pipeline (``main.py``: the
 Llama, OPT and Mixtral models, calibration, evaluation, the serving exports)
-with the fixture trainer (``utils/train.py``).  Every Pallas kernel of the
-JAX package has its CUDA counterpart.  Parallelism is still to be ported.
+with the fixture trainer (``utils/train.py``), and parallelism on
+``torch.distributed`` (``parallel/``; tensor-, expert-, sequence- and
+data-parallel serving in ``serving/``).  Every Pallas kernel of the JAX
+package has its CUDA counterpart.
 
 The package imports neither ``jax`` nor anything of ``atom_tpu``.
 """

@@ -30,7 +30,7 @@ INT4 with 128-row groups (``bits=4``, K13); all steps share it.  The ring
 and the pages are updated in place (the JAX version donates them).
 ``decode_hidden`` and ``prefill_hidden`` take the JAX package's block hooks
 (``attn_block_fn``, ``post_attn_fn``), through which ``serving/lora.py``
-serves adapters; the tensor-parallel ``gather`` is not ported.
+serves adapters, and the tensor-parallel ``gather`` (``serving/parallel.py``).
 """
 from __future__ import annotations
 
@@ -227,8 +227,15 @@ def _rms_rstd(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return rms_rstd(x, eps)
 
 
-def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec):
+def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec, gather=None):
     """reorder+quant -> o_proj -> residual; then the MLP block.
+
+    ``gather``: under tensor parallelism, the all-gather of every
+    column-sharded product and of the local heads' attention output
+    (identity when None).  The quantizers always see whole rows, so group
+    boundaries and the keeper block are the single device's and the TP
+    result is bitwise the single device's; the fused kernels run only when
+    ``gather`` is None.
 
     Behind ``_fused_oproj_ok`` the half-layer runs as fused kernels and only
     the norm statistic stays outside them: o_proj with the reorder gather and
@@ -237,7 +244,8 @@ def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec):
     hidden and runs the RMSNorm with the pre-gathered weight, exact because
     rms statistics do not depend on the channel order).  A geometry K10 does
     not take keeps the fused o_proj and the unfused MLP."""
-    if _fused_oproj_ok(x.shape, lp, spec):
+    g = gather or (lambda v: v)
+    if gather is None and _fused_oproj_ok(x.shape, lp, spec):
         x = packed_w4_gemm_fused_in(attn_out, lp.wo, resid=x, abits=spec.abits, a_clip=spec.a_clip_ratio,
                                     reorder=lp.o_reorder)
         if _fused_mlp_ok(x.shape, lp, spec):
@@ -246,14 +254,14 @@ def _post_attn(x, attn_out, lp: ServingLayerParams, spec: QuantSpec):
                 abits=spec.abits, a_clip=spec.a_clip_ratio, reorder=lp.mlp_reorder,
             )
     else:
-        a_in = R.reorder_quant(attn_out, lp.o_reorder, spec)
-        x = x + quant_gemm_packed(a_in, lp.wo)
+        a_in = R.reorder_quant(g(attn_out), lp.o_reorder, spec)
+        x = x + g(quant_gemm_packed(a_in, lp.wo))
     m_in = R.rmsnorm_reorder_quant(x, lp.ln_mlp, lp.mlp_reorder, spec)
     gu = quant_gemm_packed(m_in, lp.wgateup, out_dtype=torch.float32)
     inter = gu.shape[1] // 2
-    act = F.silu(gu[:, :inter]) * gu[:, inter:]
-    d_in = quantize_activation_packed(act, spec)
-    return x + quant_gemm_packed(d_in, lp.wdown)
+    act = F.silu(gu[:, :inter]) * gu[:, inter:]  # float32, this rank's columns
+    d_in = quantize_activation_packed(g(act), spec)
+    return x + g(quant_gemm_packed(d_in, lp.wdown))
 
 
 def _fused_spec_ok(spec: QuantSpec) -> bool:
@@ -406,18 +414,21 @@ def decode_hidden(
     flush: bool = False,
     attn_block_fn=None,
     post_attn_fn=None,
+    gather=None,
 ):
     """Layer stack of one decode step -> (final-norm hidden [B, D], state).
 
     ``flush`` must be True exactly when the ring wraps this step: every
     active sequence's pending block [flushed, lens) then moves to its pages.
 
+    ``cfg`` holds the per-rank head counts under tensor parallelism, and
+    ``gather`` all-gathers the column-sharded products (see ``_post_attn``).
+
     ``attn_block_fn(x, lp, layer, rope, hot, row) -> (q, hot')`` and
     ``post_attn_fn(x, attn, lp, layer, gather) -> x'`` replace the base
-    blocks (LoRA serving adds its adapter deltas there, ``serving/lora.py``;
-    ``gather`` is always None: the port has no tensor parallelism).  The
-    flush and the attention read the ring the hook returns.  None keeps the
-    base path.
+    blocks (LoRA serving adds its adapter deltas there, ``serving/lora.py``).
+    The flush and the attention read the ring the hook returns.  None keeps
+    the base path.
     """
     b = ids.shape[0]
     dh = cfg.head_dim
@@ -442,7 +453,7 @@ def decode_hidden(
             flush_hot_ring(state.pages[l], hot, row, *flush_args)
         attn = paged_ring_decode_attention(q, state.pages[l], page_table, flushed_new, hot, n_hot, row)
         attn = attn.reshape(b, cfg.num_heads * dh)
-        x = _post_attn(x, attn, lp, spec) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, None)
+        x = _post_attn(x, attn, lp, spec, gather) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, gather)
 
     new_state = ServingState(pages=state.pages, hot=new_hot, row=(row + 1) % w, flushed=flushed_new)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), new_state
@@ -564,29 +575,40 @@ def prefill_hidden(
     spec: QuantSpec,
     attn_block_fn=None,
     post_attn_fn=None,
+    gather=None,
+    positions=None,
+    kv_gather=None,
 ):
     """Layer stack of a prefill -> (final-norm hidden [T, D], pages).
 
     The sequence's K/V land in its pages (in place); attention runs over the
     just-quantized post-RoPE codes with the decode kernel's numerics.
     ``attn_block_fn(x, lp, layer, rope) -> (q, kq, vq)`` and
-    ``post_attn_fn(x, attn, lp, layer, gather)`` replace the base blocks, as
-    in ``decode_hidden``."""
+    ``post_attn_fn(x, attn, lp, layer, gather)`` replace the base blocks and
+    ``gather`` all-gathers the column-sharded products, as in
+    ``decode_hidden``.  Sequence parallelism (``serving/sp.py``) passes the
+    rows' global ``positions`` [T] and ``kv_gather(kq) -> kq`` over every
+    rank's rows: the pages and the attention then take the gathered keys, and
+    the attention's path is chosen by their count."""
     t = ids.shape[0]
     dh = cfg.head_dim
     x = _embed_lookup(params.embed, ids)  # [T, D]
-    cos, sin = rope_tables(torch.arange(t, device=ids.device), dh, cfg.rope_theta)
-    key_block = PREFILL_KEY_BLOCK if t > PREFILL_SCAN_THRESHOLD else 0
-    use_kernel = t > PREFILL_KERNEL_THRESHOLD and dh == 128
+    cos, sin = rope_tables(torch.arange(t, device=ids.device) if positions is None else positions, dh, cfg.rope_theta)
     for l, lp in enumerate(params.layers):
         if attn_block_fn is None:
             q, kq, vq = _attn_block_common(x, lp, cfg, spec, (cos, sin))
         else:
             q, kq, vq = attn_block_fn(x, lp, l, (cos, sin))
+        if kv_gather is not None:
+            kq, vq = kv_gather(kq), kv_gather(vq)
         append_kv_prefill_kernel(pages[l], kq, vq, table_row)
-        attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, key_block=key_block, kernel=use_kernel)
+        tk = kq.codes.shape[0]
+        key_block = PREFILL_KEY_BLOCK if tk > PREFILL_SCAN_THRESHOLD else 0
+        use_kernel = tk > PREFILL_KERNEL_THRESHOLD and dh == 128
+        attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5, row_pos=positions, key_block=key_block,
+                                     kernel=use_kernel)
         del q, kq, vq  # the one-pass scores and f32 code copies are per layer
-        x = _post_attn(x, attn, lp, spec) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, None)
+        x = _post_attn(x, attn, lp, spec, gather) if post_attn_fn is None else post_attn_fn(x, attn, lp, l, gather)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), pages
 
 

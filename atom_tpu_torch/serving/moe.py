@@ -1,5 +1,5 @@
-"""Quantized serving Mixtral (``atom_tpu/serving/moe.py``, its single-device
-half): top-2 MoE layers on the W4A4 serving path.
+"""Quantized serving Mixtral (``atom_tpu/serving/moe.py``): top-2 MoE layers
+on the W4A4 serving path, on one device or expert-parallel over ranks.
 
 Per layer: attention exactly as the Llama serving step (``serving/model.py``:
 K2 storing K/V into the hot ring, the ring flush K4, paged + ring attention
@@ -24,8 +24,14 @@ as K9 (the o_reorder gather in its prologue) and each expert as one K10 on
 the reordered hidden, chained on a float32 accumulator with the expert's
 routing weights as ``row_scale``.
 
-The expert-parallel half of the JAX module (``shard_moe_serving_params``,
-``make_moe_ep_step_fns``) is not ported yet.
+Expert parallelism (``shard_moe_serving_params``, ``make_moe_ep_step_fns``):
+the experts and the attention heads split over one mesh axis (``ep``).  Each
+rank holds E/ep experts and its heads' columns of q/k/v and o_proj (the
+column scheme of ``serving/parallel.py``); the routing weights come from the
+whole (gathered) hidden on every rank, each rank sums its experts' weighted
+outputs, and one ``psum`` adds the ranks' partial sums.  Top-2 routing
+leaves two non-zero terms a token, and adding exact zeros changes nothing,
+so the sum is bitwise the single device's whatever the order of the ranks.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from atom_tpu_torch.ops.kv_hot import HOT_W
 from atom_tpu_torch.ops.kv_layout import append_kv_prefill_kernel
 from atom_tpu_torch.ops.mlp import fused_mlp_packed, fused_mlp_supported
 from atom_tpu_torch.ops.runtime import resolve_device
+from atom_tpu_torch.parallel.mesh import all_gather_cols, axis_index, axis_size
+from atom_tpu_torch.parallel.mesh import psum as mesh_psum
 from atom_tpu_torch.serving.model import (
     ServingState,
     _attn_block_common,
@@ -148,21 +156,34 @@ def _router_logits(h_r: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return h_r.to(torch.bfloat16).to(torch.float32) @ router.to(torch.float32)
 
 
-def _o_proj_and_route(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, spec: QuantSpec, fused: bool):
+def _o_proj_and_route(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, spec: QuantSpec, fused: bool,
+                      gather=None):
     """o_proj and its residual (K9 when ``fused``, else the reorder-quant
-    chain and K1), then the reordered post-attention norm and the routing
-    weights -> (x, h_r bf16 [T, D], weights f32 [T, E])."""
+    chain and K1; ``gather`` all-gathers the local heads' attention output
+    and o_proj's column slice), then the reordered post-attention norm and
+    the routing weights -> (x, h_r bf16 [T, D], weights f32 [T, E])."""
+    g = gather or (lambda v: v)
     if fused:
         x = packed_w4_gemm_fused_in(attn_out, lp.wo, resid=x, abits=spec.abits, a_clip=spec.a_clip_ratio,
                                     reorder=lp.o_reorder)
     else:
-        x = x + quant_gemm_packed(R.reorder_quant(attn_out, lp.o_reorder, spec), lp.wo)
+        x = x + g(quant_gemm_packed(R.reorder_quant(g(attn_out), lp.o_reorder, spec), lp.wo))
     h_r = torch.index_select(rmsnorm(x, lp.ln_mlp, cfg.norm_eps), -1, lp.mlp_reorder)
     return x, h_r, _route_top_k(_router_logits(h_r, lp.router), cfg.num_experts_per_tok)
 
 
+def _local_experts(lp: MoEServingLayerParams, cfg: ModelConfig, expert_slice):
+    """(leaf index, global expert) of each expert this layer runs.
+    ``expert_slice`` (e0, n_local): experts e0 .. e0 + n_local - 1, whose
+    leaves are the layer's first n_local when it holds only those (an
+    expert-parallel shard), else at their global index."""
+    e0, n_local = expert_slice if expert_slice is not None else (0, cfg.num_experts)
+    base = e0 if lp.wgateup.body_packed.shape[0] == cfg.num_experts else 0
+    return [(base + j, e0 + j) for j in range(n_local)]
+
+
 def _expert_mlp(a_q: QuantizedActivation, lp: MoEServingLayerParams, e: int, spec: QuantSpec) -> torch.Tensor:
-    """One expert on quantized rows: gate/up (K1) -> SiLU * up ->
+    """One expert (leaf ``e``) on quantized rows: gate/up (K1) -> SiLU * up ->
     requantization -> down (K1) -> float32 [rows, D]."""
     gu = quant_gemm_packed(a_q, expert(lp.wgateup, e), out_dtype=torch.float32)
     inter = gu.shape[1] // 2
@@ -170,20 +191,29 @@ def _expert_mlp(a_q: QuantizedActivation, lp: MoEServingLayerParams, e: int, spe
     return quant_gemm_packed(quantize_activation_packed(act, spec), expert(lp.wdown, e), out_dtype=torch.float32)
 
 
-def _moe_mlp(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, spec: QuantSpec) -> torch.Tensor:
-    """o_proj + router + dense-routed expert MLP -> new residual stream."""
-    x, h_r, weights = _o_proj_and_route(x, attn_out, lp, cfg, spec, _fused_expert_ok(attn_out.shape, lp, spec))
+def _moe_mlp(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, spec: QuantSpec, gather=None,
+             expert_slice=None, psum=None) -> torch.Tensor:
+    """o_proj + router + dense-routed expert MLP -> new residual stream.
+
+    Under expert parallelism ``gather`` all-gathers the column-sharded
+    attention half, ``expert_slice`` names this rank's experts and ``psum``
+    adds the ranks' partial sums (the routing weights come from the whole
+    hidden, so the sum is bitwise the single device's dense one)."""
+    fused_o = gather is None and _fused_expert_ok(attn_out.shape, lp, spec)
+    x, h_r, weights = _o_proj_and_route(x, attn_out, lp, cfg, spec, fused_o, gather)
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     if _fused_expert_ok(h_r.shape, lp, spec):
         # one K10 per expert: the input quantization, gate/up, SiLU * up, the requantization, down and
         # acc + w_e * out_e in float32; the norm stays outside (the float router reads h_r)
-        for e in range(cfg.num_experts):
-            acc = fused_mlp_packed(h_r, acc, expert(lp.wgateup, e), expert(lp.wdown, e), row_scale=weights[:, e],
+        for leaf, e in _local_experts(lp, cfg, expert_slice):
+            acc = fused_mlp_packed(h_r, acc, expert(lp.wgateup, leaf), expert(lp.wdown, leaf), row_scale=weights[:, e],
                                    abits=spec.abits, a_clip=spec.a_clip_ratio)
-        return x + acc.to(x.dtype)
-    a_q = quantize_activation_packed(h_r.to(torch.float32), spec)
-    for e in range(cfg.num_experts):
-        acc = acc + weights[:, e : e + 1] * _expert_mlp(a_q, lp, e, spec)
+    else:
+        a_q = quantize_activation_packed(h_r.to(torch.float32), spec)
+        for leaf, e in _local_experts(lp, cfg, expert_slice):
+            acc = acc + weights[:, e : e + 1] * _expert_mlp(a_q, lp, leaf, spec)
+    if psum is not None:
+        acc = psum(acc)
     return x + acc.to(x.dtype)
 
 
@@ -204,7 +234,7 @@ def _fused_expert_ok(h_shape, lp: MoEServingLayerParams, spec: QuantSpec) -> boo
 
 
 def _moe_mlp_routed(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, spec: QuantSpec,
-                    capacity: int) -> torch.Tensor:
+                    capacity: int, gather=None, expert_slice=None, psum=None) -> torch.Tensor:
     """Routed expert MLP for prefill token counts.
 
     Each routed (token, expert) pair's rank within its expert comes from a
@@ -215,8 +245,9 @@ def _moe_mlp_routed(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, sp
     each token gathers its row back, accumulated in the dense path's
     expert-major float32 order, so the two are bitwise equal when no expert
     overflows.  A token past an expert's capacity loses that expert's
-    contribution only."""
-    x, h_r, weights = _o_proj_and_route(x, attn_out, lp, cfg, spec, False)
+    contribution only.  ``gather``, ``expert_slice`` and ``psum`` as in
+    ``_moe_mlp``: the table covers every expert, a rank runs its own."""
+    x, h_r, weights = _o_proj_and_route(x, attn_out, lp, cfg, spec, False, gather)
     a_q = quantize_activation_packed(h_r.to(torch.float32), spec)
 
     t = x.shape[0]
@@ -232,11 +263,13 @@ def _moe_mlp_routed(x, attn_out, lp: MoEServingLayerParams, cfg: ModelConfig, sp
     a_pad = QuantizedActivation(*(F.pad(t, (0, 0, 0, 1)) for t in a_q))
 
     acc = torch.zeros(x.shape, dtype=torch.float32, device=dev)
-    for e in range(n_exp):
+    for leaf, e in _local_experts(lp, cfg, expert_slice):
         rows = tok_tbl[e]
-        out_e = _expert_mlp(QuantizedActivation(*(t[rows] for t in a_pad)), lp, e, spec)  # [capacity, D]
+        out_e = _expert_mlp(QuantizedActivation(*(t[rows] for t in a_pad)), lp, leaf, spec)  # [capacity, D]
         back = torch.where(valid[:, e : e + 1], out_e[pos[:, e].clamp(0, capacity - 1).long()], 0.0)
         acc = acc + weights[:, e : e + 1] * back
+    if psum is not None:
+        acc = psum(acc)
     return x + acc.to(x.dtype)
 
 
@@ -263,10 +296,14 @@ def decode_hidden_moe(
     cfg: ModelConfig,
     spec: QuantSpec,
     flush: bool = False,
+    gather=None,
+    expert_slice=None,
+    psum=None,
 ):
     """MoE layer stack of one decode step -> (final-norm hidden [B, D],
     state): ``serving.model.decode_hidden`` with ``_moe_mlp`` after the
-    attention."""
+    attention.  Under expert parallelism ``cfg`` holds the per-rank head
+    counts; ``gather``, ``expert_slice`` and ``psum`` go to ``_moe_mlp``."""
     b = ids.shape[0]
     dh = cfg.head_dim
     x = _embed_lookup(params.embed, ids)
@@ -284,7 +321,7 @@ def decode_hidden_moe(
         if flush:
             flush_hot_ring(state.pages[l], hot, row, *flush_args)
         attn = paged_ring_decode_attention(q, state.pages[l], page_table, flushed_new, hot, n_hot, row)
-        x = _moe_mlp(x, attn.reshape(b, cfg.num_heads * dh), lp, cfg, spec)
+        x = _moe_mlp(x, attn.reshape(b, cfg.num_heads * dh), lp, cfg, spec, gather, expert_slice, psum)
 
     new_state = ServingState(pages=state.pages, hot=state.hot, row=(row + 1) % w, flushed=flushed_new)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), new_state
@@ -299,11 +336,13 @@ def decode_step_moe(params, state, ids, page_table, seq_lens, cfg: ModelConfig, 
 
 
 @torch.no_grad()
-def prefill_hidden_moe(params: MoEServingParams, pages, ids, table_row, cfg: ModelConfig, spec: QuantSpec):
+def prefill_hidden_moe(params: MoEServingParams, pages, ids, table_row, cfg: ModelConfig, spec: QuantSpec,
+                       gather=None, expert_slice=None, psum=None):
     """MoE layer stack of a prefill -> (final-norm hidden [T, D], pages):
     the K/V land in the sequence's pages (in place), attention runs over the
     just-quantized codes, and the experts run routed from
-    ``MOE_ROUTED_THRESHOLD`` tokens on."""
+    ``MOE_ROUTED_THRESHOLD`` tokens on; the parallel arguments as in
+    ``decode_hidden_moe``."""
     t = ids.shape[0]
     dh = cfg.head_dim
     x = _embed_lookup(params.embed, ids)
@@ -314,7 +353,10 @@ def prefill_hidden_moe(params: MoEServingParams, pages, ids, table_row, cfg: Mod
         append_kv_prefill_kernel(pages[l], kq, vq, table_row)
         attn = causal_code_attention(q, kq, vq, cfg.kv_groups, dh**-0.5)
         del q, kq, vq
-        x = _moe_mlp_routed(x, attn, lp, cfg, spec, cap) if cap else _moe_mlp(x, attn, lp, cfg, spec)
+        if cap:
+            x = _moe_mlp_routed(x, attn, lp, cfg, spec, cap, gather, expert_slice, psum)
+        else:
+            x = _moe_mlp(x, attn, lp, cfg, spec, gather, expert_slice, psum)
     return rmsnorm(x, params.final_norm, cfg.norm_eps), pages
 
 
@@ -358,3 +400,73 @@ def decode_burst_moe(params, state, ids, page_table, seq_lens, n_windows: int, c
             seq_lens = seq_lens + 1
             ids, state = decode_step_moe(params, state, ids, page_table, seq_lens, cfg, spec, flush=i == w - 1)
     return ids, state, seq_lens
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (experts and attention heads split over one mesh axis)
+# ---------------------------------------------------------------------------
+
+
+def shard_moe_serving_params(params: MoEServingParams, cfg: ModelConfig, mesh, axis: str = "ep") -> MoEServingParams:
+    """This rank's expert-parallel shard: its E/ep experts (contiguous
+    copies), its heads' columns of q/k/v and o_proj and its columns of the
+    bf16 head, as ``serving.parallel.shard_serving_params``; norms, reorder
+    indices, the router and the embedding are shared with ``params``."""
+    from atom_tpu_torch.serving.parallel import _shard_cols, _shard_head, _shard_qkv
+
+    ep, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    _ep_shard_cfg(cfg, ep)
+    n = cfg.num_experts // ep
+
+    def experts(w):
+        return KernelPackedWeight(*(t[i * n : (i + 1) * n].clone() for t in w))
+
+    layers = [
+        lp._replace(wqkv=_shard_qkv(lp.wqkv, cfg, ep, i), wo=_shard_cols(lp.wo, ep, i),
+                    wgateup=experts(lp.wgateup), wdown=experts(lp.wdown))
+        for lp in params.layers
+    ]
+    return params._replace(lm_head=_shard_head(params.lm_head, ep, i), layers=layers)
+
+
+def _ep_shard_cfg(cfg: ModelConfig, ep: int) -> ModelConfig:
+    if cfg.num_experts % ep or cfg.num_heads % ep or cfg.num_kv_heads % ep:
+        raise ValueError(f"{cfg.num_experts} experts and heads {cfg.num_heads}/{cfg.num_kv_heads} must split over "
+                         f"{ep} ranks")
+    return cfg.replace(num_heads=cfg.num_heads // ep, num_kv_heads=cfg.num_kv_heads // ep)
+
+
+def make_moe_ep_step_fns(params_sharded: MoEServingParams, cfg: ModelConfig, spec: QuantSpec, mesh, axis: str = "ep"):
+    """(prefill_fn, decode_fn) with the engine's calling convention: the
+    attention head-sharded and the experts sharded over the same axis, the
+    single-device layer code with ``gather``, ``expert_slice`` and ``psum``;
+    tokens, pages and ring bitwise the single-device MoE step's (the head as
+    in ``serving.parallel.make_tp_step_fns``).  ``decode_fn`` flushes the
+    ring on every W-th call.  The state is ``serving.parallel.make_state_sharded``
+    over the same axis."""
+    from atom_tpu_torch.serving.parallel import shard_argmax
+
+    group = mesh.get_group(axis)
+    ep, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    shard_cfg = _ep_shard_cfg(cfg, ep)
+    n = cfg.num_experts // ep
+    par = dict(gather=lambda v: all_gather_cols(v, group), expert_slice=(i * n, n),
+               psum=lambda v: mesh_psum(v, group))
+
+    def prefill_fn(state: ServingState, ids, table_row, true_len: int, slot: int):
+        x, pages = prefill_hidden_moe(params_sharded, state.pages, ids, table_row, shard_cfg, spec, **par)
+        logits = _lm_head_logits(x[max(true_len - 1, 0)][None], params_sharded.lm_head)
+        flushed = state.flushed.clone()
+        flushed[slot] = true_len
+        return shard_argmax(logits, group)[0], ServingState(pages=pages, hot=state.hot, row=state.row,
+                                                              flushed=flushed)
+
+    counter = {"n": 0}
+
+    def decode_fn(state: ServingState, ids, page_table, seq_lens):
+        counter["n"] += 1
+        x, new_state = decode_hidden_moe(params_sharded, state, ids, page_table, seq_lens, shard_cfg, spec,
+                                         flush=counter["n"] % HOT_W == 0, **par)
+        return shard_argmax(_lm_head_logits(x, params_sharded.lm_head), group), new_state
+
+    return prefill_fn, decode_fn

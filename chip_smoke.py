@@ -45,7 +45,7 @@ Phases, each fatal on failure:
      prefill with the bf16 head (the W4A4 row of the stack comparison), launch
      counts read, every request's tokens and the pool checked; then the same
      requests through the mixed-scheduling engine (``make_mixed_step_fns``,
-     ``chunk_fn``: K11) with the W8A16 head at 8 layers, and one mixed step
+     ``chunk_fn``: K11) with the W8A16 head at 4 layers, and one mixed step
      alone at 32; then one prefill alone at 1024 and
      256 rows through the flash kernel (K12) beside the default path;
   5. the kernel path against the plain path at 2 layers of the same width: one
@@ -67,7 +67,8 @@ Phases, each fatal on failure:
      W4A16 stack at 2 layers, kernel path against plain path (a decode step, a
      prefill, the engine with a dozen requests); and the W4A4 stack's ratios
      against each baseline, burst and engine.
-  8. Mixtral-8x7B (``serving/moe.py``) at full width and all 32 layers,
+  8. Mixtral-8x7B (``serving/moe.py``) at full width and 16 layers (32 until
+     phase 12 took their time),
      ``ATOM_W4A4``, random weights from a seed, the bf16 head, after the
      baselines' params are freed: ``decode_burst_moe`` at batch 32, context
      512 (launches over 2 flushing windows checked per layer and expert,
@@ -118,6 +119,24 @@ Phases, each fatal on failure:
      steps/s and tokens/s, ``eval_loss`` over 8 eval windows, and the
      checkpoint written as ``scripts/torch_train_corpus_model.py`` writes it,
      read back through ``main.py``'s ``--ckpt`` path.
+ 12. parallelism on one card (``parallel/``, ``serving/parallel.py``, ``sp.py``,
+     ``dp.py``, the expert-parallel half of ``serving/moe.py``), on freed
+     memory, last: the single-device references on the kernel path, then one
+     spawn of 4 gloo ranks on the card (``parallel.launch.run_ranks``) over
+     subgroups: (a) TP 2 at Llama-2-7B width, 2 layers, a 400-token prefill in
+     the 512 bucket and 33 decode steps through a ring flush at batch 32, fed
+     the single device's tokens: pages and ring gathered over the ranks bit
+     for bit, tokens equal except where the single device's top-2 logit
+     margin is below the step's TP-vs-single logit difference; then cell 2's
+     engine at 4 layers with 8 requests (every token, every page back, 7 of 8
+     first tokens); (b) EP 2 at Mixtral-8x7B width, 2 layers, the same steps
+     (the prefill on the routed experts); (c) SP 2 and SP 2 x TP 2 over a
+     1,000-token prompt in the 1,024 bucket against ``prefill_step`` (layer
+     0's pages bitwise, the share of entries differing under 5%, the token);
+     and in this process (d) dp 2 groups of tp 1 as threads on the card at 4
+     layers, each group's transcripts equal to a single-group run of its
+     partition.  Launches of every check under ``parallel_*`` (summed over
+     the ranks).  No rate: the ranks share one card.
 
 stdout ends with the kernels line, the results line, the ratios line, the card
 line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1555,8 +1574,9 @@ def decode_path(torch, dev, heads, must_launch=DECODE_KERNELS, profile_file="pro
 
 
 N_REQUESTS, XS_MAXLEN = 32, 900  # the cross-stack engine cell: synth_requests(32, 32000, maxlen=900)
-# the mixed engine's depth (it feeds no ratio; cut from 32 to hold the run's time limit with phase 10)
-MIXED_ENGINE_LAYERS = 8
+# the mixed engine's depth (it feeds no ratio; cut from 32 to 8 to hold the run's time limit with phase 10, to 4
+# with phase 12)
+MIXED_ENGINE_LAYERS = 4
 
 
 def engine_setup(torch, dev, cfg):
@@ -2463,6 +2483,7 @@ MOE_ENGINE_KERNELS = MOE_DECODE_KERNELS + ("packed_w4_gemm_qkv",)
 # the Mixtral bursts' slope between 1 and MOE_BURST_HI windows, and its samples (cut from 4 and 3 with phase 10, the
 # samples to 1 with phase 11)
 MOE_ENGINE_LAYERS, MOE_PROFILE_STEPS, MOE_BURST_SAMPLES, MOE_BURST_HI = 4, 4, 1, 2
+MOE_BURST_LAYERS = 16  # the Mixtral bursts' depth: cut from all 32 with phase 12 (it feeds no ratio)
 
 
 @contextlib.contextmanager
@@ -2643,16 +2664,16 @@ def moe_prefill_kernel_vs_plain(torch, dev, params, cfg, bucket: int, true_len: 
 
 
 def mixtral_phase(torch, dev) -> tuple[dict, dict]:
-    """Phase 8: Mixtral-8x7B at full width and all 32 layers (``ATOM_W4A4``,
-    random weights from a seed, the bf16 head), one device: the decode burst
-    unfused and fused, the engine at ``MOE_ENGINE_LAYERS`` layers (its first
+    """Phase 8: Mixtral-8x7B at full width and ``MOE_BURST_LAYERS`` layers
+    (``ATOM_W4A4``, random weights from a seed, the bf16 head), one device:
+    the decode burst unfused and fused, the engine at ``MOE_ENGINE_LAYERS`` layers (its first
     layers), and at 2 layers the kernel path against the plain path (a
     flushing decode step unfused and fused, prefills at 256 and 512 rows)."""
     from atom_tpu_torch.config import ATOM_W4A4
     from atom_tpu_torch.models.configs import MIXTRAL_8X7B
     from atom_tpu_torch.serving.moe import decode_hidden_moe, init_moe_serving_params
 
-    cfg = MIXTRAL_8X7B
+    cfg = MIXTRAL_8X7B.replace(num_layers=MOE_BURST_LAYERS)
     t0 = time.perf_counter()
     params = init_moe_serving_params(cfg, ATOM_W4A4, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -2686,7 +2707,7 @@ def mixtral_phase(torch, dev) -> tuple[dict, dict]:
         "prefill_512_routed": moe_prefill_kernel_vs_plain(torch, dev, p2, cfg2, 512, 400),
     }
     res["model"] = ("Mixtral-8x7B (hidden 4096, 32 / 8 heads of 128, 8 experts of 14336, top-2), ATOM_W4A4, bf16 head; "
-                    f"bursts at 32 layers, engine at {MOE_ENGINE_LAYERS}, parity at 2")
+                    f"bursts at {MOE_BURST_LAYERS} layers, engine at {MOE_ENGINE_LAYERS}, parity at 2")
     del params, p2
     torch.cuda.empty_cache()
     return counts, res
@@ -3366,6 +3387,408 @@ def training_phase(torch, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: parallelism on one card
+# ---------------------------------------------------------------------------
+# 4 ranks on cuda:0 over gloo (NCCL refuses two ranks on one device), spawned once by ``parallel.launch.run_ranks``;
+# every sub-check runs over subgroups of them (a (2, 2) mesh: each dp row repeats tp 2, ep 2 and sp 2, and sp x tp
+# takes all four).  Ranks sharing one card measure no rate (scripts/torch_parallel_nccl.py runs NCCL on four cards).
+PAR_RANKS, PAR_TIMEOUT_S = 4, 600
+PAR_SEEDS = dict(llama=12, mixtral=13, ids=14, requests=15)
+PAR_TP_KERNELS = ("packed_w4_gemm", "packed_w4_gemm_qkv_ring_fused", "paged_ring_decode_attention", "flush_hot",
+                  "embed_gather", "packed_w4_gemm_qkv")
+# the TP engine and the SP prefills run their attention through K12 on both sides: it works a (query tile, head)
+# a block, so a head's rows do not depend on how many heads or rows a rank holds, where cuBLAS's batched products
+# of the default path may pick another algorithm for another batch shape
+PAR_ENGINE_KERNELS = PAR_TP_KERNELS + ("flash_code_attention",)
+PAR_SP_KERNELS = ("packed_w4_gemm", "packed_w4_gemm_qkv", "embed_gather", "flash_code_attention")
+
+
+def par_sizes() -> dict:
+    """Phase 12's shapes: Llama-2-7B width at 4 layers (the steps and SP on its first 2, the engines on all 4) and
+    Mixtral-8x7B width at 2, bf16 heads; a 400-token prompt in the 512 bucket then 33 decode steps (a ring
+    flush at the 32nd) at batch 32; SP over a 1,000-token prompt in the 1,024 bucket; 8 engine requests of
+    ``synth_requests(maxlen=300)`` (prompts of 47-150 tokens in the 128 and 256 buckets, 230 decode steps; cell
+    2's 900 took 730 steps, cut for the phase's time)."""
+    from atom_tpu_torch.models.configs import MIXTRAL_8X7B
+
+    return dict(llama=llama7b(4), mixtral=MIXTRAL_8X7B.replace(num_layers=2), batch=BATCH, page=PAGE,
+                max_pages=MAX_PAGES, prompt=400, bucket=512, steps=33, sp_prompt=1000, sp_bucket=1024,
+                engine_requests=8, engine_maxlen=300)
+
+
+def state_tensors(state) -> dict:
+    """Pages, ring and flushed counts of a serving state, by layer and field, on the host."""
+    out = {"flushed": state.flushed.cpu()}
+    for l, (pg, hot) in enumerate(zip(state.pages, state.hot)):
+        out.update({f"pages{l}.{f}": getattr(pg, f).cpu() for f in pg._fields})
+        out.update({f"hot{l}.{f}": getattr(hot, f).cpu() for f in hot._fields})
+    return out
+
+
+# the kv-head axis of each state field: pages and codes dim 1, params and the ring's params dim 2
+PAR_HEAD_DIM = {"k_pages": 1, "v_pages": 1, "params": 2, "k_codes": 1, "prm": 2, "v_codes": 1}
+
+
+def join_heads(torch, shards: list) -> dict:
+    """The whole state from ranks' state tensors split by kv head (in rank order)."""
+    return {k: shards[0][k] if k == "flushed" else torch.cat([s[k] for s in shards], dim=PAR_HEAD_DIM[k.split(".")[-1]])
+            for k in shards[0]}
+
+
+@contextlib.contextmanager
+def record_logits(module, rows: list):
+    """Every head product ``module._lm_head_logits`` computes for the duration: its first row, on the host."""
+    orig = module._lm_head_logits
+
+    def rec(x, head, vocab=None):
+        out = orig(x, head, vocab)
+        rows.append(out[0].float().cpu())
+        return out
+
+    module._lm_head_logits = rec
+    try:
+        yield
+    finally:
+        module._lm_head_logits = orig
+
+
+def par_prompt(torch, sizes: dict, n: int, bucket: int, dev):
+    """A seeded prompt of ``n`` tokens in a ``bucket``-row prefill (the same in every process)."""
+    gen = torch.Generator().manual_seed(PAR_SEEDS["ids"])
+    ids = torch.randint(1, sizes["llama"].vocab_size, (bucket,), generator=gen, dtype=torch.int32)
+    ids[n:] = 0
+    return ids.to(dev)
+
+
+def par_steps(torch, dev, sizes: dict, prefill_fn, decode_fn, state, feed=None):
+    """Phase 12's step protocol: the prompt into slot 0 of the batch (pages 1, 2, ...; the other slots idle),
+    then ``steps`` decode steps with slot 0 live, fed ``feed`` (the single device's tokens) where given, else
+    the tokens it samples -> (slot 0's tokens, state)."""
+    b, n = sizes["batch"], sizes["prompt"]
+    table = torch.zeros((b, sizes["max_pages"]), dtype=torch.int32, device=dev)
+    n_used = -(-(n + sizes["steps"]) // sizes["page"])
+    table[0, :n_used] = torch.arange(1, n_used + 1, dtype=torch.int32, device=dev)
+    tok, state = prefill_fn(state, par_prompt(torch, sizes, n, sizes["bucket"], dev), table[0], n, 0)
+    toks = [int(tok.item())]
+    ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+    lens = torch.zeros((b,), dtype=torch.int32, device=dev)
+    for i in range(sizes["steps"]):
+        ids[0], lens[0] = toks[-1] if feed is None else feed[i], n + i + 1
+        nxt, state = decode_fn(state, ids, table, lens)
+        toks.append(int(nxt[0].item()))
+    return toks, state
+
+
+def par_state(sizes: dict, cfg, dev, mesh=None, axis: str = "tp"):
+    from atom_tpu_torch.serving.model import make_serving_state
+    from atom_tpu_torch.serving.parallel import make_state_sharded
+
+    shape = (cfg.num_layers, 1 + sizes["max_pages"], sizes["batch"], cfg.num_kv_heads, sizes["page"], cfg.head_dim)
+    if mesh is None:
+        return make_serving_state(*shape, device=dev)
+    return make_state_sharded(*shape, mesh, axis, device=dev)
+
+
+def par_tg(sizes: dict):
+    from atom_tpu_torch.serving import TextGenConfig
+
+    return TextGenConfig(batch_size=sizes["batch"], page_size=sizes["page"], max_seq_len=1024, prefill_buckets=(128, 256, 512))
+
+
+def par_engine(sizes: dict, cfg, dev, step_fns, mesh=None):
+    """Cell 2's engine configuration over ``step_fns`` -> (engine, pool, pool pages, requests)."""
+    from atom_tpu_torch.serving import KvPool, TextGenEngine, synth_requests
+
+    tg = par_tg(sizes)
+    n_pages = tg.batch_size * tg.max_seq_len // tg.page_size + 16
+    pool = KvPool(cfg.num_layers, n_pages, cfg.num_kv_heads, tg.page_size, cfg.head_dim)
+    state = par_state(dict(sizes, max_pages=n_pages - 1), cfg, dev, mesh)
+    rs = synth_requests(sizes["engine_requests"], cfg.vocab_size, seed=PAR_SEEDS["requests"], maxlen=sizes["engine_maxlen"])
+    return TextGenEngine(tg, pool, *step_fns, state), pool, n_pages, rs
+
+
+def par_sp_prefill(torch, sizes: dict, prefill_fn, state, dev):
+    """The SP check's prefill: the seeded prompt of ``sp_prompt`` tokens in the ``sp_bucket`` rows into slot 0."""
+    n, bucket = sizes["sp_prompt"], sizes["sp_bucket"]
+    row = torch.zeros((sizes["max_pages"],), dtype=torch.int32, device=dev)
+    row[: bucket // sizes["page"]] = torch.arange(1, bucket // sizes["page"] + 1, dtype=torch.int32, device=dev)
+    tok, state = prefill_fn(state, par_prompt(torch, sizes, n, bucket, dev), row, n, 0)
+    return int(tok.item()), state
+
+
+def par_backend_flags(torch) -> None:
+    """The numerics flags ``main`` sets, in a rank process too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def par_launches(torch, dev) -> dict:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {k: v for k, v in read_counts().items() if not k.endswith("_by_path")}
+
+
+def parallel_rank(rank: int, world: int, dev, sizes: dict, feeds: dict) -> dict:
+    """Phase 12's rank body (every rank runs it, on the shared card): (a) TP 2 steps fed the single device's
+    tokens, and the TP engine; (b) EP 2 steps on Mixtral width; (c) SP 2 and SP 2 x TP 2 prefills -> tokens,
+    this rank's state tensors, the head's logits (gathered over the tp / ep ranks) and launches by check."""
+    import torch
+
+    import atom_tpu_torch.serving.moe as moe
+    import atom_tpu_torch.serving.parallel as par
+    import atom_tpu_torch.serving.sp as sp
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.parallel.mesh import all_gather_cols, axis_index, make_mesh
+    from atom_tpu_torch.serving.model import init_serving_params
+
+    par_backend_flags(torch)
+    out, counts, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    cfg4 = sizes["llama"]
+    cfg2 = cfg4.replace(num_layers=2)
+    p4 = init_serving_params(cfg4, ATOM_W4A4, seed=PAR_SEEDS["llama"], device=dev)
+    p2 = p4._replace(layers=p4.layers[:2])
+
+    # (a) TP 2 (each dp row of the mesh runs it)
+    mesh = make_mesh((2, world // 2), ("dp", "tp"))
+    group = mesh.get_group("tp")
+    rows = []
+    zero_counts()
+    with record_logits(par, rows):
+        fns = par.make_tp_step_fns(par.shard_serving_params(p2, cfg2, mesh), cfg2, ATOM_W4A4, mesh)
+        toks, state = par_steps(torch, dev, sizes, *fns, par_state(sizes, cfg2, dev, mesh), feed=feeds["tp"])
+    counts["parallel_tp_steps"] = par_launches(torch, dev)
+    secs["tp_steps"] = time.perf_counter() - t0
+    out["tp"] = dict(tokens=toks, state=state_tensors(state), logits=all_gather_cols(torch.stack(rows), group),
+                     tp_index=axis_index(mesh, "tp"))
+    del state, fns
+    zero_counts()
+    engine, pool, n_pages, rs = par_engine(sizes, cfg4, dev, par.make_tp_step_fns(
+        par.shard_serving_params(p4, cfg4, mesh), cfg4, ATOM_W4A4, mesh), mesh)
+    with kernel_prefill():
+        res = engine.run(rs, record=True)
+    counts["parallel_tp_engine"] = par_launches(torch, dev)
+    secs["tp_engine"] = time.perf_counter() - t0 - sum(secs.values())
+    out["tp_engine"] = dict(tokens=res["tokens"], free=pool.num_free_pages, n_pages=n_pages,
+                            decode_steps=res["decode_steps"])
+    del engine, pool
+
+    # (c) SP 2 on each dp row, then SP 2 x TP 2 over all four ranks
+    mesh = make_mesh((2, world // 2), ("dp", "sp"))
+    rows = []
+    zero_counts()
+    with record_logits(sp, rows), kernel_prefill():
+        tok, state = par_sp_prefill(torch, sizes, sp.make_sp_prefill_fn(p2, cfg2, ATOM_W4A4, mesh),
+                                    par_state(sizes, cfg2, dev), dev)
+    counts["parallel_sp_prefill"] = par_launches(torch, dev)
+    out["sp"] = dict(token=tok, state=state_tensors(state), logits=rows[0])
+    del state
+    mesh = make_mesh((2, world // 2), ("sp", "tp"))
+    rows = []
+    zero_counts()
+    with record_logits(sp, rows), kernel_prefill():
+        fn = sp.make_sp_tp_prefill_fn(par.shard_serving_params(p2, cfg2, mesh), cfg2, ATOM_W4A4, mesh)
+        tok, state = par_sp_prefill(torch, sizes, fn, par_state(sizes, cfg2, dev, mesh), dev)
+    counts["parallel_sp_tp_prefill"] = par_launches(torch, dev)
+    secs["sp"] = time.perf_counter() - t0 - sum(secs.values())
+    out["sp_tp"] = dict(token=tok, state=state_tensors(state), logits=all_gather_cols(rows[0][None], mesh.get_group("tp"))[0],
+                        sp_index=axis_index(mesh, "sp"))
+    del state, fn, p2, p4
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) EP 2 on Mixtral width (each dp row)
+    mcfg = sizes["mixtral"]
+    mesh = make_mesh((2, world // 2), ("dp", "ep"))
+    sharded = moe.shard_moe_serving_params(moe.init_moe_serving_params(mcfg, ATOM_W4A4, seed=PAR_SEEDS["mixtral"],
+                                                                       device=dev), mcfg, mesh)
+    rows = []
+    zero_counts()
+    with record_logits(moe, rows):
+        fns = moe.make_moe_ep_step_fns(sharded, mcfg, ATOM_W4A4, mesh)
+        toks, state = par_steps(torch, dev, sizes, *fns, par_state(sizes, mcfg, dev, mesh, "ep"), feed=feeds["ep"])
+    counts["parallel_ep_steps"] = par_launches(torch, dev)
+    secs["ep"] = time.perf_counter() - t0 - sum(secs.values())
+    out["ep"] = dict(tokens=toks, state=state_tensors(state),
+                     logits=all_gather_cols(torch.stack(rows), mesh.get_group("ep")))
+    out["counts"], out["seconds"] = counts, secs
+    return out
+
+
+def par_token_check(torch, what: str, want_toks, want_logits, got_toks, got_logits) -> dict:
+    """Tokens equal to the single device's, except at a step where the single device's top-2 logit margin is
+    below that step's largest |logit difference| between the two paths (the head's products may reduce in
+    another order on a rank's column slice)."""
+    diff = (got_logits - want_logits).abs().amax(dim=-1)
+    top2 = torch.topk(want_logits, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    mism = [i for i, (a, b) in enumerate(zip(got_toks, want_toks)) if a != b]
+    bad = [i for i in mism if margin[i] > diff[i]]
+    log(f"phase 12 {what}: {len(want_toks) - len(mism)}/{len(want_toks)} tokens equal, the largest logit difference "
+        f"{diff.max().item():.3g}, the smallest top-2 margin {margin.min().item():.3g}"
+        + (f", differing at steps {mism} (margins {[round(margin[i].item(), 5) for i in mism]})" if mism else ""))
+    require(not bad, f"phase 12 {what}: tokens differ at steps {bad}, where the margin passes the logit difference")
+    return dict(tokens=len(want_toks), tokens_equal=len(want_toks) - len(mism), logit_max_abs_diff=diff.max().item(),
+                min_top2_margin=margin.min().item(), steps_differing=mism)
+
+
+def par_state_check(torch, what: str, want: dict, got: dict) -> dict:
+    """Pages, ring and flushed counts against the single device's, bit for bit, field by field."""
+    differing = {k: bits(got[k]).ne(bits(want[k])).float().mean().item() for k in want}
+    require(not any(differing.values()), f"phase 12 {what}: state differs from the single device's: "
+            f"{ {k: v for k, v in differing.items() if v} }")
+    return dict(entries_differing=0.0)
+
+
+def parallel_phase(torch, dev, sizes: dict | None = None) -> tuple[dict, dict]:
+    """Phase 12: parallelism on one card.  The single-device references on the kernel path in this process (and
+    (d), dp 2 groups of tp 1 as threads on the card), then one ``run_ranks`` of 4 gloo ranks on the card for (a)
+    TP 2, (b) EP 2, (c) SP 2 and SP 2 x TP 2; each held against the single device: pages, ring and flushed counts
+    bit for bit, tokens by ``par_token_check``."""
+    import atom_tpu_torch.serving.model as model
+    import atom_tpu_torch.serving.moe as moe
+    from atom_tpu_torch.config import ATOM_W4A4
+    from atom_tpu_torch.parallel.launch import run_ranks
+    from atom_tpu_torch.serving.dp import make_dp_tp_engines, run_data_parallel, split_requests
+
+    t_phase = time.perf_counter()
+    sizes = sizes or par_sizes()
+    cfg4 = sizes["llama"]
+    cfg2 = cfg4.replace(num_layers=2)
+    p4 = model.init_serving_params(cfg4, ATOM_W4A4, seed=PAR_SEEDS["llama"], device=dev)
+    p2 = p4._replace(layers=p4.layers[:2])
+    ref, counts, res = {}, {}, {}
+
+    rows = []
+    with record_logits(model, rows):
+        toks, state = par_steps(torch, dev, sizes, *model.make_step_fns(p2, cfg2, ATOM_W4A4), par_state(sizes, cfg2, dev))
+    ref["tp"] = dict(tokens=toks, logits=torch.stack(rows), state=state_tensors(state))
+    rows = []
+    with record_logits(model, rows), kernel_prefill():
+        tok, state = par_sp_prefill(torch, sizes, model.make_step_fns(p2, cfg2, ATOM_W4A4)[0], par_state(sizes, cfg2, dev),
+                                    dev)
+    ref["sp"] = dict(token=tok, logits=rows[0], state=state_tensors(state))
+    del state
+    engine, pool, n_pages, rs = par_engine(sizes, cfg4, dev, model.make_step_fns(p4, cfg4, ATOM_W4A4))
+    with kernel_prefill():
+        ref["engine"] = engine.run(rs, record=True)["tokens"]
+    require(pool.num_free_pages == n_pages - 1, "phase 12: the single-device engine did not return its pages")
+    del engine, pool
+    log(f"phase 12: single-device steps, SP prefill and engine in {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) dp 2 groups of tp 1, threads on the card, at 4 layers: each group's tokens against a single-group run
+    engines = make_dp_tp_engines(p4, cfg4, ATOM_W4A4, par_tg(sizes), [dev, dev], dp=2, tp=1)
+    zero_counts()
+    dp_res = run_data_parallel(engines, rs, record=True)
+    counts["parallel_dp"] = par_launches(torch, dev)
+    parts = split_requests(rs, 2)
+    groups_equal = 0
+    for i, part in enumerate(parts):
+        solo, solo_pool, solo_pages, _ = par_engine(sizes, cfg4, dev, model.make_step_fns(p4, cfg4, ATOM_W4A4))
+        want = solo.run(part, record=True)["tokens"]
+        got = dp_res["per_group"][i]["tokens"]
+        groups_equal += all(got[r] == want[r] for r in range(len(part)))
+        require(engines[i].pool.num_free_pages == engines[i].pool.n_pages - 1, f"phase 12 dp group {i}: pages not returned")
+    require(groups_equal == 2, f"phase 12 dp: {2 - groups_equal} group(s) differ from the single-group run of their part")
+    require(dp_res["output_tokens"] == rs.total_output_tokens, "phase 12 dp: output tokens missing")
+    res["dp"] = dict(groups=2, requests=dp_res["requests"], output_tokens=dp_res["output_tokens"], groups_equal=groups_equal)
+    log(f"phase 12 dp 2 (threads, tp 1): groups equal to single-group runs 2/2, at {time.perf_counter() - t_phase:.1f} s")
+    del engines, p2, p4
+
+    mcfg = sizes["mixtral"]
+    mp = moe.init_moe_serving_params(mcfg, ATOM_W4A4, seed=PAR_SEEDS["mixtral"], device=dev)
+    rows = []
+    with record_logits(moe, rows):
+        toks, state = par_steps(torch, dev, sizes, *moe.make_moe_step_fns(mp, mcfg, ATOM_W4A4), par_state(sizes, mcfg, dev))
+    ref["ep"] = dict(tokens=toks, logits=torch.stack(rows), state=state_tensors(state))
+    del mp, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    feeds = dict(tp=ref["tp"]["tokens"][:-1], ep=ref["ep"]["tokens"][:-1])
+    ranks = run_ranks(parallel_rank, PAR_RANKS, backend="gloo", device=str(dev), timeout_s=PAR_TIMEOUT_S,
+                      args=(sizes, feeds))
+    t_ranks = time.perf_counter() - t0
+    for ph in ranks[0]["counts"]:
+        counts[ph] = {k: sum(r["counts"][ph][k] for r in ranks) for k in ranks[0]["counts"][ph]}
+    for ph, must in (("parallel_tp_steps", PAR_TP_KERNELS), ("parallel_tp_engine", PAR_ENGINE_KERNELS),
+                     ("parallel_ep_steps", PAR_TP_KERNELS), ("parallel_sp_prefill", PAR_SP_KERNELS),
+                     ("parallel_sp_tp_prefill", PAR_SP_KERNELS), ("parallel_dp", PAR_TP_KERNELS)):
+        for name in must:
+            par_require_launched(counts[ph], name, ph)
+
+    fails = []
+
+    def gate(check):
+        """Run one check; a failed one is logged and kept, so every check of the phase reports."""
+        try:
+            return check()
+        except SmokeError as e:
+            log(f"phase 12 check failed: {e}")
+            fails.append(str(e))
+            return dict(failed=str(e))
+
+    def steps_check(what):
+        out = par_token_check(torch, f"{what} 2 steps", ref[what]["tokens"], ref[what]["logits"],
+                              ranks[0][what]["tokens"], ranks[0][what]["logits"])
+        require(all(r[what]["tokens"] == ranks[0][what]["tokens"] for r in ranks), f"phase 12 {what}: ranks disagree")
+        for row in (ranks[0:2], ranks[2:4]):
+            out.update(par_state_check(torch, f"{what} 2 state", ref[what]["state"],
+                                       join_heads(torch, [r[what]["state"] for r in row])))
+        return out
+
+    def engine_check():
+        eng = [r["tp_engine"] for r in ranks]
+        for r, e in enumerate(eng):
+            require(e["free"] == e["n_pages"] - 1, f"phase 12 tp engine, rank {r}: pages not returned")
+            require(e["tokens"] == eng[0]["tokens"], f"phase 12 tp engine: rank {r}'s transcripts differ from rank 0's")
+            for i, want in enumerate(rs.output_lens):
+                require(len(e["tokens"][i]) == int(want), f"phase 12 tp engine, rank {r}, request {i}: tokens missing")
+        first = sum(eng[0]["tokens"][i][0] == ref["engine"][i][0] for i in range(len(rs)))
+        same = sum(eng[0]["tokens"][i] == ref["engine"][i] for i in range(len(rs)))
+        log(f"phase 12 tp 2 engine ({cfg4.num_layers} layers, {len(rs)} requests): first tokens equal in {first}/{len(rs)}, "
+            f"transcripts equal in {same}/{len(rs)}, {eng[0]['decode_steps']} decode steps; prompt lengths "
+            f"{rs.prompt_lens.tolist()}, first tokens {[eng[0]['tokens'][i][0] for i in range(len(rs))]} against "
+            f"{[ref['engine'][i][0] for i in range(len(rs))]}")
+        require(first * 8 >= 7 * len(rs), f"phase 12 tp engine: first tokens equal in only {first}/{len(rs)}")
+        return dict(requests=len(rs), first_tokens_equal=first, transcripts_equal=same,
+                    decode_steps=eng[0]["decode_steps"], layers=cfg4.num_layers)
+
+    def sp_check(what, sp_rows):
+        got_tok = ranks[0][what]["token"]
+        require(all(r[what]["token"] == got_tok for r in ranks), f"phase 12 {what}: ranks disagree on the token")
+        out = par_token_check(torch, f"{what} prefill", [ref["sp"]["token"]], ref["sp"]["logits"][None], [got_tok],
+                              ranks[0][what]["logits"][None])
+        for row in sp_rows:
+            out.update(par_state_check(torch, f"{what} pages", ref["sp"]["state"],
+                                       row[0][what]["state"] if what == "sp" else
+                                       join_heads(torch, [r[what]["state"] for r in row])))
+        return out
+
+    for what in ("tp", "ep"):
+        res[what] = gate(lambda: steps_check(what))
+    res["tp_engine"] = gate(engine_check)
+    res["sp"] = gate(lambda: sp_check("sp", [[r] for r in ranks]))
+    res["sp_tp"] = gate(lambda: sp_check("sp_tp", [ranks[0:2], ranks[2:4]]))
+    res.update(reference_s=t_ref, ranks_s=t_ranks, rank0_s=ranks[0]["seconds"], phase_s=time.perf_counter() - t_phase,
+               ranks=PAR_RANKS,
+               backend="gloo, every rank on the one card (no rate: ranks share the card)",
+               model=(f"Llama-2-7B width ({cfg2.num_layers} layers for the steps and SP, {cfg4.num_layers} for the "
+                      f"engines), Mixtral-8x7B width ({mcfg.num_layers} layers), ATOM_W4A4, bf16 heads; the TP engine's "
+                      "and SP's prefill attention through K12 on both sides"))
+    log(f"phase 12 (parallelism on one card): references {t_ref:.1f} s, ranks {t_ranks:.1f} s; {res}")
+    require(not fails, f"phase 12: {len(fails)} check(s) failed: {fails}")
+    return counts, res
+
+
+def par_require_launched(counts: dict, name: str, phase: str) -> None:
+    require(counts[name] > 0, f"kernel {name} was launched no time on {phase}")
+
+
 SOURCES = {
     "packed_w4_gemm": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:284"),
     "packed_w4_gemm_qkv_ring_fused": ("atom_tpu_torch/csrc/gemm_packed.cu", "atom_tpu/ops/pallas_gemm_packed.py:1261"),
@@ -3551,6 +3974,9 @@ def main() -> int:
     accuracy["training"] = training_phase(torch, dev)
     accuracy["training"]["phase_s"] = time.perf_counter() - t0
     log(f"training phase in {accuracy['training']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    par_counts, parallel = parallel_phase(torch, dev)
+    log(f"parallelism phase in {parallel['phase_s']:.1f} s")
 
     w4a4_burst, w4a4_engine = decode_stats["w8a16"]["decode_tok_s"], engine_res["throughput_tok_s"]
     ratios = {b: dict(decode_burst=w4a4_burst / baselines[b]["burst"]["decode_tok_s"],
@@ -3571,7 +3997,8 @@ def main() -> int:
                         **{f"{b}_stack_{ph}": base_counts[b][ph][name] for b in BASELINE_STACKS for ph in ("burst", "engine")},
                         **{ph: c[name] for ph, c in moe_counts.items()},
                         **{ph: c[name] for ph, c in lora_counts.items()},
-                        **{ph: c[name] for ph, c in calib_counts.items()})
+                        **{ph: c[name] for ph, c in calib_counts.items()},
+                        **{ph: c[name] for ph, c in par_counts.items()})
         path = MAIN_PATH.get(name, "engine")
         launches = by_phase[path]
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
@@ -3617,9 +4044,11 @@ def main() -> int:
         "lora": dict(lora_res, launches=lora_counts),
         "calibrated": dict(calibrated, launches=calib_counts),
         "accuracy_phase_11": accuracy,
+        "parallelism_phase_12": dict(parallel, launches=par_counts),
         "model": ("Llama-2-7B width, 32 layers; W4A4 (also with LoRA adapters) and the baseline stacks bf16, W8A8, W4A16; "
                   "Mixtral-8x7B W4A4; Llama-2-7B width at 4 layers and Mixtral-8x7B at 2 calibrated (GPTQ) and served; "
-                  "OPT-6.7B at 2 calibrated; BYTE_LM trained"),
+                  "OPT-6.7B at 2 calibrated; BYTE_LM trained; tensor-, expert-, sequence- and data-parallel serving "
+                  "on 4 gloo ranks sharing the card"),
         "card": card,
         "path_parity_2_layers": parity, "wall_s": time.perf_counter() - t_all,
     }

@@ -8,7 +8,12 @@ core at 32 and 64 rows, on the core asked for above 64 rows (the layouts
 fault C3 was found in: 64 x 64 blocks at 256 rows, 32 x 64 and 32 x 128 at
 128, 16 x 64 at 256), and on the prefill GEMM at 128, 288 and 1,024 rows; K7
 at 128 rows; K2 (the core with the ring epilogue) at 64, 96 and 128 rows
-(32-row head blocks).  Each is launched ``--launches`` times on the same
+(32-row head blocks).  Also the per-rank shapes of tensor parallelism at
+tp 2 on Llama-2-7B (o_proj and down to N 2,048, gate/up to N 11,008, qkv to
+N 6,144: K1 at 32 and 512 rows, K7 and K2 at the qkv shard) and of expert
+parallelism at ep 2 on Mixtral-8x7B (qkv to N 3,072, o_proj to N 2,048; K2
+at 16 / 4 heads), whose launch layouts differ from the whole weights'.
+Each is launched ``--launches`` times on the same
 inputs, and a launch whose outputs are not ``torch.equal`` to the plain
 version's counts as differing.  K5 (the W8A16 head, ``w8a16_plan``'s
 launches: the Llama-2-7B head at 1, 32, 33, 64 and 65 rows, and a ragged
@@ -36,6 +41,12 @@ K1_PLANNED = [(32, QKV, None, None, None), (32, GATE_UP, None, None, None), (64,
               (128, QKV, "core", 32, 128), (256, QKV, "core", 16, None), (128, QKV, None, None, None),
               (288, GATE_UP, None, None, None), (1024, O_PROJ, None, None, None)]
 K2_PLANNED = (64, 96, 128)
+# the per-rank shards of TP 2 (Llama-2-7B) and EP 2 (Mixtral-8x7B's attention, 32 / 8 heads): K1 (M, (K, N)),
+# K7 (M, n_q, n_kv) and K2 (M, n_q, n_kv)
+K1_SHARDS = [(m, kn) for m in (32, 512) for kn in ((HID, HID // 2), (HID, INTER), (INTER, HID // 2), (HID, 3 * HID // 2))]
+K1_SHARDS += [(32, (HID, 3072)), (32, (HID, HID // 2))]
+K7_SHARDS = [(512, HID // 2, HID // 2), (512, HID // 2, 512)]
+K2_SHARDS = [(32, HID // 2, HID // 2), (32, HID // 2, 512)]
 VOCAB, HEAD_N = 32000, 32256  # the head padded to whole 64-column tiles
 K5_PLANNED = [(m, HID, HEAD_N) for m in (1, 32, 33, 64, 65)] + [(17, 4000, 4160)]
 # K14a (M, K, N) and K14b (M, N at K 4,096)
@@ -88,19 +99,20 @@ def main() -> int:
         print(f"{what}: {differ} of {args.launches} launches differ", flush=True)
         return differ
 
-    def k2_case(m):
-        """K2 at the 7B qkv on m rows: a launch (ring tensors fresh each time) and the plain outputs."""
-        h, w = HID // 128, 32
+    def k2_case(m, n_q=HID, n_kv=HID):
+        """K2 at a qkv of n_q + 2 n_kv columns on m rows: a launch (ring tensors fresh each time) and the plain
+        outputs."""
+        h, w = n_kv // 128, 32
         y = (torch.randn((m, HID), generator=gen, device=dev)).to(torch.bfloat16)
         norm_w = uniform(0.5, 1.5, (HID,)).to(torch.bfloat16)
-        _, wp, wk, _, sw = k1_inputs(1, *QKV)
+        _, wp, wk, _, sw = k1_inputs(1, HID, n_q + 2 * n_kv)
         cos, sin = rope_tables(torch.arange(m, device=dev) + 100, 128, 10000.0)
         ring = (randint(-128, 128, (m, h, 64, w)), uniform(0.1, 1.0, (m, 4, h, w)).to(torch.bfloat16),
                 randint(0, 16, (m, h, w, 128)))
 
         def run(fn):
             k_codes, prm, v_codes = (t.clone() for t in ring)
-            q = fn(y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, 7, HID, HID)
+            q = fn(y, norm_w, wp, wk, sw, cos, sin, k_codes, prm, v_codes, 7, n_q, n_kv)
             return q, k_codes, prm, v_codes
 
         return (lambda: run(gp.packed_w4_gemm_qkv_ring_fused)), run(gp.packed_w4_gemm_qkv_ring_fused_plain)
@@ -119,6 +131,20 @@ def main() -> int:
     for m in K2_PLANNED:
         launch, want = k2_case(m)
         differ += count(f"K2 M={m} under {gp.packed_w4_plan(m, *QKV, head=True)}", launch, want)
+    for m, (ktot, n) in K1_SHARDS:
+        ops = k1_inputs(m, ktot, n)
+        plan = gp.packed_w4_plan(m, ktot, n)
+        differ += count(f"K1 shard M={m} K={ktot} N={n} {plan.path} {plan.tile_m}x{plan.tile_n} grid {plan.grid}",
+                        lambda: gp.packed_w4_gemm_with_plan(*ops, plan), gp.packed_w4_gemm_plain(*ops))
+    for m, n_q, n_kv in K7_SHARDS:
+        ops = k1_inputs(m, HID, n_q + 2 * n_kv)
+        cos, sin = rope_tables(torch.arange(m, device=dev), 128, 10000.0)
+        differ += count(f"K7 shard M={m} n_q={n_q} n_kv={n_kv}", lambda: gp.packed_w4_gemm_qkv(*ops, cos, sin, n_q, n_kv),
+                        gp.packed_w4_gemm_qkv_plain(*ops, cos, sin, n_q, n_kv))
+    for m, n_q, n_kv in K2_SHARDS:
+        launch, want = k2_case(m, n_q, n_kv)
+        differ += count(f"K2 shard M={m} n_q={n_q} n_kv={n_kv} under "
+                        f"{gp.packed_w4_plan(m, HID, n_q + 2 * n_kv, head=True)}", launch, want)
     for m, k, n in K5_PLANNED:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         wq = gw.quantize_w8a16(torch.randn((k, n), generator=gen, device=dev) * 0.02)

@@ -332,7 +332,8 @@ def test_port_imports_neither_jax_nor_atom_tpu():
     for new in ("ops/gemm_w4a16.py", "serving/kvpool.py", "serving/workload.py", "serving/engine.py", "ops/mlp.py",
                 "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py", "serving/lora.py",
                 "native/__init__.py", "calib/gptq.py", "calib/pipeline.py", "models/llama.py", "utils/checkpoint.py",
-                "main.py", "models/opt.py", "models/mixtral.py", "utils/train.py"):
+                "main.py", "models/opt.py", "models/mixtral.py", "utils/train.py", "parallel/mesh.py",
+                "parallel/launch.py", "parallel/shardings.py", "serving/parallel.py", "serving/sp.py", "serving/dp.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and "scripts/torch_train_corpus_model.py" in names
 
