@@ -31,7 +31,8 @@ def perplexity(
     progress: bool = False,
 ) -> float:
     """PPL of a flat token stream over non-overlapping ``seqlen`` windows, on
-    the params' device."""
+    the params' device: an accuracy model's dict or a serving model's
+    ``ServingParams`` (with a serving ``forward``)."""
     if forward is None:
         from atom_tpu_torch.calib.pipeline import _model_api
 
@@ -40,7 +41,7 @@ def perplexity(
     n_windows = len(tokens) // seqlen
     if n_windows <= 0:
         raise ValueError("token stream shorter than one window")
-    dev = params["embed"].device
+    dev = (params["embed"] if isinstance(params, dict) else params.embed).device
     total = 0.0
     for i in range(n_windows):
         window = torch.from_numpy(tokens[i * seqlen : (i + 1) * seqlen].astype(np.int32)).to(dev)

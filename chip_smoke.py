@@ -67,8 +67,8 @@ Phases, each fatal on failure:
      W4A16 stack at 2 layers, kernel path against plain path (a decode step, a
      prefill, the engine with a dozen requests); and the W4A4 stack's ratios
      against each baseline, burst and engine.
-  8. Mixtral-8x7B (``serving/moe.py``) at full width and 16 layers (32 until
-     phase 12 took their time),
+  8. Mixtral-8x7B (``serving/moe.py``) at full width and 8 layers (32 until
+     phase 12 took their time, 16 until phase 13),
      ``ATOM_W4A4``, random weights from a seed, the bf16 head, after the
      baselines' params are freed: ``decode_burst_moe`` at batch 32, context
      512 (launches over 2 flushing windows checked per layer and expert,
@@ -118,7 +118,12 @@ Phases, each fatal on failure:
      ``data/corpus/train.txt``, the loss falling below its first chunk's,
      steps/s and tokens/s, ``eval_loss`` over 8 eval windows, and the
      checkpoint written as ``scripts/torch_train_corpus_model.py`` writes it,
-     read back through ``main.py``'s ``--ckpt`` path.
+     read back through ``main.py``'s ``--ckpt`` path; on that checkpoint
+     ``scripts/torch_serve_byte_lm.py`` at all 12 layers (4 windows of 512,
+     8 calibration windows: both PPLs finite, the served one within 3% of
+     the accuracy pipeline's) and ``scripts/torch_generate.py`` on ``main.py
+     --use_gptq --reorder --export_serving``'s export (2 prompts of 64
+     bytes, 64 bytes generated each, every byte produced).
  12. parallelism on one card (``parallel/``, ``serving/parallel.py``, ``sp.py``,
      ``dp.py``, the expert-parallel half of ``serving/moe.py``), on freed
      memory, last: the single-device references on the kernel path, then one
@@ -137,6 +142,15 @@ Phases, each fatal on failure:
      layers, each group's transcripts equal to a single-group run of its
      partition.  Launches of every check under ``parallel_*`` (summed over
      the ranks).  No rate: the ranks share one card.
+ 13. the package's own benchmark modules (``utils/timing.py``,
+     ``benchmarks/``): ``bench_kernels --quick`` (20 rows by CUDA graph
+     replays, each finite and positive; K1 on both its kernels and K11
+     launched), K1 at M 32, 4,096 x 4,096 by ``bench_op`` beside phase 2's
+     cold-L2 time, then ``bench_textgen``'s bursts at 2 layers of their full
+     width (W4A4 with each head, bf16, W8A8, W4A16, MoE, LoRA) and
+     ``engine_run`` for W4A4 mixed and serial and the W4A16 baseline (16
+     requests), each with its kernels read from the counters and every
+     request's tokens.
 
 stdout ends with the kernels line, the results line, the ratios line, the card
 line and then ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -2483,7 +2497,7 @@ MOE_ENGINE_KERNELS = MOE_DECODE_KERNELS + ("packed_w4_gemm_qkv",)
 # the Mixtral bursts' slope between 1 and MOE_BURST_HI windows, and its samples (cut from 4 and 3 with phase 10, the
 # samples to 1 with phase 11)
 MOE_ENGINE_LAYERS, MOE_PROFILE_STEPS, MOE_BURST_SAMPLES, MOE_BURST_HI = 4, 4, 1, 2
-MOE_BURST_LAYERS = 16  # the Mixtral bursts' depth: cut from all 32 with phase 12 (it feeds no ratio)
+MOE_BURST_LAYERS = 8  # the Mixtral bursts' depth (it feeds no ratio): cut from 32 to 16 with phase 12, to 8 with 13
 
 
 @contextlib.contextmanager
@@ -2718,7 +2732,7 @@ def mixtral_phase(torch, dev) -> tuple[dict, dict]:
 # (LoRA runs the unfused qkv path and the unfused post-attention half: no K2, K7-K10)
 LORA_RANK, LORA_CAPACITY, LORA_ENGINE_LAYERS, LORA_ENGINE_ADAPTERS = 16, 32, 4, 8
 LORA_BURST_LO, LORA_BURST_HI = 1, 2  # ring windows of the LoRA burst's slope (its steps run ~3x the W4A4 burst's kernels)
-LORA_BURST_SAMPLES = 2  # cut from 3 with phase 10
+LORA_BURST_SAMPLES = 1  # cut from 3 with phase 10, to 1 with phase 13
 LORA_DECODE_KERNELS = ("packed_w4_gemm", "paged_ring_decode_attention", "flush_hot", "w8a16_gemm", "embed_gather")
 LORA_NEVER = ("packed_w4_gemm_qkv_ring_fused", "packed_w4_gemm_qkv", "packed_w4_gemm_qkv_ring", "packed_w4_gemm_fused_in",
               "fused_mlp_packed")
@@ -2839,7 +2853,8 @@ def lora_decode_path(torch, dev, qparams, lw, w4a4: dict) -> tuple[dict, dict]:
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     res = dict(
         decode_tok_s=BATCH * 1e3 / step_ms, step_ms=step_ms, step_ms_samples=[x * 1e3 for x in samples],
-        protocol=f"slope between {LORA_BURST_LO} and {LORA_BURST_HI} ring windows, 3 samples, median of positive ones",
+        protocol=f"slope between {LORA_BURST_LO} and {LORA_BURST_HI} ring windows, {LORA_BURST_SAMPLES} sample(s), "
+                 "median of positive ones",
         device_ms_per_step_profiled=dev_ms, device_kernels_per_step=n_kernels, device_busy_share=dev_ms / step_ms,
         profiled_steps=MOE_PROFILE_STEPS, k1_core_ms_per_step=k1_ms, k3_ms_per_step=k3_ms,
         adapter_path=dict(device_ms_per_step=adapter["device_ms"], kernels_per_step=adapter["device_kernels"],
@@ -3310,13 +3325,14 @@ def calibrated_phase(torch, dev, model: str) -> tuple[dict, dict]:
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CHUNK, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_EVAL_WINDOWS = 24, 8, 8, 8, 2048, 8
 
 
-def training_phase(torch, dev) -> dict:
+def training_phase(torch, dev) -> tuple[dict, dict]:
     """Phase 11, last: ``utils/train.py``'s ``train`` on ``BYTE_LM`` (float32,
     random weights from a seed) over ``data/corpus/train.txt``; the loss must
     fall below its first chunk's; steps/s and tokens/s; ``eval_loss`` over a
     few windows of eval.txt; the checkpoint written as
     ``scripts/torch_train_corpus_model.py`` writes it and read back through
-    ``main.py``'s ``--ckpt`` path (its perplexity line, unquantized)."""
+    ``main.py``'s ``--ckpt`` path (its perplexity line, unquantized); then
+    that checkpoint served (``byte_lm_serving``) -> (launch counts, figures)."""
     import contextlib
     import io
     import tempfile
@@ -3375,16 +3391,100 @@ def training_phase(torch, dev) -> dict:
             cli.main(["byte-lm", "corpus", "--ckpt", ckpt, "--wbits", "16", "--abits", "16", "--eval_ppl",
                       "--seqlen", str(TRAIN_SEQLEN), "--calib_samples", "1", "--corpus_dir", str(corpus)])
         res["ckpt_eval_s"] = time.perf_counter() - t0
-    line = [x for x in out.getvalue().splitlines() if x.startswith("targetResult,corpus,")]
-    require(len(line) == 1, f"training: main.py --ckpt printed {out.getvalue()!r}")
-    res["ckpt_ppl"] = float(line[0].split(",")[2])
+        line = [x for x in out.getvalue().splitlines() if x.startswith("targetResult,corpus,")]
+        require(len(line) == 1, f"training: main.py --ckpt printed {out.getvalue()!r}")
+        res["ckpt_ppl"] = float(line[0].split(",")[2])
+        counts, res["served"] = byte_lm_serving(torch, ckpt, corpus)
     # the trained weights, rounded to bf16, read back by main.py: a byte perplexity well below the untrained model's
     require(res["ckpt_ppl"] < math.exp(losses[0]), f"training: the checkpoint's perplexity {res['ckpt_ppl']} is not "
             f"below exp(first chunk loss) {math.exp(losses[0]):.1f}")
     log(f"training: {TRAIN_STEPS} steps in {train_s:.1f} s ({res['steps_per_s']:.2f} steps/s, {res['tokens_per_s']:.0f} "
         f"tok/s), chunk losses {losses}, eval loss {res['eval_loss']:.4f}, the checkpoint through main.py --ckpt: "
         f"perplexity {res['ckpt_ppl']:.3f}, peak {res['peak_memory_gb']:.2f} GB, {card_line()}")
-    return res
+    return counts, res
+
+
+# phase 11's served byte-LM: scripts/torch_serve_byte_lm.py at the JAX script's width (12 layers) on 4 windows of 512
+# tokens, 8 calibration windows; the served PPL's relative distance from the accuracy pipeline's may not pass
+# SERVED_PPL_REL (on the CPU, random BYTE_LM weights: 0.69% at 12 layers with these arguments, 0.76-1.0% at 1 layer
+# and seqlen 128; on the card, the 24-step checkpoint: 0.015%); then scripts/torch_generate.py on main.py's export of the same checkpoint: 2 prompts of 64 bytes
+# of eval.txt, 64 bytes generated each
+SERVED_PPL_REL, SERVED_WINDOWS, GENERATE_BYTES = 0.03, 4, 64
+# BYTE_LM's 6 heads of 128 (768 columns) are off K7's and K2's geometry (n_q a multiple of 512): its qkv runs K1 and
+# the plain RoPE and KV quantizers, in prefill and decode, in both packages
+BYTE_LM_SERVED_KERNELS = ("packed_w4_gemm", "embed_gather")
+BYTE_LM_GENERATE_KERNELS = ("packed_w4_gemm", "paged_ring_decode_attention", "flush_hot", "embed_gather")
+
+
+def byte_lm_serving(torch, ckpt: str, corpus: Path) -> tuple[dict, dict]:
+    """Phase 11, after training, on its checkpoint: ``scripts/torch_serve_byte_lm.py``
+    (calibrate, the accuracy pipeline's PPL, the export, the served PPL through
+    the kernels), then ``main.py byte-lm corpus --ckpt --use_gptq --reorder
+    --export_serving`` and ``scripts/torch_generate.py`` on that export."""
+    import contextlib
+    import io
+    import tempfile
+
+    from atom_tpu_torch import main as cli
+    from atom_tpu_torch.utils import bytetok
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_generate
+    import torch_serve_byte_lm
+
+    counts, res = {}, {}
+    t0 = time.perf_counter()
+    zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ppl = torch_serve_byte_lm.main(["--ckpt", ckpt, "--corpus_dir", str(corpus), "--seqlen", str(CALIB_SEQLEN),
+                                        "--windows", str(SERVED_WINDOWS), "--calib_samples", str(CALIB_SAMPLES)])
+    torch.cuda.synchronize()
+    counts["byte_lm_served_ppl"] = read_counts()
+    for line in out.getvalue().splitlines():
+        if line.startswith(("targetResult,", "served-vs-accuracy")):
+            log(f"phase 11 torch_serve_byte_lm: {line}")
+    acc, srv = ppl["ppl_accuracy"], ppl["ppl_served"]
+    require(math.isfinite(acc) and math.isfinite(srv) and acc > 1 and srv > 1,
+            f"torch_serve_byte_lm: perplexities {acc}, {srv}")
+    rel = (srv - acc) / acc
+    require(abs(rel) <= SERVED_PPL_REL, f"torch_serve_byte_lm: the served PPL {srv:.4f} is {100 * rel:+.2f}% from the "
+            f"accuracy pipeline's {acc:.4f}, past {100 * SERVED_PPL_REL:.0f}%")
+    for name in BYTE_LM_SERVED_KERNELS:
+        require(counts["byte_lm_served_ppl"][name] > 0, f"kernel {name} was not launched by torch_serve_byte_lm")
+    require(counts["byte_lm_served_ppl"]["packed_w4_gemm_by_path"]["prefill"] > 0,
+            "torch_serve_byte_lm's 512-row prefills did not run K1's prefill GEMM")
+    res["served_ppl"] = dict(ppl, rel_delta=rel, bound=SERVED_PPL_REL, seqlen=CALIB_SEQLEN, windows=SERVED_WINDOWS,
+                             calib_samples=CALIB_SAMPLES, s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    text = (corpus / "eval.txt").read_bytes()
+    prompts = [text[i: i + GENERATE_BYTES].decode("utf-8", errors="ignore") for i in (0, 4096)]
+    with tempfile.TemporaryDirectory() as tmp:
+        export = str(Path(tmp) / "serving")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["byte-lm", "corpus", "--ckpt", ckpt, "--use_gptq", "--reorder", "--export_serving", export,
+                      "--seqlen", str(CALIB_SEQLEN), "--calib_samples", str(CALIB_SAMPLES), "--corpus_dir", str(corpus)])
+        res["export_s"] = time.perf_counter() - t0
+        zero_counts()
+        argv = ["--serving_dir", export, "--tokens", str(GENERATE_BYTES)]
+        for p in prompts:
+            argv += ["--prompt", p]
+        with contextlib.redirect_stdout(io.StringIO()):
+            gen = torch_generate.main(argv)
+        torch.cuda.synchronize()
+    counts["byte_lm_generate"] = read_counts()
+    toks = [list(gen["tokens"][i]) for i in range(len(prompts))]
+    require(gen["output_tokens"] == len(prompts) * GENERATE_BYTES
+            and all(len(t) == GENERATE_BYTES and all(0 <= b < 256 for b in t) for t in toks),
+            f"torch_generate: {[len(t) for t in toks]} bytes generated, {GENERATE_BYTES} a prompt wanted")
+    for name in BYTE_LM_GENERATE_KERNELS:
+        require(counts["byte_lm_generate"][name] > 0, f"kernel {name} was not launched by torch_generate")
+    res["generate"] = dict(prompts=len(prompts), bytes_each=GENERATE_BYTES, throughput_tok_s=gen["throughput_tok_s"],
+                           text=[bytetok.decode(t) for t in toks], s=time.perf_counter() - t0)
+    log(f"phase 11 served byte-LM: accuracy PPL {acc:.4f}, served {srv:.4f} ({100 * rel:+.2f}%), "
+        f"generated {res['generate']['text']!r} at {gen['throughput_tok_s']:.1f} tok/s")
+    return counts, res
 
 
 # ---------------------------------------------------------------------------
@@ -3785,6 +3885,124 @@ def parallel_phase(torch, dev, sizes: dict | None = None) -> tuple[dict, dict]:
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the package's own benchmark modules on the card
+# ---------------------------------------------------------------------------
+# bench_textgen's cells at 2 layers of their full width (a path check: its rates at 32 layers come from its own
+# command line, PERF.md), its engine cells at 16 requests; bench_kernels --quick's 20 rows
+BENCH_LAYERS, BENCH_REQUESTS, BENCH_KERNEL_ROWS = 2, 16, 20
+W4A4_HEAD_KERNELS = {"bf16": DECODE_KERNELS[:4] + DECODE_KERNELS[5:], "w8a16": DECODE_KERNELS,
+                     "w4a16": DECODE_KERNELS[:4] + DECODE_KERNELS[5:] + ("w4a16_gemm",)}
+
+
+def bench_phase(torch, dev, kernels: dict) -> tuple[dict, dict]:
+    """Phase 13: ``benchmarks/bench_kernels.py --quick`` (every row finite and
+    positive; K1 on both its kernels and K11 launched), K1 at M = 32, o_proj
+    by ``utils/timing.py::bench_op`` (CUDA graph replays, warm L2) beside
+    phase 2's cold-L2 ``Timer``, then ``benchmarks/bench_textgen.py``: each
+    stack's burst (W4A4 with each head, the three baselines, MoE, LoRA) and
+    ``engine_run`` for W4A4 mixed and serial and the W4A16 baseline, each
+    with its kernels read from the counters and every request's tokens."""
+    import contextlib
+    import io
+
+    from atom_tpu_torch.benchmarks import bench_kernels as bk
+    from atom_tpu_torch.benchmarks import bench_textgen as bt
+    from atom_tpu_torch.ops import gemm_packed as gp
+    from atom_tpu_torch.serving import synth_requests
+    from atom_tpu_torch.utils.timing import bench_op
+
+    counts, res = {}, {}
+    t0 = time.perf_counter()
+    zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bk.main(["--quick"])
+    torch.cuda.synchronize()
+    counts["bench_kernels"] = read_counts()
+    rows = {}
+    for line in out.getvalue().splitlines()[1:]:
+        m = re.match(r"(.+?)\s+(\S+) us", line)
+        require(m is not None, f"bench_kernels printed {line!r}")
+        rows[m.group(1).strip()] = float(m.group(2))
+        log(f"phase 13 bench_kernels: {line}")
+    require(len(rows) == BENCH_KERNEL_ROWS and all(math.isfinite(v) and v > 0 for v in rows.values()),
+            f"bench_kernels --quick: {len(rows)} rows, {rows}")
+    k1_paths = counts["bench_kernels"]["packed_w4_gemm_by_path"]
+    require(k1_paths["core"] > 0 and k1_paths["prefill"] > 0, f"bench_kernels ran K1's kernels {k1_paths}")
+    require(counts["bench_kernels"]["paged_decode_attention_rotated"] > 0, "bench_kernels did not launch K11")
+    res["bench_kernels_quick_us"] = rows
+    res["bench_kernels_s"] = time.perf_counter() - t0
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    args = k1_operands(torch, gen, dev, BATCH, HID, HID)
+    res["k1_o_proj_m32"] = dict(graph_replay_ms=bench_op(gp.packed_w4_gemm, args, iters=100) * 1e3,
+                                timer_cold_l2_ms=kernels["packed_w4_gemm"]["ms_by_shape"]["o_proj"],
+                                protocol="bench_op: slope between CUDA graphs of 1 and 101 launches, min of 3 replays "
+                                         "each (operands warm in L2); Timer: median of 25 event intervals, each after "
+                                         "a 256 MB L2 flush (phase 2)")
+    log(f"phase 13 K1 at M=32, K=N=4096: {res['k1_o_proj_m32']}")
+    del args
+
+    cfg = bt.model_cfg("7b", BENCH_LAYERS)
+    bursts = {f"w4a4_{head}_head": (lambda head=head: bt.burst_throughput_w4a4(cfg, BATCH, CTX, head=head), must)
+              for head, must in W4A4_HEAD_KERNELS.items()}
+    bursts.update({stack: (lambda stack=stack: bt.burst_throughput_baseline(cfg, BATCH, CTX, stack),
+                           BASELINE_KERNELS[stack]) for stack in BASELINE_STACKS})
+    bursts["moe"] = (lambda: bt.burst_throughput_moe(BATCH, CTX, layers=BENCH_LAYERS), MOE_DECODE_KERNELS)
+    bursts["lora"] = (lambda: bt.burst_throughput_lora(cfg, BATCH, CTX), LORA_DECODE_KERNELS)
+    for name, (fn, must) in bursts.items():
+        t0 = time.perf_counter()
+        zero_counts()
+        tok_s, per_step = fn()
+        torch.cuda.synchronize()
+        c = counts[f"bench_{name}_burst"] = read_counts()
+        for k in must:
+            require(c[k] > 0, f"kernel {k} was not launched by bench_textgen's {name} burst")
+        if name == "lora":
+            require_not_launched(c, "bench_textgen's lora burst")
+        if name.startswith("w4a4") and name != "w4a4_w8a16_head":
+            require(c["w8a16_gemm"] == 0, f"bench_textgen's {name} burst launched the W8A16 head")
+        require(math.isfinite(tok_s) and tok_s > 0 and per_step > 0, f"bench_textgen's {name} burst: {tok_s} tok/s")
+        res[f"{name}_burst"] = dict(tok_s=tok_s, step_ms=per_step * 1e3, s=time.perf_counter() - t0)
+        log(f"phase 13 bench_textgen {name} burst ({BENCH_LAYERS} layers): {res[f'{name}_burst']}")
+        torch.cuda.empty_cache()
+
+    want = synth_requests(BENCH_REQUESTS, cfg.vocab_size, maxlen=900)
+    for stack, sched, must in (("w4a4", "mixed", ENGINE_KERNELS + ("paged_decode_attention_rotated",)),
+                               ("w4a4", "serial", ENGINE_KERNELS), ("w4a16", "serial", BASELINE_KERNELS["w4a16"])):
+        t0 = time.perf_counter()
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):  # engine_run's progress lines
+            r = bt.engine_run(cfg, BATCH, BENCH_REQUESTS, stack, sched=sched)
+        torch.cuda.synchronize()
+        c = counts[f"bench_{stack}_{sched}_engine"] = read_counts()
+        for k in must:
+            require(c[k] > 0, f"kernel {k} was not launched by bench_textgen's {stack} {sched} engine")
+        require(r["requests"] == BENCH_REQUESTS and r["output_tokens"] == want.total_output_tokens,
+                f"bench_textgen's {stack} {sched} engine produced {r['output_tokens']} of {want.total_output_tokens} "
+                "output tokens")
+        require((r["mixed_steps"] > 0) == (sched == "mixed"), f"bench_textgen's {stack} {sched} engine: {r}")
+        res[f"{stack}_{sched}_engine"] = dict(r, s=time.perf_counter() - t0)
+        log(f"phase 13 bench_textgen engine_run {stack} {sched} ({BENCH_LAYERS} layers): {r}")
+        torch.cuda.empty_cache()
+
+    def host_read(x):  # a host read: a synchronising copy, which stream capture refuses
+        return float(x.sum())
+
+    try:
+        bench_op(host_read, [torch.ones(8, device=dev)], iters=2)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    require("host_read cannot be captured" in refused,
+            f"bench_op did not refuse an op that cannot be captured, by its name: {refused!r}")
+    torch.cuda.synchronize()
+    require(float(torch.ones(8, device=dev).sum()) == 8.0, "the card does not compute after a refused capture")
+    res["uncapturable_op"] = "refused with its name"
+    return counts, res
+
+
 def par_require_launched(counts: dict, name: str, phase: str) -> None:
     require(counts[name] > 0, f"kernel {name} was launched no time on {phase}")
 
@@ -3971,12 +4189,18 @@ def main() -> int:
         calib_counts.update(counts)
         log(f"{model} accuracy phase in {accuracy[model]['phase_s']:.1f} s")
     t0 = time.perf_counter()
-    accuracy["training"] = training_phase(torch, dev)
+    train_counts, accuracy["training"] = training_phase(torch, dev)
+    calib_counts.update(train_counts)
     accuracy["training"]["phase_s"] = time.perf_counter() - t0
     log(f"training phase in {accuracy['training']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     par_counts, parallel = parallel_phase(torch, dev)
     log(f"parallelism phase in {parallel['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_counts, bench = bench_phase(torch, dev, kernels)
+    bench["phase_s"] = time.perf_counter() - t0
+    log(f"benchmark modules phase in {bench['phase_s']:.1f} s")
 
     w4a4_burst, w4a4_engine = decode_stats["w8a16"]["decode_tok_s"], engine_res["throughput_tok_s"]
     ratios = {b: dict(decode_burst=w4a4_burst / baselines[b]["burst"]["decode_tok_s"],
@@ -3998,7 +4222,8 @@ def main() -> int:
                         **{ph: c[name] for ph, c in moe_counts.items()},
                         **{ph: c[name] for ph, c in lora_counts.items()},
                         **{ph: c[name] for ph, c in calib_counts.items()},
-                        **{ph: c[name] for ph, c in par_counts.items()})
+                        **{ph: c[name] for ph, c in par_counts.items()},
+                        **{ph: c[name] for ph, c in bench_counts.items()})
         path = MAIN_PATH.get(name, "engine")
         launches = by_phase[path]
         require(launches > 0, f"kernel {name} was launched no time on its path ({path})")
@@ -4018,7 +4243,8 @@ def main() -> int:
                                                 decode_burst=decode_counts["packed_w4_gemm_by_path"],
                                                 mixed_engine=mixed_counts["packed_w4_gemm_by_path"],
                                                 **{ph: c["packed_w4_gemm_by_path"] for ph, c in lora_counts.items()},
-                                                **{ph: c["packed_w4_gemm_by_path"] for ph, c in calib_counts.items()})
+                                                **{ph: c["packed_w4_gemm_by_path"] for ph, c in calib_counts.items()},
+                                                **{ph: c["packed_w4_gemm_by_path"] for ph, c in bench_counts.items()})
             require(engine_counts["packed_w4_gemm_by_path"]["prefill"] > 0, "the engine's prefills did not run the prefill GEMM")
             require(decode_counts["packed_w4_gemm_by_path"]["prefill"] == 0, "the decode burst ran the prefill GEMM")
         if name == "fused_mlp_packed":  # K10's launches by path: the cluster epilogue (<= 64 rows), four launches
@@ -4045,6 +4271,7 @@ def main() -> int:
         "calibrated": dict(calibrated, launches=calib_counts),
         "accuracy_phase_11": accuracy,
         "parallelism_phase_12": dict(parallel, launches=par_counts),
+        "benchmarks_phase_13": dict(bench, launches=bench_counts),
         "model": ("Llama-2-7B width, 32 layers; W4A4 (also with LoRA adapters) and the baseline stacks bf16, W8A8, W4A16; "
                   "Mixtral-8x7B W4A4; Llama-2-7B width at 4 layers and Mixtral-8x7B at 2 calibrated (GPTQ) and served; "
                   "OPT-6.7B at 2 calibrated; BYTE_LM trained; tensor-, expert-, sequence- and data-parallel serving "

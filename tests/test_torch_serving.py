@@ -333,9 +333,11 @@ def test_port_imports_neither_jax_nor_atom_tpu():
                 "ops/prefill.py", "ops/gemm.py", "serving/baselines.py", "serving/moe.py", "serving/lora.py",
                 "native/__init__.py", "calib/gptq.py", "calib/pipeline.py", "models/llama.py", "utils/checkpoint.py",
                 "main.py", "models/opt.py", "models/mixtral.py", "utils/train.py", "parallel/mesh.py",
-                "parallel/launch.py", "parallel/shardings.py", "serving/parallel.py", "serving/sp.py", "serving/dp.py"):
+                "parallel/launch.py", "parallel/shardings.py", "serving/parallel.py", "serving/sp.py", "serving/dp.py",
+                "utils/timing.py", "benchmarks/bench_kernels.py", "benchmarks/bench_textgen.py"):
         assert f"atom_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and "scripts/torch_train_corpus_model.py" in names
+    assert "scripts/torch_generate.py" in names and "scripts/torch_serve_byte_lm.py" in names
 
 
 def test_port_imports_with_jax_blocked():
